@@ -1,0 +1,151 @@
+"""The port's hand-written Hopper kernels: build, load, launch, count.
+
+The CUDA C++ sources in ``csrc/`` are compiled by one ``nvcc`` call into a
+single shared library with a plain C interface, at first use, into
+``argon_monte_carlo_tpu_torch/_build/`` (named by a hash of the sources and
+flags, so an edit rebuilds).  The library is loaded with ``ctypes``;
+nothing here runs when the package is imported, and nothing falls back:
+a missing ``nvcc`` or a failed build raises.
+
+Each exported function launches on PyTorch's current stream and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code and then
+adds one to ``launch_counts[name]``, so a run can show which kernels its
+main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# Kernel name -> launches since the last reset.
+launch_counts: Counter = Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "bin_and_table": [_P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "partner_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                      _P, _P, _P, _P, _P, _P, _P, _P],
+    "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _P, _P, _P],
+}
+
+
+class _Library:
+    """The built library, loaded once per process."""
+
+    handle: ctypes.CDLL | None = None
+    build_seconds: float | None = None
+    build_log: str = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library unless it is built."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"libamc_kernels_{digest.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _Library.build_seconds = time.perf_counter() - t0
+    _Library.build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{_Library.build_log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library."""
+    if _Library.handle is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, f"amc_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _Library.handle = lib
+    return _Library.handle
+
+
+def build_info() -> tuple[float | None, str]:
+    """(seconds of the build this process ran or None, nvcc's output)."""
+    return _Library.build_seconds, _Library.build_log
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call ``amc_<name>`` on ``device``'s current stream; raise on a CUDA
+    error, else count the launch."""
+    fn = getattr(library(), f"amc_{name}")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+    launch_counts[name] += 1
+
+
+def use_plain(t: torch.Tensor) -> bool:
+    """Which side of a wrapper runs, decided by the tensor's device: the
+    plain PyTorch version for a CPU tensor, the kernel for a CUDA tensor.
+    Any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tensors on {t.device}: the plain version runs "
+                         f"on the CPU and the kernel on CUDA")
+    return t.device.type == "cpu"
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (the only layout the kernels take)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

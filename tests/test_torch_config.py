@@ -1,0 +1,111 @@
+"""Port vs reference: host constants, config helpers and the host grid.
+
+Every number here is host-side Python/numpy in both packages, so the
+comparison is exact equality.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import argon_monte_carlo_tpu as amc
+import argon_monte_carlo_tpu_torch as amt
+from argon_monte_carlo_tpu import config as jcfg
+from argon_monte_carlo_tpu import physics as jphys
+from argon_monte_carlo_tpu.ops import collide as jcollide
+from argon_monte_carlo_tpu.utils import debye as jdebye
+from argon_monte_carlo_tpu_torch import config as tcfg
+from argon_monte_carlo_tpu_torch import physics as tphys
+from argon_monte_carlo_tpu_torch.ops import collide as tcollide
+from argon_monte_carlo_tpu_torch.utils import debye as tdebye
+
+PHYSICS_PROPS = ["argon_radius", "collision_radius", "collision_range",
+                 "lambda_mfp", "v_mean", "a_shape", "tau"]
+GEOMETRY_PROPS = ["gap_radius", "open_air_radius", "gap_height",
+                  "cold_coating_height", "total_height", "gap_bottom",
+                  "gap_top", "cold_top", "hot_volume", "gap_volume",
+                  "cold_volume", "open_air_volume", "volume", "bounds"]
+
+
+@pytest.mark.parametrize("name", ["CUBE_PHYSICS", "PORE_PHYSICS",
+                                  "TEMPERATURE_PORE_PHYSICS"])
+def test_physics_constants_equal(name):
+    j, t = getattr(jphys, name), getattr(tphys, name)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    for prop in PHYSICS_PROPS:
+        assert getattr(j, prop) == getattr(t, prop), prop
+    assert j.num_molecules(1e-21) == t.num_molecules(1e-21)
+    assert j.kinetic_energy(431.5) == t.kinetic_energy(431.5)
+
+
+@pytest.mark.parametrize("target", [None, 4000, 1_000_000])
+def test_pore_config_and_geometry_equal(target):
+    jc = amc.temperature_pore_config()
+    tc = amt.temperature_pore_config()
+    if target is not None:
+        jc, tc = jc.scaled_to(target), tc.scaled_to(target)
+    for prop in GEOMETRY_PROPS:
+        assert getattr(jc.geometry, prop) == getattr(tc.geometry, prop), prop
+    phys = jc.physics
+    for fn in ("open_air_collision_radius", "gap_collision_radius",
+               "pore_collision_radius"):
+        assert (getattr(jc.geometry, fn)(phys)
+                == getattr(tc.geometry, fn)(tc.physics))
+    n = jc.num_molecules
+    assert n == tc.num_molecules
+    assert (jc.geometry.segment_particle_counts(n)
+            == tc.geometry.segment_particle_counts(n))
+    for prop in ("dt", "num_timesteps", "surface_energy_cold",
+                 "surface_energy_hot"):
+        assert getattr(jc, prop) == getattr(tc, prop), prop
+    jt, tt = jc.gap_energy_table(), tc.gap_energy_table()
+    assert (jt.z_lo, jt.z_hi) == (tt.z_lo, tt.z_hi)
+    np.testing.assert_array_equal(jt.energies, tt.energies)
+    for cap in (None, 4):
+        je = jcfg.EngineConfig(cell_capacity=cap)
+        te = tcfg.EngineConfig(cell_capacity=cap)
+        args = (n, jc.geometry.volume)
+        assert (jcfg.cell_size_for(je, phys, *args)
+                == tcfg.cell_size_for(te, tc.physics, *args))
+        assert (jcfg.cell_capacity_for(je, phys, *args)
+                == tcfg.cell_capacity_for(te, tc.physics, *args))
+
+
+def test_debye_equal():
+    temps = np.linspace(250.0, 400.0, 37)
+    for t_debye, atoms in ((jdebye.T_DEBYE_GRAPHENE, 2),
+                           (jdebye.T_DEBYE_ALUMINA, 10)):
+        np.testing.assert_array_equal(
+            jdebye.surface_energy(temps, t_debye, atoms, 1.38064852e-23),
+            tdebye.surface_energy(temps, t_debye, atoms, 1.38064852e-23),
+        )
+
+
+@pytest.mark.parametrize("target,capacity", [(4000, None), (4000, 4),
+                                             (1_000_000, None)])
+def test_host_grid_equal(target, capacity):
+    jc = amc.temperature_pore_config().scaled_to(target)
+    tc = amt.temperature_pore_config().scaled_to(target)
+    n, vol = jc.num_molecules, jc.geometry.volume
+    size = jcfg.cell_size_for(jcfg.EngineConfig(), jc.physics, n, vol)
+    cap = capacity or jcfg.cell_capacity_for(jcfg.EngineConfig(), jc.physics,
+                                             n, vol)
+    jg = jcollide.grid_for_pore(jc.geometry, size, cap)
+    tg = tcollide.grid_for_pore(tc.geometry, size, cap)
+    for f in ("cell_size", "z_lo", "nz", "num_cells", "capacity"):
+        assert getattr(jg, f) == getattr(tg, f), f
+    for f in ("nx", "layer_base", "half_extent", "neighbors", "active_cells"):
+        a, b = getattr(jg, f), getattr(tg, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(narrowphase="pairs", rebuild_interval=8), "slices 3-5"),
+    (dict(broadphase="allpairs"), "slice 7"),
+    (dict(debug_audits=True), "slice 7"),
+])
+def test_unported_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tcfg.EngineConfig(**kwargs)

@@ -1,0 +1,125 @@
+"""Each hand-written CUDA kernel against its plain PyTorch version on the
+card (marked ``cuda``; skipped where no card is present).
+
+Imports no JAX, so it also runs on a machine with the card and without
+JAX; there, the JAX-importing conftest is skipped:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: integer outputs and staging exact; K10's state within 2 ulp
+(both sides round every operation once, IEEE; measured 0); K7's path_sum
+within 1e-6 relative (block sums in another order).
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+import argon_monte_carlo_tpu_torch as amt
+from argon_monte_carlo_tpu_torch import kernels
+from argon_monte_carlo_tpu_torch.engine import build_grids
+from argon_monte_carlo_tpu_torch.init import init_pore
+from argon_monte_carlo_tpu_torch.ops import collide
+from argon_monte_carlo_tpu_torch.ops import measure as measure_ops
+from argon_monte_carlo_tpu_torch.state import Measurements
+
+pytestmark = pytest.mark.cuda
+
+TARGET = 200_000
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def setup(device, capacity=None):
+    cfg = amt.temperature_pore_config(
+        engine=amt.EngineConfig(cell_capacity=capacity)).scaled_to(TARGET)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    state = init_pore(cfg, gen, device)
+    state = dataclasses.replace(state, pos=state.pos + cfg.dt * state.vel)
+    _, grid = build_grids(amt.make_workload(cfg), device)
+    return cfg, gen, state, grid
+
+
+def ulps(a, b):
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("capacity", [None, 8])
+def test_bin_and_table_kernel(device, capacity):
+    _, _, state, grid = setup(device, capacity)
+    before = kernels.launch_counts["bin_and_table"]
+    got = collide.bin_and_table(state.pos, grid)
+    want = collide.bin_and_table_plain(state.pos, grid)
+    assert kernels.launch_counts["bin_and_table"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    if capacity == 8:
+        assert int(got[3]) > 0
+
+
+def test_partner_sweep_kernel(device):
+    cfg, _, state, grid = setup(device)
+    r = cfg.physics.collision_range
+    _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
+    got = collide.partner_sweep(state.pos, table, pslot, grid, r)
+    want = collide.partner_sweep_plain(state.pos, table, pslot, grid, r)
+    assert torch.equal(got, want) and int((got >= 0).sum()) > 0
+
+
+def test_resolve_pairs_kernel(device):
+    cfg, gen, state, grid = setup(device)
+    r = cfg.physics.collision_range
+    n = state.num_particles
+    _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
+    partner = collide.partner_sweep(state.pos, table, pslot, grid, r)
+    u = torch.rand((n, 6), generator=gen, device=device)
+    state = dataclasses.replace(state, paths=u[:, :4] * 2e-7,
+                                has_collided=u[:, 4] < 0.6)
+    meas = Measurements.zeros(200, torch.float32, n, device)
+    meas = dataclasses.replace(meas, pending_vals=u[:, :4] * 1e-6,
+                               pending_mask=u[:, 5] < 0.1)
+    gs, gm, gc = collide.resolve_pairs(state, meas, partner, r)
+    ws, wm, wc = collide.resolve_pairs_plain(state, meas, partner, r)
+    assert int(gc) == int(wc) > 0
+    assert torch.equal(gs.has_collided, ws.has_collided)
+    assert torch.equal(gm.pending_mask, wm.pending_mask)
+    assert torch.equal(gm.pending_vals, wm.pending_vals)
+    for a, b in ((gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)):
+        assert ulps(a, b) <= 2
+
+
+@pytest.mark.parametrize("capacity", [measure_ops.FLUSH_CAPACITY, 1024,
+                                      TARGET * 2])
+def test_flush_hist_kernel(device, capacity):
+    _, gen, state, _ = setup(device)
+    n = state.num_particles
+    u = torch.rand((n, 5), generator=gen, device=device)
+    meas = Measurements.zeros(200, torch.float32, n, device)
+    meas = dataclasses.replace(
+        meas, pending_vals=u[:, :4] * 1.2e-6, pending_mask=u[:, 4] < 0.05,
+        path_sum=u[:4, 0].contiguous())
+    got = measure_ops.flush_hist(meas, 200, 1e-6, capacity=capacity)
+    want = measure_ops.flush_hist_plain(meas, 200, 1e-6, capacity=capacity)
+    for f in ("hist", "path_count", "hist_drop_count", "pending_vals",
+              "pending_mask"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    torch.testing.assert_close(got.path_sum, want.path_sum, rtol=1e-6,
+                               atol=0)
+    if capacity == 1024:
+        assert int(got.hist_drop_count) > 0
+
+
+def test_kernels_refuse_float64(device):
+    cfg, _, state, grid = setup(device)
+    with pytest.raises(TypeError):
+        collide.bin_and_table(state.pos.double(), grid)
