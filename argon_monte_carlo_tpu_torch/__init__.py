@@ -1,9 +1,12 @@
 """argon_monte_carlo_tpu_torch: the PyTorch/CUDA port of argon_monte_carlo_tpu.
 
-The temperature-pore workload with the per-step sweep narrow phase on the
-cell grid, run by ``Simulation(make_workload(cfg), device="cuda")``.  Its
-four per-step kernels (cell binning and table, partner sweep, impulse
-exchange, histogram flush) are CUDA C++ written for Hopper (``kernels/``);
+The temperature-pore workload on the cell grid, run by
+``Simulation(make_workload(cfg), device="cuda")`` with either narrow
+phase: the per-step sweep or the Verlet pair list
+(``EngineConfig(narrowphase="pairs", rebuild_interval=K)``).  Their
+kernels (cell binning and table, partner sweep, impulse exchange,
+histogram flush; rebuild sweep, pair emission, compaction, pair test and
+resolve, dirty re-search) are CUDA C++ written for Hopper (``kernels/``);
 each has a plain PyTorch twin that runs for tensors on the CPU.
 
 The JAX package ``argon_monte_carlo_tpu`` is the reference this port is

@@ -24,7 +24,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Execution knobs of the sweep engine."""
+    """Execution knobs of the sweep and pairs engines."""
 
     # "float32" (the card's working type) or "float64" (CPU parity tests).
     dtype: str = "float32"
@@ -39,9 +39,11 @@ class EngineConfig:
     # Free-path histograms (reference: 200 bins over (0, 1e-6)).
     num_bins: int = 200
     hist_range: tuple[float, float] = (0.0, 1e-6)
-    # Narrow phase: the full 27-neighbourhood sweep every step.
+    # Narrow phase: "sweep" (the full 27-neighbourhood sweep every step) or
+    # "pairs" (the Verlet reach-pair list, rebuilt every rebuild_interval
+    # steps; ops/pairs.py).
     narrowphase: str = "sweep"
-    # Must be 1 for the sweep (it re-sweeps every step).
+    # Steps between pair-list rebuilds (K); the sweep requires 1.
     rebuild_interval: int = 1
     # Flush staged histogram events every N steps (1 = exact).
     hist_flush_interval: int = 1
@@ -55,12 +57,7 @@ class EngineConfig:
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
-        if self.narrowphase == "pairs":
-            raise NotImplementedError(
-                "narrowphase='pairs' is not ported yet (ROADMAP queue 1, "
-                "slices 3-5: the Verlet pair-list engine, K1 and K3-K6)"
-            )
-        if self.narrowphase != "sweep":
+        if self.narrowphase not in ("sweep", "pairs"):
             raise ValueError(f"unknown narrowphase {self.narrowphase!r}")
         if self.broadphase == "allpairs":
             raise NotImplementedError(
@@ -74,7 +71,9 @@ class EngineConfig:
                 "debug_audits is not ported yet (ROADMAP queue 1, slice 7: "
                 "audits)"
             )
-        if self.rebuild_interval != 1:
+        if self.rebuild_interval < 1:
+            raise ValueError("rebuild_interval must be >= 1")
+        if self.narrowphase == "sweep" and self.rebuild_interval != 1:
             raise ValueError(
                 "rebuild_interval > 1 requires narrowphase='pairs' (the "
                 "sweep rebuilds its cell structure every step)"
@@ -195,3 +194,18 @@ def cell_capacity_for(cfg_engine: EngineConfig, physics: GasPhysics,
     occ = density * size**3
     cap = occ + 5.0 * math.sqrt(max(occ, 1.0)) + 4.0
     return int(math.ceil(cap / 8.0) * 8)
+
+
+def pairs_cell_capacity_for(cfg_engine: EngineConfig, physics: GasPhysics,
+                            num_particles: int, fluid_volume: float) -> int:
+    """Slot count of the pairs-rebuild grid (~3.75 sigma of the occupancy
+    Poisson tail, rounded to the nearest multiple of 8): a particle that
+    loses its slot goes hot and re-searches every step, so coverage holds
+    with a thinner tail than the sweep's (config.py:345-372)."""
+    if cfg_engine.cell_capacity is not None:
+        return cfg_engine.cell_capacity
+    density = num_particles / fluid_volume
+    size = _required_cell_size(cfg_engine, physics, density)
+    occ = density * size**3
+    cap = occ + 3.75 * math.sqrt(max(occ, 1.0)) + 1.0
+    return max(8, int(round(cap / 8.0) * 8))

@@ -1,27 +1,42 @@
-"""The sweep engine: step function and the host loop ``Simulation``.
+"""The sweep and pairs engines: step functions and the host loop
+``Simulation``.
 
-Port of ``argon_monte_carlo_tpu.engine`` for ``narrowphase="sweep"``.  One
-step is
+Port of ``argon_monte_carlo_tpu.engine``.  One step of the sweep
+(``narrowphase="sweep"``) is
 
     drift -> wall pass -> recapture -> bin_and_table (K2) ->
     partner_sweep (K9) -> resolve_pairs (K10) -> recapture ->
     flush_hist (K7) -> counters
 
-A plain Python loop over steps replaces the reference's ``lax.scan``; the
-host reads nothing back inside an epoch (counters and metrics stay 0-d
-tensors on the device), so the card runs ahead of the loop.
+and one step of the Verlet pair-list engine (``narrowphase="pairs"``,
+engine.py:310-472) is
+
+    drift -> wall pass -> recapture -> test_and_resolve (K3) ->
+    recapture -> dirty mask -> one shared compaction (K6) and the dirty
+    sub-compaction (K6) -> research_dirty (K4) ->
+    flush_hist_compacted (K7) -> counters
+
+with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
+on the pre-drift positions at the start of every ``rebuild_interval``
+window.  A plain Python loop over steps replaces the reference's
+``lax.scan``; the host reads nothing back inside an epoch (counters,
+cursors and metrics stay 0-d tensors on the device), so the card runs
+ahead of the loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .config import cell_capacity_for, cell_size_for
+from .config import cell_capacity_for, cell_size_for, pairs_cell_capacity_for
 from .ops import collide
 from .ops import measure as measure_ops
+from .ops import pairs as pairs_ops
+from .ops.compact import compact_indices
 from .state import Measurements, ParticleState, StepMetrics
 
 
@@ -53,22 +68,33 @@ class Workload:
 
 
 def build_grids(workload: Workload, device):
-    """Host-build the collision grid; returns (host_grid, device_grid)."""
+    """Host-build the collision grid; returns (host_grid, device_grid).
+    The pairs engine's grid has the tighter capacity of
+    ``pairs_cell_capacity_for`` (engine.py:78-85)."""
     cfg = workload.cfg
     eng = cfg.engine
     physics = cfg.physics
-    cell_size = cell_size_for(eng, physics, cfg.num_molecules,
-                              workload.fluid_volume)
-    capacity = cell_capacity_for(eng, physics, cfg.num_molecules,
-                                 workload.fluid_volume)
+    args = (eng, physics, cfg.num_molecules, workload.fluid_volume)
+    cell_size = cell_size_for(*args)
+    if eng.narrowphase == "pairs":
+        capacity = pairs_cell_capacity_for(*args)
+    else:
+        capacity = cell_capacity_for(*args)
     host_grid = collide.grid_for_pore(cfg.geometry, cell_size, capacity)
     return host_grid, collide.DeviceGrid.from_grid(host_grid, eng.torch_dtype,
                                                    device)
 
 
+def _nonfinite(state: ParticleState, check: bool) -> torch.Tensor:
+    if not check:
+        return torch.zeros((), dtype=torch.int32, device=state.pos.device)
+    return sum(torch.sum(~torch.isfinite(t), dtype=torch.int32)
+               for t in (state.pos, state.vel, state.paths))
+
+
 def make_step_fn(workload: Workload, grid: collide.DeviceGrid):
-    """The per-step function ``step(state, measure, uniforms, step_index)
-    -> (state, measure, StepMetrics)``."""
+    """The sweep's per-step function ``step(state, measure, uniforms,
+    step_index) -> (state, measure, StepMetrics)``."""
     cfg = workload.cfg
     eng = cfg.engine
     physics = cfg.physics
@@ -121,13 +147,7 @@ def make_step_fn(workload: Workload, grid: collide.DeviceGrid):
             collision_count=measure.collision_count + ledger.wall_hits,
         )
 
-        if eng.check_finite:
-            nonfinite = sum(
-                torch.sum(~torch.isfinite(t), dtype=torch.int32)
-                for t in (state.pos, state.vel, state.paths))
-        else:
-            nonfinite = torch.zeros((), dtype=torch.int32,
-                                    device=state.pos.device)
+        zero = torch.zeros((), dtype=torch.int32, device=state.pos.device)
         metrics = StepMetrics(
             momentum_z=ledger.momentum_z,
             energy_hot=ledger.energy_hot,
@@ -136,9 +156,166 @@ def make_step_fn(workload: Workload, grid: collide.DeviceGrid):
             wall_hits=ledger.wall_hits,
             oob_after_walls=oob_walls,
             oob_after_pairs=oob_pairs,
-            nonfinite=nonfinite,
+            nonfinite=_nonfinite(state, eng.check_finite),
+            rebuilt=zero, dirty_count=zero, latent_full=zero,
+            teleports=zero, latent_research=zero,
         )
         return state, measure, metrics
+
+    return step
+
+
+def pairs_config_for(workload: Workload) -> pairs_ops.PairConfig:
+    """PairConfig sized from the physics (engine.py:227-307).
+
+    lambda(K) = density * 4/3 pi (cr + 2 v_mean K dt)^3 is the expected
+    in-reach candidate count per particle at rebuild; the expected
+    cell-table spills at the grid's capacity (each spilled particle stays
+    hot for the window) widen the re-search budget.  Raises ValueError for
+    a workload no top_k emission can cover.
+    """
+    cfg = workload.cfg
+    eng = cfg.engine
+    physics = cfg.physics
+    k = eng.rebuild_interval
+    n = cfg.num_molecules
+    density = n / workload.fluid_volume
+    radius = physics.collision_range + 2.0 * physics.v_mean * k * cfg.dt
+    lam = density * (4.0 / 3.0) * math.pi * radius**3
+    cap_cells = pairs_cell_capacity_for(eng, physics, n,
+                                        workload.fluid_volume)
+    cs = cell_size_for(eng, physics, n, workload.fluid_volume)
+    occ = max(density * cs**3, 1e-9)
+    # Log-space Poisson pmf, summed occ + 10 sqrt(occ) terms past the
+    # capacity.
+    e_spill_per_cell = 0.0
+    log_p = -occ
+    j_hi = max(cap_cells + 60, int(occ + 10.0 * math.sqrt(occ)) + 2)
+    for j in range(1, j_hi):
+        log_p += math.log(occ) - math.log(j)
+        if j > cap_cells:
+            e_spill_per_cell += (j - cap_cells) * math.exp(log_p)
+    e_spill = (n / max(occ, 1e-9)) * e_spill_per_cell
+    spill_hot = int(math.ceil(1.5 * e_spill))
+    pcfg = pairs_ops.default_pair_config(n, k, pair_expectation=lam,
+                                         spill_hot=spill_hot)
+    # The emission is one-sided: lambda/2 expected emissions per particle
+    # against the top_k budget.
+    if lam / 2.0 > 0.6 * pcfg.top_k:
+        raise ValueError(
+            f"narrowphase='pairs' cannot cover this workload: expected "
+            f"in-reach candidates/particle lambda(K={k}) = {lam:.1f} "
+            f"exceeds the top-{pcfg.top_k} emission budget (per-step "
+            f"drift "
+            f"{2 * physics.v_mean * cfg.dt / physics.collision_range:.1f} "
+            f"collision ranges). Reduce rebuild_interval or use "
+            f"narrowphase='sweep'."
+        )
+    return pcfg
+
+
+def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
+                       pcfg: pairs_ops.PairConfig):
+    """The pairs engine's per-step function ``step(state, measure, plist,
+    uniforms, step_index, rebuilt) -> (state, measure, plist,
+    StepMetrics)``, in the order of the reference's make_pairs_step_fn.
+    The rebuild is not part of the step (``Simulation`` runs it)."""
+    cfg = workload.cfg
+    eng = cfg.engine
+    dt = cfg.dt
+    cr = cfg.physics.collision_range
+    hist_hi = eng.hist_range[1]
+
+    def step(state: ParticleState, measure: Measurements,
+             plist: pairs_ops.PairList, uniforms: torch.Tensor,
+             step_index: int, rebuilt: bool):
+        dev = state.pos.device
+        speed_pre = measure_ops.speed(state.vel)
+
+        # DRIFT + path accrual.
+        prior = state.pos
+        state = dataclasses.replace(
+            state,
+            paths=measure_ops.accumulate_drift(state, dt),
+            pos=state.pos + dt * state.vel,
+        )
+
+        # WALL CASES, then recapture.
+        state, measure, ledger = workload.wall_pass(state, prior, measure,
+                                                    uniforms)
+        pos_pre = state.pos
+        state, oob_walls = workload.post_wall(state)
+        recap_w = torch.any(state.pos != pos_pre, dim=-1)
+
+        # PARTICLE-PARTICLE COLLISIONS on the listed pairs.
+        state, measure, pair_collisions, collided = (
+            pairs_ops.test_and_resolve(state, measure, plist.a, plist.b, cr,
+                                       pcfg.event_capacity))
+        pos_pre = state.pos
+        state, oob_pairs = workload.post_pairs(state)
+        recap_p = torch.any(state.pos != pos_pre, dim=-1)
+
+        # DIRTY RE-SEARCH: speed changed, collided, teleported (hot for
+        # the rest of the window) or queued at the rebuild (pending1).
+        bump = (measure_ops.speed(state.vel) != speed_pre) | collided
+        hot = plist.hot | recap_w | recap_p
+        latent_full = torch.sum(plist.pending1, dtype=torch.int32)
+        dirty = bump | hot | plist.pending1
+        n = state.num_particles
+
+        # One N-sized compaction shared by the flush and the re-search,
+        # then the dirty ones among it.
+        shared_cap = max(measure_ops.FLUSH_CAPACITY, n // 64)
+        shared_idx = compact_indices(measure.pending_mask | dirty,
+                                     shared_cap, n)
+        dirty_at = (shared_idx < n) & dirty[torch.clamp(shared_idx,
+                                                        max=n - 1).long()]
+        dsel = compact_indices(dirty_at, pcfg.research_capacity, shared_cap)
+        dirty_idx = torch.where(
+            dsel < shared_cap,
+            shared_idx[torch.clamp(dsel, max=shared_cap - 1).long()], n)
+        research_dropped = (torch.sum(dirty, dtype=torch.int32)
+                            - torch.sum(dirty_idx < n, dtype=torch.int32))
+        plist = dataclasses.replace(plist, hot=hot)
+        plist, research_lost, latent_per = pairs_ops.research_dirty(
+            state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
+        force = research_lost | (research_dropped > 0)
+        plist = dataclasses.replace(
+            plist,
+            pending1=torch.zeros_like(plist.pending1),
+            age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
+        )
+
+        measure = measure_ops.flush_hist_compacted(measure, shared_idx,
+                                                   eng.num_bins, hist_hi)
+        measure = dataclasses.replace(
+            measure,
+            overflow_count=(measure.overflow_count + plist.overflow
+                            + research_dropped),
+            hot_spill_count=measure.hot_spill_count + plist.spill,
+            err_count=measure.err_count + ledger.errs,
+            collision_count=measure.collision_count + ledger.wall_hits,
+        )
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        plist = dataclasses.replace(plist, overflow=zero, spill=zero)
+
+        metrics = StepMetrics(
+            momentum_z=ledger.momentum_z,
+            energy_hot=ledger.energy_hot,
+            energy_cold=ledger.energy_cold,
+            collisions=pair_collisions + ledger.wall_hits,
+            wall_hits=ledger.wall_hits,
+            oob_after_walls=oob_walls,
+            oob_after_pairs=oob_pairs,
+            nonfinite=_nonfinite(state, eng.check_finite),
+            rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
+                               device=dev),
+            dirty_count=torch.sum(dirty, dtype=torch.int32),
+            latent_full=latent_full,
+            teleports=torch.sum(recap_w | recap_p, dtype=torch.int32),
+            latent_research=torch.sum(latent_per, dtype=torch.int32),
+        )
+        return state, measure, plist, metrics
 
     return step
 
@@ -150,6 +327,11 @@ class Simulation:
     config's seed: first the initial state, then one (N, 2) block of
     uniforms per step.  ``run(draw=...)`` replaces the per-step draw, so a
     test can feed the JAX reference's uniforms and compare trajectories.
+
+    In pairs mode the Simulation also carries the pair list and the steps
+    left in its window across epochs and runs: it rebuilds on the pre-drift
+    positions when the window is used up, and drops the list when ``run``
+    gets a state other than the one it last returned (engine.py:494-814).
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -157,7 +339,15 @@ class Simulation:
         self.cfg = workload.cfg
         self.device = torch.device(device)
         self.host_grid, self.grid = build_grids(workload, self.device)
-        self._step = make_step_fn(workload, self.grid)
+        self._pairs_mode = self.cfg.engine.narrowphase == "pairs"
+        self._plist = None
+        self._window_left = 0
+        self._last_state_out = None
+        if self._pairs_mode:
+            self.pcfg = pairs_config_for(workload)
+            self._step = make_pairs_step_fn(workload, self.grid, self.pcfg)
+        else:
+            self._step = make_step_fn(workload, self.grid)
 
     def init(self, seed: Optional[int] = None):
         """(state, measure, generator) for a fresh run; the generator has
@@ -171,6 +361,26 @@ class Simulation:
             num_particles=state.num_particles, device=self.device,
         )
         return state, measure, gen
+
+    def rebuild(self, state: ParticleState) -> None:
+        """Rebuild the pair list on ``state`` and start a new window."""
+        if self._plist is None:
+            self._plist = pairs_ops.PairList.init(
+                state.num_particles, self.grid, self.pcfg,
+                self.cfg.engine.torch_dtype, self.device)
+        self._plist = pairs_ops.rebuild(
+            state, self.grid, self.pcfg, self.cfg.physics.collision_range,
+            self.cfg.dt, self._plist)
+        self._window_left = self.pcfg.rebuild_interval
+
+    def _pairs_step(self, state, measure, uniforms, step_index):
+        rebuilt = self._window_left <= 0
+        if rebuilt:
+            self.rebuild(state)
+        state, measure, self._plist, metrics = self._step(
+            state, measure, self._plist, uniforms, step_index, rebuilt)
+        self._window_left -= 1
+        return state, measure, metrics
 
     def run(self, num_steps: Optional[int] = None, seed=None, state=None,
             measure=None, generator=None, start_step: int = 0,
@@ -188,6 +398,11 @@ class Simulation:
             num_steps = self.cfg.num_timesteps
         if state is None:
             state, measure, generator = self.init(seed)
+        if state is not self._last_state_out:
+            # A fresh or foreign state: the carried pair list describes
+            # another trajectory.
+            self._plist = None
+            self._window_left = 0
         if draw is None:
             if generator is None:
                 raise ValueError("pass the generator that init() returned, "
@@ -199,6 +414,7 @@ class Simulation:
                 return torch.rand((n, 2), generator=generator, dtype=dtype,
                                   device=self.device)
 
+        step = self._pairs_step if self._pairs_mode else self._step
         epochs = []
         spe = self.cfg.engine.steps_per_epoch
         step_index = start_step
@@ -206,8 +422,7 @@ class Simulation:
         while step_index < end:
             steps = []
             for i in range(step_index, min(step_index + spe, end)):
-                state, measure, metrics = self._step(state, measure, draw(i),
-                                                     i)
+                state, measure, metrics = step(state, measure, draw(i), i)
                 steps.append(metrics)
             epoch = StepMetrics.stack(steps)
             epochs.append(epoch)
@@ -215,6 +430,7 @@ class Simulation:
                 epoch_callback(epoch)
             step_index += len(steps)
         stacked = StepMetrics.concat(epochs) if epochs else None
+        self._last_state_out = state
         return state, measure, stacked
 
     @staticmethod

@@ -1,7 +1,8 @@
 """The port's hand-written Hopper kernels: build, load, launch, count.
 
-The CUDA C++ sources in ``csrc/`` are compiled by one ``nvcc`` call into a
-single shared library with a plain C interface, at first use, into
+The CUDA C++ sources in ``csrc/`` are compiled at first use, one ``nvcc``
+process for each source, all started together, and linked into a single
+shared library with a plain C interface in
 ``argon_monte_carlo_tpu_torch/_build/`` (named by a hash of the sources and
 flags, so an edit rebuilds).  The library is loaded with ``ctypes``;
 nothing here runs when the package is imported, and nothing falls back:
@@ -30,13 +31,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # Kernel name -> launches since the last reset.
 launch_counts: Counter = Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Argument types of each exported amc_<name>, the stream last
+# (tests/test_torch_pairs.py holds them against the C declarations).
 _SIGNATURES = {
     "bin_and_table": [_P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -45,6 +48,14 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P],
     "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P],
+    "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 12,
+    "compact": [_P, _I, _I, _I] + [_P] * 5,
+    "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
+    "rebuild_sweep": [_P] * 6 + [_I] * 4 + [_P] * 5,
+    "test_and_resolve": [_P] * 8 + [_I, _I, _I, _F, _F] + [_P] * 16,
+    "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
+                      + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                         _F] + [_P] * 18,
 }
 
 
@@ -71,25 +82,47 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into one shared library unless it is built."""
+    """Compile csrc/*.cu into one shared library unless it is built: one
+    ``nvcc -c`` process a source, run in parallel, then one link."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    out = BUILD_DIR / f"libamc_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    out = BUILD_DIR / f"libamc_kernels_{tag}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    suffix = f"{tag}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{suffix}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [src.name for src, proc in zip(sources, procs)
+              if proc.returncode != 0]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
     _Library.build_seconds = time.perf_counter() - t0
-    _Library.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    _Library.build_log = "".join(logs)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{_Library.build_log}"
+            f"nvcc failed ({', '.join(failed)}):\n{_Library.build_log}"
         )
     os.replace(tmp, out)
     return out
@@ -118,7 +151,8 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``amc_<name>`` on ``device``'s current stream; raise on a CUDA
-    error, else count the launch."""
+    error, else count the launch.  Scalars are passed as Python ints and
+    floats (ctypes converts them by the signature)."""
     fn = getattr(library(), f"amc_{name}")
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     rc = fn(*args, stream)

@@ -21,11 +21,7 @@ namespace {
 
 constexpr int kScanThreads = 1024;
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// collide.py:324-349: floor, convert to int32, clip.
+// collide.py:324-349 (amc::assign_cell, shared with K4).
 __global__ void assign_cells_kernel(const float* __restrict__ pos, int n,
                                     const int* __restrict__ nx,
                                     const int* __restrict__ layer_base,
@@ -35,15 +31,8 @@ __global__ void assign_cells_kernel(const float* __restrict__ pos, int n,
                                     int* __restrict__ counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float x = pos[3 * i];
-  float y = pos[3 * i + 1];
-  float z = pos[3 * i + 2];
-  int iz = clampi(static_cast<int>(floorf((z - z_lo) / cell_size)), 0, nz - 1);
-  int m = nx[iz];
-  float half = half_extent[iz];
-  int ix = clampi(static_cast<int>(floorf((x + half) / cell_size)), 0, m - 1);
-  int iy = clampi(static_cast<int>(floorf((y + half) / cell_size)), 0, m - 1);
-  int c = layer_base[iz] + iy * m + ix;
+  int c = amc::assign_cell(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], nx,
+                           layer_base, half_extent, nz, z_lo, cell_size);
   cell_id[i] = c;
   atomicAdd(&counts[c], 1);
 }

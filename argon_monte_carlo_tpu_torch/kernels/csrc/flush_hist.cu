@@ -22,6 +22,13 @@
 //      clear the staging;
 //   4. add the integer counts into the float histogram.
 // No float atomics anywhere, so a run is repeatable per seed.
+//
+// amc_flush_hist_compacted is the pairs engine's entry, replacing
+// ops/measure.py flush_pending_compacted (:88-128): the events to bin come
+// from the engine's one shared per-step compaction (K6) instead of the
+// flush's own rank.  Steps 1, 2 and 4 are shared; step 3 bins the listed
+// indices whose staging is set, counts them, and the events not listed are
+// added to hist_drop_count.
 #include "common.cuh"
 
 namespace {
@@ -56,7 +63,8 @@ __global__ void totals_kernel(const int* __restrict__ block_counts,
                               int* __restrict__ block_offsets,
                               float* __restrict__ path_sum,
                               int* __restrict__ path_count,
-                              int* __restrict__ hist_drop_count) {
+                              int* __restrict__ hist_drop_count,
+                              int* __restrict__ events_out) {
   __shared__ int isum[kScanThreads];
   __shared__ float fsum[4][kScanThreads];
   int t = threadIdx.x;
@@ -94,6 +102,7 @@ __global__ void totals_kernel(const int* __restrict__ block_counts,
     for (int k = 0; k < 4; ++k) path_sum[k] = path_sum[k] + fsum[k][0];
     *path_count += events;
     if (n > capacity) *hist_drop_count += max(events - capacity, 0);
+    if (events_out != nullptr) *events_out = events;
   }
 }
 
@@ -135,6 +144,40 @@ __global__ void bin_kernel(const float* __restrict__ vals,
   }
 }
 
+__global__ void bin_listed_kernel(const float* __restrict__ vals,
+                                  const uint8_t* __restrict__ mask, int n,
+                                  const int* __restrict__ event_idx, int e,
+                                  int num_bins, float bin_width,
+                                  int* __restrict__ bins,
+                                  int* __restrict__ binned) {
+  extern __shared__ int sh_bins[];
+  int t = threadIdx.x;
+  int k = blockIdx.x * blockDim.x + t;
+  int row = num_bins + 1;
+  for (int b = t; b < 4 * row; b += blockDim.x) sh_bins[b] = 0;
+  __syncthreads();
+  int i = k < e ? event_idx[k] : n;
+  bool valid = i < n && mask[i];
+  if (valid) {
+    for (int c = 0; c < 4; ++c) {
+      int id = static_cast<int>(floorf(vals[4 * i + c] / bin_width));
+      id = min(max(id, 0), num_bins);
+      atomicAdd(&sh_bins[c * row + id], 1);
+    }
+  }
+  int count = __syncthreads_count(valid);
+  for (int b = t; b < 4 * row; b += blockDim.x) {
+    if (sh_bins[b] != 0) atomicAdd(&bins[b], sh_bins[b]);
+  }
+  if (t == 0 && count > 0) atomicAdd(binned, count);
+}
+
+__global__ void drop_kernel(const int* __restrict__ events,
+                            const int* __restrict__ binned,
+                            int* __restrict__ hist_drop_count) {
+  *hist_drop_count += *events - *binned;
+}
+
 __global__ void add_hist_kernel(const int* __restrict__ bins, int total,
                                 float* __restrict__ hist) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -161,12 +204,47 @@ AMC_EXPORT int amc_flush_hist(
   }
   totals_kernel<<<1, kScanThreads, 0, stream>>>(
       block_counts, block_sums, nblocks, n, capacity, block_offsets, path_sum,
-      path_count, hist_drop_count);
+      path_count, hist_drop_count, nullptr);
   if (nblocks > 0) {
     bin_kernel<<<nblocks, amc::kThreads, sizeof(int) * total, stream>>>(
         vals, mask, n, block_offsets, capacity, num_bins, bin_width, bins,
         vals_out, mask_out);
   }
+  add_hist_kernel<<<amc::blocks_for(total), amc::kThreads, 0, stream>>>(
+      bins, total, hist);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist, path_sum, path_count, hist_drop_count are updated in place (the
+// wrapper passes fresh copies).  event_idx (e,) lists particle indices,
+// n = padding.  Scratch: block_sums (nblocks*4 f32), block_counts,
+// block_offsets (nblocks i32), bins (4*(num_bins+1) i32), counts (2 i32:
+// events, binned).
+AMC_EXPORT int amc_flush_hist_compacted(
+    const float* vals, const uint8_t* mask, int n, const int* event_idx,
+    int e, int num_bins, float bin_width, float* hist, float* path_sum,
+    int* path_count, int* hist_drop_count, float* block_sums,
+    int* block_counts, int* block_offsets, int* bins, int* counts,
+    float* vals_out, uint8_t* mask_out, cudaStream_t stream) {
+  int total = 4 * (num_bins + 1);
+  int nblocks = amc::blocks_for(n);
+  cudaMemsetAsync(bins, 0, sizeof(int) * total, stream);
+  cudaMemsetAsync(counts, 0, 2 * sizeof(int), stream);
+  if (nblocks > 0) {
+    partials_kernel<<<nblocks, amc::kThreads, 0, stream>>>(
+        vals, mask, n, block_sums, block_counts);
+  }
+  totals_kernel<<<1, kScanThreads, 0, stream>>>(
+      block_counts, block_sums, nblocks, n, n, block_offsets, path_sum,
+      path_count, hist_drop_count, counts);
+  if (e > 0) {
+    bin_listed_kernel<<<amc::blocks_for(e), amc::kThreads,
+                        sizeof(int) * total, stream>>>(
+        vals, mask, n, event_idx, e, num_bins, bin_width, bins, counts + 1);
+  }
+  drop_kernel<<<1, 1, 0, stream>>>(counts, counts + 1, hist_drop_count);
+  cudaMemsetAsync(vals_out, 0, sizeof(float) * 4 * n, stream);
+  cudaMemsetAsync(mask_out, 0, n, stream);
   add_hist_kernel<<<amc::blocks_for(total), amc::kThreads, 0, stream>>>(
       bins, total, hist);
   return static_cast<int>(cudaGetLastError());

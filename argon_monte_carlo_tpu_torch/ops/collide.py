@@ -1,8 +1,8 @@
 """Particle-particle hard-sphere collisions: cell grid, partner sweep,
-impulse exchange.
+impulse exchange, and the pairs rebuild's candidate sweep.
 
-Port of ``argon_monte_carlo_tpu.ops.collide`` for the per-step sweep narrow
-phase.  One step runs three kernels:
+Port of ``argon_monte_carlo_tpu.ops.collide``.  One step of the sweep narrow
+phase runs three kernels:
 
 1. ``bin_and_table`` (K2): each particle's cell id, the capacity-padded
    (C+1, cap) table of particle indices (sentinel n), the particle -> slot
@@ -11,6 +11,10 @@ phase.  One step runs three kernels:
    collision range over its 27 neighbour cells (-1 = none);
 3. ``resolve_pairs`` (K10): mutually matched pairs exchange the elastic
    impulse; completed paths are staged and path accumulators reset.
+
+The pairs engine's rebuild runs K2 and then ``rebuild_sweep`` (K1): the
+one-sided half-shell reach-mode sweep of the active cells, which keeps each
+particle's top_k lowest-index candidates and the rebuild-time planes.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, same signature
 and outputs) for tensors on the CPU and launches its CUDA kernel for
@@ -48,8 +52,8 @@ class Grid:
     the flat id of the layer's first cell.  ``neighbors[c, o]`` gives the
     27-neighbourhood cell ids, ``num_cells`` (the dummy empty cell) where a
     neighbour is outside the grid.  ``active_cells`` lists the cells whose
-    box meets the gas region; the sweep does not use it (it sweeps every
-    row) but the pairs engine will.
+    box meets the gas region; the per-step sweep does not use it (it sweeps
+    every row), the pairs rebuild sweeps only those rows.
     """
 
     cell_size: float
@@ -177,7 +181,11 @@ def grid_for_pore(geom, cell_size: float, capacity: int) -> Grid:
 @dataclasses.dataclass(frozen=True)
 class DeviceGrid:
     """Grid tables on the device: int32 nx, layer_base and neighbors, the
-    working-dtype half_extent, and the scalars the kernels take."""
+    working-dtype half_extent, the scalars the kernels take, and
+    ``active_rank`` -- each cell's rank in the active-cell list, -1 for an
+    inactive cell and for the dummy cell (reference DeviceGrid.active_rank,
+    collide.py:245-250; every cell is active when the host grid has no
+    list)."""
 
     nx: torch.Tensor           # (nz,) int32
     layer_base: torch.Tensor   # (nz,) int32
@@ -188,6 +196,7 @@ class DeviceGrid:
     nz: int
     num_cells: int
     capacity: int
+    active_rank: torch.Tensor  # (num_cells + 1,) int32
 
     @staticmethod
     def from_grid(grid: Grid, dtype, device) -> "DeviceGrid":
@@ -205,7 +214,20 @@ class DeviceGrid:
             nz=grid.nz,
             num_cells=grid.num_cells,
             capacity=grid.capacity,
+            active_rank=put(active_rank_for(grid.num_cells,
+                                            grid.active_cells), torch.int32),
         )
+
+
+def active_rank_for(num_cells: int, active_cells) -> np.ndarray:
+    """(num_cells + 1,) rank of each cell in the active list, -1 if
+    inactive (the dummy cell always is); all cells when the list is None."""
+    rank = np.full(num_cells + 1, -1, np.int32)
+    if active_cells is None:
+        active_cells = np.arange(num_cells)
+    rank[np.asarray(active_cells)] = np.arange(len(active_cells),
+                                               dtype=np.int32)
+    return rank
 
 
 # --------------------------------------------------------------------------
@@ -359,6 +381,113 @@ def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
         n, grid.num_cells, cap, search_radius * search_radius, p(partner),
     )
     return partner
+
+
+# --------------------------------------------------------------------------
+# K1: the pairs rebuild's candidate sweep (collide.py:453-961, reach mode,
+# one-sided, half shell, active rows)
+# --------------------------------------------------------------------------
+
+_HALF_SHELL = slice(13, 27)
+
+
+def rebuild_planes_plain(pos: torch.Tensor, reach: torch.Tensor,
+                         table: torch.Tensor):
+    """The rebuild-time slot planes: pos0 (rows, cap, 3) and reach0
+    (rows, cap) gathered through the K2 table; empty slots hold the
+    reference's far position 1e9 and reach 0 (collide.py:540-576)."""
+    n = pos.shape[0]
+    real = table < n
+    src = torch.where(real, table, 0).long()
+    pos0 = torch.where(real[..., None], pos[src],
+                       torch.full((), 1e9, dtype=pos.dtype,
+                                  device=pos.device))
+    reach0 = torch.where(real, reach[src], torch.zeros((), dtype=reach.dtype,
+                                                       device=pos.device))
+    return pos0, reach0
+
+
+def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
+                        table: torch.Tensor, pslot: torch.Tensor,
+                        grid: DeviceGrid, top_k: int,
+                        chunk: int = 1 << 14):
+    """Plain version of K1.  Returns (cands (N, top_k) int32 ascending,
+    -1 padded; unswept (N,) bool; pos0; reach0).
+
+    Particle i (the emitter) in an active cell scans neighbour columns
+    13-26 of its own cell (the half shell); in its own cell (column 13)
+    only higher indices count.  A hit is d^2 < (reach_i + reach_j)^2 with
+    d^2 = (dx*dx + dy*dy) + dz*dz, dx = x_i - x_j.  A particle without a
+    slot emits nothing; one in an inactive cell emits nothing and is
+    unswept.  Works through the particles in chunks so the (chunk, 14*cap)
+    candidate block stays small.
+    """
+    n = pos.shape[0]
+    cap = grid.capacity
+    dummy = grid.num_cells * cap
+    dev = pos.device
+    pos0, reach0 = rebuild_planes_plain(pos, reach, table)
+    cands = torch.full((n, top_k), -1, dtype=torch.int32, device=dev)
+    unswept = torch.zeros(n, dtype=torch.bool, device=dev)
+    big = torch.full((), _NO_PARTNER, dtype=torch.int32, device=dev)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        s = pslot[lo:hi].long()
+        listed = s < dummy
+        cell = torch.where(listed, s // cap, grid.num_cells)
+        covered = listed & (grid.active_rank[cell] >= 0)
+        unswept[lo:hi] = listed & ~covered
+        rows = grid.neighbors[torch.where(covered, cell, 0)][:, _HALF_SHELL]
+        rows = rows.long()
+        idx = table[rows].reshape(hi - lo, -1)
+        d = pos[lo:hi, None, :] - pos0[rows].reshape(hi - lo, -1, 3)
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+        d2 = d2 + d[..., 2] * d[..., 2]
+        th = reach[lo:hi, None] + reach0[rows].reshape(hi - lo, -1)
+        own = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+        lanes = torch.arange(idx.shape[1], device=dev)[None, :]
+        id_ok = (lanes >= cap) | (idx > own)
+        hit = (d2 < th * th) & (idx < n) & id_ok & covered[:, None]
+        masked = torch.where(hit, idx, big)
+        k = min(top_k, masked.shape[1])
+        best = torch.sort(masked, dim=1).values[:, :k]
+        cands[lo:hi, :k] = torch.where(best < _NO_PARTNER, best, -1)
+    return cands, unswept, pos0, reach0
+
+
+def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
+                  table: torch.Tensor, pslot: torch.Tensor,
+                  grid: DeviceGrid, top_k: int):
+    """K1 (see ``rebuild_sweep_plain``); CUDA kernel for CUDA tensors.
+    ``table`` and ``pslot`` come from ``bin_and_table`` on this grid (its
+    rows are filled from the front, which the kernel relies on)."""
+    if kernels.use_plain(pos):
+        return rebuild_sweep_plain(pos, reach, table, pslot, grid, top_k)
+    dev = pos.device
+    n = pos.shape[0]
+    cap = grid.capacity
+    rows = grid.num_cells + 1
+    if not 1 <= top_k <= 16:
+        raise ValueError(f"top_k={top_k}: the kernel keeps 1 to 16")
+    f32, i32 = torch.float32, torch.int32
+    kernels.check(pos, "pos", f32, (n, 3), dev)
+    kernels.check(reach, "reach", f32, (n,), dev)
+    kernels.check(table, "table", i32, (rows, cap), dev)
+    kernels.check(pslot, "pslot", i32, (n,), dev)
+    kernels.check(grid.neighbors, "grid.neighbors", i32,
+                  (grid.num_cells, 27), dev)
+    kernels.check(grid.active_rank, "grid.active_rank", i32, (rows,), dev)
+    pos0 = torch.empty((rows, cap, 3), dtype=f32, device=dev)
+    reach0 = torch.empty((rows, cap), dtype=f32, device=dev)
+    cands = torch.empty((n, top_k), dtype=i32, device=dev)
+    unswept = torch.empty(n, dtype=torch.bool, device=dev)
+    p = kernels.ptr
+    kernels.launch(
+        "rebuild_sweep", dev, p(pos), p(reach), p(table), p(pslot),
+        p(grid.neighbors), p(grid.active_rank), n, grid.num_cells, cap,
+        top_k, p(pos0), p(reach0), p(cands), p(unswept),
+    )
+    return cands, unswept, pos0, reach0
 
 
 # --------------------------------------------------------------------------

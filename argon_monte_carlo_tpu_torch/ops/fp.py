@@ -2,22 +2,23 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Square root, correctly rounded for float32 on every device.
+    """Square root, correctly rounded on every device.
 
-    PyTorch's vectorized float32 sqrt on x86 CPUs misses the IEEE result
-    by one ulp for ~17% of inputs, while the reference (XLA) and the CUDA
-    kernels round exactly; one ulp in a grazing collision's discriminant
-    grows to 1e-5 in the exchanged velocity.  On the CPU float32 therefore
-    goes through float64, whose square root rounded back to float32 is the
-    correctly rounded result (53 >= 2*24 + 2 bits).  CUDA's own sqrt is
-    IEEE already.
+    PyTorch's vectorized sqrt on x86 CPUs misses the IEEE result by one
+    ulp for ~17% of float32 and ~1% of float64 inputs, while the reference
+    (XLA) and the CUDA kernels round exactly; one ulp in a grazing
+    collision's discriminant grows to 1e-5 in the exchanged velocity, and
+    one in a speed flips the pairs engine's bump mask.  On the CPU the
+    root is therefore numpy's, which is the hardware's IEEE square root.
+    CUDA's own sqrt is IEEE already.
     """
-    if x.dtype == torch.float32 and x.device.type == "cpu":
-        return torch.sqrt(x.double()).float()
+    if x.device.type == "cpu":
+        return torch.as_tensor(np.sqrt(x.numpy()))
     return torch.sqrt(x)
 
 

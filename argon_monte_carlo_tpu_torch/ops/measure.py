@@ -4,6 +4,8 @@ Port of ``argon_monte_carlo_tpu.ops.measure``.  Events stage their
 completed path (total, x, y, z) into ``Measurements.pending_*``, one slot
 per particle; ``flush_hist`` (K7) folds the staging into the exact running
 sums and counts and the binned ``(4, num_bins+1)`` histogram once per flush.
+The pairs engine flushes through ``flush_hist_compacted`` (K7's second
+entry), which bins the events listed by the engine's shared compaction.
 A particle's first collision ends a partial path, which is discarded
 (Open_Air_Cube_MC.py:267-280).
 """
@@ -17,7 +19,7 @@ import torch
 from .. import kernels
 from ..state import Measurements, ParticleState
 from . import fp
-from .compact import compact_indices
+from .compact import compact_indices_plain
 
 # Fixed event-compaction width of the flush (reference ops/measure.py:85).
 # Above it only the lowest-index events are binned; the rest are counted in
@@ -25,11 +27,19 @@ from .compact import compact_indices
 FLUSH_CAPACITY = 16384
 
 
+def speed(vel: torch.Tensor) -> torch.Tensor:
+    """(N,) |v| as sqrt((vx*vx + vy*vy) + vz*vz): the one speed formula of
+    the port (the reference's jnp.linalg.norm), shared by the path
+    bookkeeping, the reach radii and the pairs engine's bump mask, and
+    computed in the same order by the kernels."""
+    vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
+    return fp.sqrt(vx * vx + vy * vy + vz * vz)
+
+
 def path_components(vel: torch.Tensor) -> torch.Tensor:
     """(N, 4) |velocity| magnitudes in path-axis order (total, x, y, z)."""
-    vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
-    speed = fp.sqrt(vx * vx + vy * vy + vz * vz)
-    return torch.stack([speed, vx.abs(), vy.abs(), vz.abs()], dim=-1)
+    return torch.stack([speed(vel), vel[:, 0].abs(), vel[:, 1].abs(),
+                        vel[:, 2].abs()], dim=-1)
 
 
 def accumulate_drift(state: ParticleState, dt: float) -> torch.Tensor:
@@ -87,7 +97,7 @@ def flush_hist_plain(measure: Measurements, num_bins: int, hist_hi: float,
     n_events = torch.sum(mask, dtype=torch.int32)
     drop = measure.hist_drop_count
     if n > capacity:
-        event_idx = compact_indices(mask, capacity, n)
+        event_idx = compact_indices_plain(mask, capacity, n)
         binned = event_idx[event_idx < n].long()
         drop = drop + torch.clamp(n_events - capacity, min=0)
     else:
@@ -147,6 +157,87 @@ def flush_hist(measure: Measurements, num_bins: int, hist_hi: float,
         num_bins, hist_hi / num_bins, p(hist), p(path_sum), p(path_count),
         p(drop), p(block_sums), p(block_counts), p(block_offsets), p(bins),
         p(vals_out), p(mask_out),
+    )
+    return dataclasses.replace(
+        measure, hist=hist, path_sum=path_sum, path_count=path_count,
+        hist_drop_count=drop, pending_vals=vals_out, pending_mask=mask_out,
+    )
+
+
+def flush_hist_compacted_plain(measure: Measurements,
+                               event_idx: torch.Tensor, num_bins: int,
+                               hist_hi: float) -> Measurements:
+    """Plain version of K7's compacted entry (measure.py:88-128): sums and
+    counts over every staged event, the histogram over the staged events
+    that ``event_idx`` lists (index n = padding; a superset is fine), the
+    staged events it does not list added to ``hist_drop_count``, and the
+    staging cleared."""
+    vals, mask = measure.pending_vals, measure.pending_mask
+    n = vals.shape[0]
+    path_sum = measure.path_sum + torch.where(
+        mask[:, None], vals, torch.zeros_like(vals)).sum(dim=0)
+    n_events = torch.sum(mask, dtype=torch.int32)
+    listed = event_idx[event_idx < n].long()
+    binned = listed[mask[listed]]
+    bin_width = hist_hi / num_bins
+    ids = torch.clamp(
+        torch.floor(fp.div(vals[binned], bin_width)).to(torch.int32), 0,
+        num_bins)
+    offsets = torch.arange(4, dtype=torch.int32, device=vals.device)
+    flat = (ids + offsets * (num_bins + 1)).flatten().long()
+    counts = torch.bincount(flat, minlength=4 * (num_bins + 1))
+    return dataclasses.replace(
+        measure,
+        hist=measure.hist + counts.view(4, num_bins + 1).to(torch.float32),
+        path_sum=path_sum,
+        path_count=measure.path_count + n_events,
+        hist_drop_count=(measure.hist_drop_count + n_events
+                         - binned.shape[0]),
+        pending_vals=torch.zeros_like(vals),
+        pending_mask=torch.zeros_like(mask),
+    )
+
+
+def flush_hist_compacted(measure: Measurements, event_idx: torch.Tensor,
+                         num_bins: int, hist_hi: float) -> Measurements:
+    """K7's compacted entry (see ``flush_hist_compacted_plain``); CUDA
+    kernel for CUDA tensors."""
+    vals = measure.pending_vals
+    if kernels.use_plain(vals):
+        return flush_hist_compacted_plain(measure, event_idx, num_bins,
+                                          hist_hi)
+    dev = vals.device
+    n = vals.shape[0]
+    e = event_idx.shape[0]
+    row = num_bins + 1
+    if 4 * row * 4 > 48 * 1024:
+        raise ValueError(f"num_bins={num_bins}: the kernel's shared-memory "
+                         f"bins hold at most {48 * 1024 // 16 - 1}")
+    f32, i32 = torch.float32, torch.int32
+    kernels.check(vals, "pending_vals", f32, (n, 4), dev)
+    kernels.check(measure.pending_mask, "pending_mask", torch.bool, (n,), dev)
+    kernels.check(event_idx, "event_idx", i32, (e,), dev)
+    kernels.check(measure.hist, "hist", f32, (4, row), dev)
+    kernels.check(measure.path_sum, "path_sum", f32, (4,), dev)
+    kernels.check(measure.path_count, "path_count", i32, (), dev)
+    kernels.check(measure.hist_drop_count, "hist_drop_count", i32, (), dev)
+    hist = measure.hist.clone()
+    path_sum = measure.path_sum.clone()
+    path_count = measure.path_count.clone()
+    drop = measure.hist_drop_count.clone()
+    nblocks = -(-n // 256)
+    block_sums = torch.empty((nblocks, 4), dtype=f32, device=dev)
+    scratch = torch.empty((2, nblocks), dtype=i32, device=dev)
+    bins = torch.empty(4 * row, dtype=i32, device=dev)
+    counts = torch.empty(2, dtype=i32, device=dev)
+    vals_out = torch.empty_like(vals)
+    mask_out = torch.empty_like(measure.pending_mask)
+    p = kernels.ptr
+    kernels.launch(
+        "flush_hist_compacted", dev, p(vals), p(measure.pending_mask), n,
+        p(event_idx), e, num_bins, hist_hi / num_bins, p(hist), p(path_sum),
+        p(path_count), p(drop), p(block_sums), p(scratch[0]),
+        p(scratch[1]), p(bins), p(counts), p(vals_out), p(mask_out),
     )
     return dataclasses.replace(
         measure, hist=hist, path_sum=path_sum, path_count=path_count,

@@ -61,11 +61,13 @@ class Measurements:
     overflow_count: particles dropped from over-capacity cells.
     hist_drop_count: events beyond the flush capacity, dropped from the
           histogram only (never from the sums).
+    hot_spill_count: pairs engine only -- rebuild-time cell-table spills
+          and strays in inactive cells, absorbed by the hot set (not a
+          loss, so separate from overflow_count).
     pending_vals / pending_mask: per-particle staging of this step's
           completed paths, folded in by the histogram flush.
 
-    The sharded engine's ``halo_trunc_count`` and the pairs engine's
-    ``hot_spill_count`` arrive with those engines.
+    The sharded engine's ``halo_trunc_count`` arrives with that engine.
     """
 
     hist: torch.Tensor
@@ -75,6 +77,7 @@ class Measurements:
     err_count: torch.Tensor
     overflow_count: torch.Tensor
     hist_drop_count: torch.Tensor
+    hot_spill_count: torch.Tensor
     pending_vals: torch.Tensor
     pending_mask: torch.Tensor
 
@@ -90,6 +93,7 @@ class Measurements:
             err_count=_count(device),
             overflow_count=_count(device),
             hist_drop_count=_count(device),
+            hot_spill_count=_count(device),
             pending_vals=torch.zeros((num_particles, NUM_PATH_AXES),
                                      dtype=dtype, device=device),
             pending_mask=torch.zeros((num_particles,), dtype=torch.bool,
@@ -102,7 +106,12 @@ class StepMetrics:
     """Per-step scalars; ``Simulation.run`` stacks them to (steps,) tensors.
 
     momentum_z / energy_hot / energy_cold are the reference's per-step
-    ledger (Temperature_Pore_MC.py:685-687, 755-758).
+    ledger (Temperature_Pore_MC.py:685-687, 755-758).  The last five are
+    the pairs engine's (zero in the sweep): whether the step began with a
+    rebuild, how many particles were dirty, and the one-step-latency
+    diagnostics -- full rebuild emissions consumed this step, recapture
+    teleports, and re-searched candidates already within the collision
+    range of their stored position (reference state.py:157-181).
     """
 
     momentum_z: torch.Tensor
@@ -113,6 +122,11 @@ class StepMetrics:
     oob_after_walls: torch.Tensor
     oob_after_pairs: torch.Tensor
     nonfinite: torch.Tensor
+    rebuilt: torch.Tensor
+    dirty_count: torch.Tensor
+    latent_full: torch.Tensor
+    teleports: torch.Tensor
+    latent_research: torch.Tensor
 
     @staticmethod
     def stack(steps: list["StepMetrics"]) -> "StepMetrics":

@@ -1,4 +1,5 @@
-"""Port vs reference: host constants, config helpers and the host grid.
+"""Port vs reference: host constants, config helpers (the pairs engine's
+capacities included) and the host grid.
 
 Every number here is host-side Python/numpy in both packages, so the
 comparison is exact equality.
@@ -12,10 +13,12 @@ import pytest
 import argon_monte_carlo_tpu as amc
 import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu import config as jcfg
+from argon_monte_carlo_tpu import engine as jengine
 from argon_monte_carlo_tpu import physics as jphys
 from argon_monte_carlo_tpu.ops import collide as jcollide
 from argon_monte_carlo_tpu.utils import debye as jdebye
 from argon_monte_carlo_tpu_torch import config as tcfg
+from argon_monte_carlo_tpu_torch import engine as tengine
 from argon_monte_carlo_tpu_torch import physics as tphys
 from argon_monte_carlo_tpu_torch.ops import collide as tcollide
 from argon_monte_carlo_tpu_torch.utils import debye as tdebye
@@ -102,10 +105,73 @@ def test_host_grid_equal(target, capacity):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(narrowphase="pairs", rebuild_interval=8), "slices 3-5"),
     (dict(broadphase="allpairs"), "slice 7"),
     (dict(debug_audits=True), "slice 7"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         tcfg.EngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(rebuild_interval=8),                       # the sweep re-sweeps
+    dict(narrowphase="pairs", rebuild_interval=0),
+    dict(narrowphase="verlet"),
+])
+def test_engine_options_checked(kwargs):
+    with pytest.raises(ValueError):
+        tcfg.EngineConfig(**kwargs)
+    tcfg.EngineConfig(narrowphase="pairs", rebuild_interval=8)
+
+
+def pairs_workloads(target, rebuild_interval=8, capacity=None):
+    def engine(module):
+        return module.EngineConfig(narrowphase="pairs", cell_capacity=capacity,
+                                   rebuild_interval=rebuild_interval)
+    return (amc.make_workload(amc.temperature_pore_config(
+                engine=engine(jcfg)).scaled_to(target)),
+            amt.make_workload(amt.temperature_pore_config(
+                engine=engine(tcfg)).scaled_to(target)))
+
+
+@pytest.mark.parametrize("target", [3000, 20_000, 1_000_000, 10_000_000])
+def test_pairs_config_equal(target):
+    """pairs_cell_capacity_for and pairs_config_for (the PairConfig's
+    capacities) equal the reference's: host arithmetic on both sides."""
+    jw, tw = pairs_workloads(target)
+    phys = jw.cfg.physics
+    args = (jw.cfg.num_molecules, jw.fluid_volume)
+    for cap in (None, 16):
+        assert (jcfg.pairs_cell_capacity_for(
+                    jcfg.EngineConfig(cell_capacity=cap), phys, *args)
+                == tcfg.pairs_cell_capacity_for(
+                    tcfg.EngineConfig(cell_capacity=cap), tw.cfg.physics,
+                    *args))
+    want = dataclasses.asdict(jengine.pairs_config_for(jw))
+    got = dataclasses.asdict(tengine.pairs_config_for(tw))
+    assert got == {k: want[k] for k in got}
+    assert not want["bf16_hit"] and not want["occupancy_skip"]
+
+
+def test_pairs_config_sizes_spill_hot():
+    """A thin cell capacity moves expected spills into the re-search
+    budget, as the reference sizes it."""
+    jw, tw = pairs_workloads(1_000_000, capacity=8)
+    want = dataclasses.asdict(jengine.pairs_config_for(jw))
+    got = dataclasses.asdict(tengine.pairs_config_for(tw))
+    assert got == {k: want[k] for k in got}
+    assert got["research_capacity"] > dataclasses.asdict(
+        tengine.pairs_config_for(pairs_workloads(1_000_000)[1])
+    )["research_capacity"]
+
+
+def test_pairs_rejects_uncoverable_workload():
+    """At K=50 the in-reach expectation outgrows any top_k emission: both
+    packages refuse rather than run a pair list that misses collisions."""
+    jw, tw = pairs_workloads(3000, rebuild_interval=50)
+    with pytest.raises(ValueError, match="cannot cover"):
+        jengine.pairs_config_for(jw)
+    with pytest.raises(ValueError, match="cannot cover"):
+        tengine.pairs_config_for(tw)
+    with pytest.raises(ValueError, match="cannot cover"):
+        amt.Simulation(tw, device="cpu")

@@ -6,12 +6,16 @@ JAX; there, the JAX-importing conftest is skipped:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: integer outputs and staging exact; K10's state within 2 ulp
-(both sides round every operation once, IEEE; measured 0); K7's path_sum
-within 1e-6 relative (block sums in another order).
+Tolerances: integer outputs and staging exact; K10's and K3's state within
+2 ulp (both sides round every operation once, IEEE; measured 0); K7's
+path_sum within 1e-6 relative (block sums in another order).  The pairs
+engine's kernels run ``chip_smoke.py``'s own checks, at 200k particles and
+untimed.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -22,7 +26,11 @@ from argon_monte_carlo_tpu_torch.engine import build_grids
 from argon_monte_carlo_tpu_torch.init import init_pore
 from argon_monte_carlo_tpu_torch.ops import collide
 from argon_monte_carlo_tpu_torch.ops import measure as measure_ops
+from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
 from argon_monte_carlo_tpu_torch.state import Measurements
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +131,52 @@ def test_kernels_refuse_float64(device):
     cfg, _, state, grid = setup(device)
     with pytest.raises(TypeError):
         collide.bin_and_table(state.pos.double(), grid)
+
+
+@pytest.fixture(scope="module")
+def pairs_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return chip_smoke.pairs_case(TARGET)
+
+
+@pytest.fixture(scope="module")
+def plist(pairs_case):
+    c = pairs_case
+    return pairs_ops.rebuild(
+        c.state, c.grid, c.pcfg, c.cr, c.dt,
+        pairs_ops.PairList.init(c.n, c.grid, c.pcfg, torch.float32, c.dev))
+
+
+def test_compact_kernel(pairs_case):
+    before = kernels.launch_counts["compact"]
+    chip_smoke.check_compact(pairs_case, "", 0)
+    assert kernels.launch_counts["compact"] > before
+
+
+def test_rebuild_sweep_kernel(pairs_case):
+    chip_smoke.check_rebuild_sweep(pairs_case, "", 0)
+
+
+def test_emit_pairs_kernel(pairs_case):
+    chip_smoke.check_emit_pairs(pairs_case, "", 0)
+
+
+def test_test_and_resolve_kernel(pairs_case, plist):
+    chip_smoke.check_test_and_resolve(pairs_case, plist, "", 0)
+
+
+def test_research_dirty_kernel(pairs_case, plist):
+    _, (state, _, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
+                                                         "", 0)
+    chip_smoke.check_research_dirty(pairs_case, plist, state, "", 0)
+
+
+def test_flush_hist_compacted_kernel(pairs_case, plist):
+    _, (_, meas, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
+                                                        "", 0)
+    chip_smoke.check_flush_compacted(pairs_case, meas, "", 0)
+
+
+def test_pairs_engine_on_card_matches_cpu(device):
+    chip_smoke.check_against_cpu("", narrowphase="pairs", rebuild_interval=5)

@@ -1,7 +1,8 @@
 """Port vs reference: the plain version of K7 (histogram flush) against
 ``ops/measure.flush_pending``, on the dense branch (capacity >= N) and the
-compacted one (capacity < events, so events are dropped), plus the path
-bookkeeping helpers.
+compacted one (capacity < events, so events are dropped), its compacted
+entry against ``flush_pending_compacted``, plus the path bookkeeping
+helpers.
 
 Tolerances: hist, path_count, hist_drop_count and the cleared staging are
 exact; path_sum within reduction-order rounding (float64 1e-12 relative,
@@ -119,3 +120,45 @@ def test_path_bookkeeping_matches_reference(dtype):
                                    rtol=eps)
         np.testing.assert_array_equal(ts.has_collided.numpy(),
                                       np.asarray(js.has_collided))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flush_hist_compacted_plain_matches_reference(dtype):
+    """event_idx is the engine's shared compaction: staged events plus
+    other (dirty) particles, truncated so that some staged events are not
+    listed (they count as drops), padded with n."""
+    np_dtype, t_dtype = DTYPES[dtype]
+    vals, mask, hist, path_sum = staged(np_dtype, seed=11)
+    dirty = np.random.default_rng(12).uniform(size=N) < 0.1
+    listed = np.nonzero(mask | dirty)[0][:700]
+    event_idx = np.full(800, N, np.int32)
+    event_idx[:listed.size] = listed
+    assert (mask & ~np.isin(np.arange(N), listed)).any()
+
+    jm = JMeasurements.zeros(NUM_BINS, np_dtype, num_particles=N)
+    jm.pending_vals, jm.pending_mask = jnp.asarray(vals), jnp.asarray(mask)
+    jm.hist, jm.path_sum = jnp.asarray(hist), jnp.asarray(path_sum)
+    jm.path_count = jnp.asarray(7, jnp.int32)
+    jm.hist_drop_count = jnp.asarray(3, jnp.int32)
+    jm = jmeasure.flush_pending_compacted(jm, jnp.asarray(event_idx),
+                                          NUM_BINS, HIST_HI)
+
+    tm = dataclasses.replace(
+        TMeasurements.zeros(NUM_BINS, t_dtype, num_particles=N),
+        pending_vals=torch.from_numpy(vals),
+        pending_mask=torch.from_numpy(mask), hist=torch.from_numpy(hist),
+        path_sum=torch.from_numpy(path_sum),
+        path_count=torch.tensor(7, dtype=torch.int32),
+        hist_drop_count=torch.tensor(3, dtype=torch.int32),
+    )
+    tm = tmeasure.flush_hist_compacted_plain(
+        tm, torch.from_numpy(event_idx), NUM_BINS, HIST_HI)
+
+    np.testing.assert_array_equal(tm.hist.numpy(), np.asarray(jm.hist))
+    for f in ("path_count", "hist_drop_count"):
+        assert int(getattr(tm, f)) == int(getattr(jm, f)), f
+    assert int(tm.hist_drop_count) > 3
+    rtol = 1e-12 if np_dtype == np.float64 else 1e-6
+    np.testing.assert_allclose(tm.path_sum.numpy(), np.asarray(jm.path_sum),
+                               rtol=rtol)
+    assert not tm.pending_mask.any() and not tm.pending_vals.any()

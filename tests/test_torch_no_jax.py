@@ -1,6 +1,6 @@
 """The port imports neither JAX nor the JAX package: both are blocked in a
 fresh interpreter, which then imports every port module and runs two
-steps on the CPU."""
+steps of the sweep engine and two of the pairs engine on the CPU."""
 
 import os
 import subprocess
@@ -21,6 +21,11 @@ cfg = amt.temperature_pore_config().scaled_to(2000)
 sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
 state, measure, metrics = sim.run(num_steps=2)
 assert metrics.collisions.shape == (2,)
+cfg = amt.temperature_pore_config(engine=amt.EngineConfig(
+    narrowphase="pairs", rebuild_interval=8)).scaled_to(2000)
+sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
+_, _, metrics = sim.run(num_steps=2)
+assert metrics.rebuilt.tolist() == [1, 0]
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", int(measure.collision_count))
