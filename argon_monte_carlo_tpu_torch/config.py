@@ -1,10 +1,10 @@
 """Workload and engine configuration for the PyTorch port.
 
-Mirrors ``argon_monte_carlo_tpu.config`` for the temperature-pore workload.
-``EngineConfig`` keeps only the knobs that change physics or shapes; the
-reference's compile-wall and TPU lane-geometry knobs have no counterpart
-here.  Options the port does not run yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Mirrors ``argon_monte_carlo_tpu.config`` for the cube and the temperature
+pore.  ``EngineConfig`` keeps only the knobs that change physics or shapes;
+the reference's compile-wall and TPU lane-geometry knobs have no
+counterpart here.  Options the port does not run yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ from typing import Optional
 
 import torch
 
-from .geometry import PoreGeometry
-from .physics import GasPhysics, PORE_PHYSICS, TEMPERATURE_PORE_PHYSICS
+from .geometry import CubeGeometry, PoreGeometry
+from .physics import (CUBE_PHYSICS, GasPhysics, PORE_PHYSICS,
+                      TEMPERATURE_PORE_PHYSICS)
 from .utils import debye
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -28,12 +29,16 @@ class EngineConfig:
 
     # "float32" (the card's working type) or "float64" (CPU parity tests).
     dtype: str = "float32"
-    # Pair broad phase; only the cell grid is ported.
+    # Pair broad phase: "cells" (the cell grid, scales to millions) or
+    # "allpairs" (the exact O(N^2) search, K11; the cube's default).
     broadphase: str = "cells"
     # Target mean particles per occupied cell (sets the cell size).
     cell_occupancy: float = 11.0
     # Slots per cell; None = auto from the occupancy Poisson tail.
     cell_capacity: Optional[int] = None
+    # Most rows a block of the all-pairs search's plain version (the
+    # kernel stages its own tiles).
+    allpairs_tile: int = 2048
     # Steps per epoch: the host looks at results only between epochs.
     steps_per_epoch: int = 100
     # Free-path histograms (reference: 200 bins over (0, 1e-6)).
@@ -59,13 +64,10 @@ class EngineConfig:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         if self.narrowphase not in ("sweep", "pairs"):
             raise ValueError(f"unknown narrowphase {self.narrowphase!r}")
-        if self.broadphase == "allpairs":
-            raise NotImplementedError(
-                "broadphase='allpairs' is not ported yet (ROADMAP queue 1, "
-                "slice 7: the cube and the all-pairs search, K11)"
-            )
-        if self.broadphase != "cells":
+        if self.broadphase not in ("cells", "allpairs"):
             raise ValueError(f"unknown broadphase {self.broadphase!r}")
+        if self.narrowphase == "pairs" and self.broadphase != "cells":
+            raise ValueError("narrowphase='pairs' requires broadphase='cells'")
         if self.debug_audits:
             raise NotImplementedError(
                 "debug_audits is not ported yet (ROADMAP queue 1, slice 7: "
@@ -82,6 +84,48 @@ class EngineConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class CubeConfig:
+    """Stage 1: the specular cube (reference Open_Air_Cube_MC.py:26-82).
+    At its published size it holds 24,627 particles for 500 steps."""
+
+    geometry: CubeGeometry = CubeGeometry()
+    physics: GasPhysics = CUBE_PHYSICS
+    seed: int = 127
+    nmft: int = 20  # mean-free times to run (Open_Air_Cube_MC.py:62)
+    steps_per_mft: int = 25  # (Open_Air_Cube_MC.py:63)
+    engine: EngineConfig = EngineConfig(broadphase="allpairs")
+    num_particles_override: Optional[int] = None
+    # The reference's stratified position fill (Open_Air_Cube_MC.py:144-156)
+    # instead of the plain uniform one (the same single-particle
+    # distribution).
+    stratified_init: bool = False
+    init_cells_per_axis: int = 15  # Open_Air_Cube_MC.py:30
+
+    def __post_init__(self):
+        if self.engine.broadphase == "cells":
+            raise NotImplementedError(
+                "the cube on the cell grid is not ported yet: it needs a "
+                "grid centred on the box (DeviceGrid.center_x/y) in K2 and "
+                "K9 (ROADMAP queue 1, slice 7); use broadphase='allpairs'"
+            )
+
+    @property
+    def num_molecules(self) -> int:
+        if self.num_particles_override is not None:
+            return self.num_particles_override
+        return self.physics.num_molecules(self.geometry.volume)
+
+    @property
+    def num_timesteps(self) -> int:
+        return self.nmft * self.steps_per_mft
+
+    @property
+    def dt(self) -> float:
+        # dt = Nmft * tau / num_timesteps (Open_Air_Cube_MC.py:64)
+        return self.nmft * self.physics.tau / self.num_timesteps
 
 
 @dataclasses.dataclass(frozen=True)

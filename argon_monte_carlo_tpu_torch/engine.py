@@ -4,17 +4,16 @@
 Port of ``argon_monte_carlo_tpu.engine``.  One step of the sweep
 (``narrowphase="sweep"``) is
 
-    drift -> wall pass -> recapture -> bin_and_table (K2) ->
-    partner_sweep (K9) -> resolve_pairs (K10) -> recapture ->
-    flush_hist (K7) -> counters
+    advance (drift -> wall pass -> recapture; K8 for the temperature pore)
+    -> partner search (K2 + K9 on the cell grid, or K11 over all pairs)
+    -> resolve_pairs (K10) -> recapture -> flush_hist (K7) -> counters
 
 and one step of the Verlet pair-list engine (``narrowphase="pairs"``,
 engine.py:310-472) is
 
-    drift -> wall pass -> recapture -> test_and_resolve (K3) ->
-    recapture -> dirty mask -> one shared compaction (K6) and the dirty
-    sub-compaction (K6) -> research_dirty (K4) ->
-    flush_hist_compacted (K7) -> counters
+    advance (K8) -> test_and_resolve (K3) -> recapture -> dirty mask ->
+    one shared compaction (K6) and the dirty sub-compaction (K6) ->
+    research_dirty (K4) -> flush_hist_compacted (K7) -> counters
 
 with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
 on the pre-drift positions at the start of every ``rebuild_interval``
@@ -55,24 +54,61 @@ class Workload:
     """Everything workload-specific the engine needs.
 
     init_fn(generator, device) -> ParticleState
-    wall_pass(state, prior_pos, measure, uniforms) -> (state, measure, ledger)
-    post_wall / post_pairs(state) -> (state, recaptured_count)
+    wall_pass(state, prior_pos, measure, uniforms, cases=None)
+        -> (state, measure, ledger)
+    advance(state, measure, uniforms)
+        -> (state, measure, ledger, recaptured, recap_w, speed_pre):
+        the per-particle stage at the head of a step (drift, wall pass,
+        post-wall recapture); a kernel where the workload has one
+    advance_plain: the same, composed from the plain wall pass and
+        recapture by ``advance_plain``
+    post_pairs(state) -> (state, recaptured_count)
     """
 
     cfg: object
     init_fn: Callable
     wall_pass: Callable
-    post_wall: Callable
+    advance: Callable
+    advance_plain: Callable
     post_pairs: Callable
     fluid_volume: float
 
 
+def advance_plain(wall_pass: Callable, post_wall: Callable,
+                  dt: float) -> Callable:
+    """The per-particle stage of a step as plain PyTorch, in the
+    reference's order: the speed before the drift (the pairs engine's
+    bump mask reads it), drift and path accrual (Open_Air_Cube_MC.py:
+    179-187), the wall pass, the post-wall recapture and which particles
+    it moved.  ``cases``, if a dict, receives each wall case's mask."""
+
+    def advance(state, measure, uniforms, cases=None):
+        speed_pre = measure_ops.speed(state.vel)
+        prior = state.pos
+        state = dataclasses.replace(
+            state,
+            paths=measure_ops.accumulate_drift(state, dt),
+            pos=state.pos + dt * state.vel,
+        )
+        state, measure, ledger = wall_pass(state, prior, measure, uniforms,
+                                           cases)
+        pos_pre = state.pos
+        state, recaptured = post_wall(state)
+        recap_w = torch.any(state.pos != pos_pre, dim=-1)
+        return state, measure, ledger, recaptured, recap_w, speed_pre
+
+    return advance
+
+
 def build_grids(workload: Workload, device):
-    """Host-build the collision grid; returns (host_grid, device_grid).
-    The pairs engine's grid has the tighter capacity of
-    ``pairs_cell_capacity_for`` (engine.py:78-85)."""
+    """Host-build the collision grid; returns (host_grid, device_grid), or
+    (None, None) for the all-pairs broad phase.  The pairs engine's grid
+    has the tighter capacity of ``pairs_cell_capacity_for``
+    (engine.py:61-102)."""
     cfg = workload.cfg
     eng = cfg.engine
+    if eng.broadphase != "cells":
+        return None, None
     physics = cfg.physics
     args = (eng, physics, cfg.num_molecules, workload.fluid_volume)
     cell_size = cell_size_for(*args)
@@ -92,36 +128,37 @@ def _nonfinite(state: ParticleState, check: bool) -> torch.Tensor:
                for t in (state.pos, state.vel, state.paths))
 
 
-def make_step_fn(workload: Workload, grid: collide.DeviceGrid):
+def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
     """The sweep's per-step function ``step(state, measure, uniforms,
-    step_index) -> (state, measure, StepMetrics)``."""
+    step_index) -> (state, measure, StepMetrics)``; the partner search is
+    the broad phase's (engine.py:133-147)."""
     cfg = workload.cfg
     eng = cfg.engine
     physics = cfg.physics
-    dt = cfg.dt
     cr = physics.collision_range
     search_radius = cr + eng.skin
     hist_hi = eng.hist_range[1]
 
+    if eng.broadphase == "cells":
+        def search(pos):
+            _, table, pslot, overflow = collide.bin_and_table(pos, grid)
+            return (collide.partner_sweep(pos, table, pslot, grid,
+                                          search_radius), overflow)
+    else:
+        def search(pos):
+            partner = collide.allpairs_partner_search(pos, search_radius,
+                                                      eng.allpairs_tile)
+            return partner, torch.zeros((), dtype=torch.int32,
+                                        device=pos.device)
+
     def step(state: ParticleState, measure: Measurements,
              uniforms: torch.Tensor, step_index: int):
-        # DRIFT (Open_Air_Cube_MC.py:179-187) + path accrual.
-        prior = state.pos
-        state = dataclasses.replace(
-            state,
-            paths=measure_ops.accumulate_drift(state, dt),
-            pos=state.pos + dt * state.vel,
-        )
-
-        # WALL CASES, then recapture.
-        state, measure, ledger = workload.wall_pass(state, prior, measure,
-                                                    uniforms)
-        state, oob_walls = workload.post_wall(state)
+        # DRIFT, WALL CASES, then recapture.
+        state, measure, ledger, oob_walls, _, _ = workload.advance(
+            state, measure, uniforms)
 
         # PARTICLE-PARTICLE COLLISIONS.
-        _, table, pslot, overflow = collide.bin_and_table(state.pos, grid)
-        partner = collide.partner_sweep(state.pos, table, pslot, grid,
-                                        search_radius)
+        partner, overflow = search(state.pos)
         state, measure, pair_collisions = collide.resolve_pairs(
             state, measure, partner, cr)
         measure = dataclasses.replace(
@@ -230,22 +267,10 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
              plist: pairs_ops.PairList, uniforms: torch.Tensor,
              step_index: int, rebuilt: bool):
         dev = state.pos.device
-        speed_pre = measure_ops.speed(state.vel)
-
-        # DRIFT + path accrual.
-        prior = state.pos
-        state = dataclasses.replace(
-            state,
-            paths=measure_ops.accumulate_drift(state, dt),
-            pos=state.pos + dt * state.vel,
-        )
-
-        # WALL CASES, then recapture.
-        state, measure, ledger = workload.wall_pass(state, prior, measure,
-                                                    uniforms)
-        pos_pre = state.pos
-        state, oob_walls = workload.post_wall(state)
-        recap_w = torch.any(state.pos != pos_pre, dim=-1)
+        # DRIFT, WALL CASES, then recapture (which particles it moved go
+        # hot).
+        state, measure, ledger, oob_walls, recap_w, speed_pre = (
+            workload.advance(state, measure, uniforms))
 
         # PARTICLE-PARTICLE COLLISIONS on the listed pairs.
         state, measure, pair_collisions, collided = (

@@ -1,9 +1,10 @@
-"""Thruster-pore geometry (host side, plain Python floats).
+"""Simulation domains (host side, plain Python floats).
 
-Port of ``argon_monte_carlo_tpu.geometry.PoreGeometry``: a stack of coaxial
-cylinders along z (Open_Air_Pore_MC.py:23-46, Temperature_Pore_MC.py:28-53).
-Every derived length, volume and segment count equals the reference's
-exactly.  The cube geometry is not ported yet (ROADMAP queue 1, slice 7).
+Port of ``argon_monte_carlo_tpu.geometry``: the 100 nm specular box
+(``CubeGeometry``, Open_Air_Cube_MC.py:26-39) and the thruster pore, a
+stack of coaxial cylinders along z (``PoreGeometry``,
+Open_Air_Pore_MC.py:23-46, Temperature_Pore_MC.py:28-53).  Every derived
+length, volume and segment count equals the reference's exactly.
 """
 
 from __future__ import annotations
@@ -17,6 +18,23 @@ from .physics import GasPhysics
 def cylinder_volume(radius: float, height: float) -> float:
     # reference: utils.py:3-4
     return math.pi * radius * radius * height
+
+
+@dataclasses.dataclass(frozen=True)
+class CubeGeometry:
+    """Axis-aligned box [0,lx] x [0,ly] x [0,lz] with specular walls."""
+
+    lx: float = 100e-9
+    ly: float = 100e-9
+    lz: float = 100e-9
+
+    @property
+    def volume(self) -> float:
+        return self.lx * self.ly * self.lz
+
+    @property
+    def bounds(self) -> tuple[tuple[float, float], ...]:
+        return ((0.0, self.lx), (0.0, self.ly), (0.0, self.lz))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F] + [_P] * 18,
+    "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 12,
+    "allpairs_partner": [_P, _I, _F, _P, _P],
 }
 
 

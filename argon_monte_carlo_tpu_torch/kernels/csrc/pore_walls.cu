@@ -1,0 +1,490 @@
+// K8 pore_advance: one fused per-particle pass of the temperature pore --
+// drift and path accrual, the six wall cases in the reference's order, the
+// post-wall recapture -- with the step's momentum/energy ledger, wall hits,
+// solver errors and recapture count.
+//
+// Replaces, in the JAX package, the drift at the head of both step
+// functions (argon_monte_carlo_tpu/engine.py:153-156 and :352-357), the
+// wall pass models/temperature_pore.py:65-212 on the ops/walls.py
+// primitives (:52-252) with models/base.py apply_tracked (:65) and
+// ops/measure.py record_completed (:38) / end_paths (:200), the post-wall
+// ops/oob.py pore_recapture (:67-111), and the pairs engine's speed_pre and
+// recap_w (engine.py:352, :367-369).  There it is ~950 masked whole-array
+// XLA (or, in the port's plain version, PyTorch) operations a step.
+//
+// Bound: bytes.  Each particle reads pos, vel, paths, has_collided, its
+// staging and, only when it hits an energized wall, its two uniforms
+// (~58 bytes), and writes each output once (~63 bytes): ~130 bytes a
+// particle, 0.04 ms at 1M particles on an H100's 3.35 TB/s.  The
+// arithmetic (~60 flops a particle, sin/cos only on a hit) is far below
+// that.
+//
+// Design: one thread per particle runs every case in order on its own
+// registers, so each case reads the state the previous case left -- which
+// is what the masked whole-array passes compute -- and each output lane is
+// written once at the end.  A case changes only the particles it takes; no
+// array is rewritten per case (the plain version's 27 cats a step).  The
+// staging and path resets follow record_completed and
+// end_paths(zero_residual=True): a later case of the same step overwrites
+// an earlier one's staged values.  The ledger uses the reference's mask
+// per case: the plane cases sum over the raw case mask, the cylinder cases
+// over the handled subset, and hits count the whole case mask, errors
+// included.  Ledger floats are summed per block in a fixed tree order and
+// then over the blocks by one block in a fixed order: no float atomics, so
+// a launch is bitwise repeatable.  Integer counts use atomics.
+//
+// Rounding: every constant is a float32 rounded once on the host from the
+// plain version's double (params, in the order of enum Param below;
+// ops/pore_pass.py PARAM_NAMES lists the same names), every operation is
+// written in the plain version's order, divisions are IEEE divisions, the
+// library is built with -fmad=false, and sqrtf/cosf/sinf are the accurate
+// (non-fast-math) functions PyTorch's own CUDA kernels call.
+#include "common.cuh"
+
+namespace {
+
+// Host-rounded constants, in the order of PARAM_NAMES (ops/pore_pass.py).
+enum Param {
+  kDt, kROa, kCrOa, kCrOaRr, kH, kPlaneCold, kPlaneHot, kRcSq, kECold,
+  kEHot, kAlphaCoat, kAlphaGap, kMass, kHalfMass, kGapHiMAr, kGapLoPAr,
+  kCrGap, kCrGapSq, kCrGapRr, kCrPore, kCrPoreSq, kCrPoreRr, kCosCone,
+  kOneMCos, kTwoPi, kTableZLo, kTableSpan, kZInset, kHMZInset, kROaSq, kOah,
+  kHMOah, kGapRSq, kGapBottom, kGapTop, kNumParams
+};
+
+constexpr int kTotalsThreads = 1024;
+constexpr int kMaxHorner = 32;
+
+struct Particle {
+  float x, y, z, vx, vy, vz;
+  float p[4];
+  bool has;
+  float pv[4];
+  bool pm;
+};
+
+// The step's cone draw (rng.cone_trig), evaluated on the first energized
+// hit only.
+struct Trig {
+  bool ready;
+  float cos_t, a, b;
+};
+
+struct Ctx {
+  const float* c;  // params in shared memory
+  const float* horner;
+  int num_horner;
+  const float* uniforms;
+  int i;
+};
+
+__device__ __forceinline__ float safe(float v) { return v == 0.0f ? 1.0f : v; }
+
+__device__ __forceinline__ void cone_trig(const Ctx& k, Trig& tr) {
+  if (tr.ready) return;
+  float u1 = k.uniforms[2 * k.i];
+  float u2 = k.uniforms[2 * k.i + 1];
+  float cos_t = k.c[kCosCone] + u1 * k.c[kOneMCos];
+  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  float phi = k.c[kTwoPi] * u2;
+  tr.cos_t = cos_t;
+  tr.a = sin_t * cosf(phi);
+  tr.b = sin_t * sinf(phi);
+  tr.ready = true;
+}
+
+// Smaller root of |p_xy - v_xy t|^2 = R^2 (walls.py _cylinder_backtrace);
+// *ok is false where the backward ray misses the circle.
+__device__ __forceinline__ float backtrace(float x, float y, float vx,
+                                           float vy, float rr, bool* ok) {
+  float a = vx * vx + vy * vy;
+  float b = -2.0f * (x * vx + y * vy);
+  float c = x * x + y * y - rr;
+  float disc = b * b - 4.0f * a * c;
+  *ok = (disc >= 0.0f) && (a > 0.0f);
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  return (-b - sq) / (2.0f * safe(a));
+}
+
+// E' = E + (E_surf - E) alpha; returns the new speed, *d_energy = E' - E
+// (walls.py _thermal_exchange).
+__device__ __forceinline__ float exchange(const Particle& s, float e_surf,
+                                          float alpha, const float* c,
+                                          float* d_energy) {
+  float speed2 = s.vx * s.vx + s.vy * s.vy + s.vz * s.vz;
+  float energy = c[kHalfMass] * speed2;
+  float new_energy = energy + (e_surf - energy) * alpha;
+  *d_energy = new_energy - energy;
+  return sqrtf(fmaxf(new_energy * 2.0f / c[kMass], 0.0f));
+}
+
+// record_completed with the velocity before the case, then
+// end_paths(zero_residual=True).
+__device__ __forceinline__ void stage_and_end(Particle& s, float t) {
+  if (s.has) {
+    float speed = sqrtf(s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
+    s.pv[0] = fabsf(s.p[0] - speed * t);
+    s.pv[1] = fabsf(s.p[1] - fabsf(s.vx) * t);
+    s.pv[2] = fabsf(s.p[2] - fabsf(s.vy) * t);
+    s.pv[3] = fabsf(s.p[3] - fabsf(s.vz) * t);
+    s.pm = true;
+  }
+  for (int k = 0; k < 4; ++k) s.p[k] = 0.0f;
+  s.has = true;
+}
+
+// Thermal wall on a z-plane (walls.py energized_plane): placed at the
+// impact point, re-emitted about (0, 0, sign).  Returns d_pz.
+__device__ __forceinline__ float energized_plane(const Ctx& k, Particle& s,
+                                                 Trig& tr, float plane,
+                                                 float sign, float e_surf,
+                                                 float* d_energy) {
+  const float* c = k.c;
+  float t = (s.z - plane) / safe(s.vz);
+  float col_x = s.x - s.vx * t;
+  float col_y = s.y - s.vy * t;
+  cone_trig(k, tr);
+  float dir_z = sign * tr.cos_t;
+  float speed = exchange(s, e_surf, c[kAlphaCoat], c, d_energy);
+  float nvx = tr.a * speed;
+  float nvy = tr.b * speed;
+  float nvz = dir_z * speed;
+  float d_pz = c[kMass] * (nvz - s.vz);
+  stage_and_end(s, t);
+  s.x = col_x;
+  s.y = col_y;
+  s.z = plane;
+  s.vx = nvx;
+  s.vy = nvy;
+  s.vz = nvz;
+  return d_pz;
+}
+
+// Thermal cylinder side wall (walls.py energized_cylinder): back-trace to
+// the wall, re-emit in the cone about the inward normal; the gap's
+// surface energy is the Horner polynomial of the impact z.  Returns false
+// (and changes nothing) where the back-trace misses.
+__device__ __forceinline__ bool energized_cylinder(
+    const Ctx& k, Particle& s, Trig& tr, float radius, float rr, bool gap,
+    float e_surf, float alpha, float* d_pz, float* d_energy) {
+  const float* c = k.c;
+  bool ok;
+  float t = backtrace(s.x, s.y, s.vx, s.vy, rr, &ok);
+  if (!ok) return false;
+  float cx = s.x - s.vx * t;
+  float cy = s.y - s.vy * t;
+  float cz = s.z - s.vz * t;
+  // rng.orthonormal_frame of the inward normal (nz = +0, so s = 1).
+  float nx = -cx / radius;
+  float ny = -cy / radius;
+  float nz = 0.0f;
+  float sg = nz >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (sg + nz);
+  float b = nx * ny * a;
+  float e1x = 1.0f + sg * nx * nx * a, e1y = sg * b, e1z = -sg * nx;
+  float e2x = b, e2y = sg + ny * ny * a, e2z = -ny;
+  cone_trig(k, tr);
+  float dx = tr.cos_t * nx + tr.a * e1x + tr.b * e2x;
+  float dy = tr.cos_t * ny + tr.a * e1y + tr.b * e2y;
+  float dz = tr.cos_t * nz + tr.a * e1z + tr.b * e2z;
+  if (gap) {
+    float u = (cz - c[kTableZLo]) / c[kTableSpan] * 2.0f - 1.0f;
+    u = fminf(fmaxf(u, -1.0f), 1.0f);
+    float acc = k.horner[0];
+    for (int j = 1; j < k.num_horner; ++j) acc = acc * u + k.horner[j];
+    e_surf = acc;
+  }
+  float speed = exchange(s, e_surf, alpha, c, d_energy);
+  float nvx = dx * speed;
+  float nvy = dy * speed;
+  float nvz = dz * speed;
+  *d_pz = c[kMass] * (nvz - s.vz);
+  stage_and_end(s, t);
+  s.x = cx;
+  s.y = cy;
+  s.z = cz;
+  s.vx = nvx;
+  s.vy = nvy;
+  s.vz = nvz;
+  return true;
+}
+
+__device__ __forceinline__ float r2(const Particle& s) {
+  return s.x * s.x + s.y * s.y;
+}
+
+__global__ void pore_advance_kernel(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ paths, const uint8_t* __restrict__ has_collided,
+    const float* __restrict__ pend_vals, const uint8_t* __restrict__ pend_mask,
+    const float* __restrict__ uniforms, const float* __restrict__ params,
+    const float* __restrict__ horner, int num_horner, int n,
+    float* __restrict__ pos_out, float* __restrict__ vel_out,
+    float* __restrict__ paths_out, uint8_t* __restrict__ has_out,
+    float* __restrict__ pend_vals_out, uint8_t* __restrict__ pend_mask_out,
+    uint8_t* __restrict__ recap_out, float* __restrict__ speed_pre_out,
+    float* __restrict__ block_ledger, int* __restrict__ counts) {
+  __shared__ float c[kNumParams];
+  __shared__ float coef[kMaxHorner];
+  __shared__ float sh[3][amc::kThreads];
+  int t = threadIdx.x;
+  if (t < kNumParams) c[t] = params[t];
+  if (t < num_horner) coef[t] = horner[t];
+  __syncthreads();
+
+  int i = blockIdx.x * blockDim.x + t;
+  float mz = 0.0f, e_hot = 0.0f, e_cold = 0.0f;
+  int hits = 0, errs = 0, recaptured = 0;
+  if (i < n) {
+    Ctx k{c, coef, num_horner, uniforms, i};
+    Particle s;
+    s.x = pos[3 * i];
+    s.y = pos[3 * i + 1];
+    s.z = pos[3 * i + 2];
+    s.vx = vel[3 * i];
+    s.vy = vel[3 * i + 1];
+    s.vz = vel[3 * i + 2];
+    for (int j = 0; j < 4; ++j) {
+      s.p[j] = paths[4 * i + j];
+      s.pv[j] = pend_vals[4 * i + j];
+    }
+    s.has = has_collided[i] != 0;
+    s.pm = pend_mask[i] != 0;
+    Trig tr{false, 0.0f, 0.0f, 0.0f};
+    float dt = c[kDt];
+
+    // DRIFT + path accrual (measure.accumulate_drift); the speed is also
+    // the pairs engine's speed_pre.
+    float speed = sqrtf(s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
+    speed_pre_out[i] = speed;
+    s.p[0] = s.p[0] + dt * speed;
+    s.p[1] = s.p[1] + dt * fabsf(s.vx);
+    s.p[2] = s.p[2] + dt * fabsf(s.vy);
+    s.p[3] = s.p[3] + dt * fabsf(s.vz);
+    float pz = s.z;
+    float prior_r2 = s.x * s.x + s.y * s.y;
+    s.x = s.x + dt * s.vx;
+    s.y = s.y + dt * s.vy;
+    s.z = s.z + dt * s.vz;
+
+    // CASE 1: specular open-air cylinder side (errors counted, no hit).
+    if (sqrtf(r2(s)) > c[kROa]) {
+      bool ok;
+      float tb = backtrace(s.x, s.y, s.vx, s.vy, c[kCrOaRr], &ok);
+      if (ok) {
+        float col_x = s.x - s.vx * tb;
+        float col_y = s.y - s.vy * tb;
+        float nx = col_x / c[kCrOa];
+        float ny = col_y / c[kCrOa];
+        float dot = s.vx * nx + s.vy * ny;
+        float nvx = s.vx - 2.0f * dot * nx;
+        float nvy = s.vy - 2.0f * dot * ny;
+        s.x = col_x + nvx * tb;
+        s.y = col_y + nvy * tb;
+        s.vx = nvx;
+        s.vy = nvy;
+      } else {
+        errs += 1;
+      }
+    }
+
+    // CASE 2: specular z caps.
+    if (s.z < 0.0f) {
+      float tp = (s.z - 0.0f) / safe(s.vz);
+      float nvz = -s.vz;
+      s.z = 0.0f + tp * nvz;
+      s.vz = nvz;
+    }
+    if (s.z > c[kH]) {
+      float tp = (s.z - c[kH]) / safe(s.vz);
+      float nvz = -s.vz;
+      s.z = c[kH] + tp * nvz;
+      s.vz = nvz;
+    }
+
+    float d_pz, d_e;
+    // CASE 3: coated annular faces, cold then hot.
+    if (pz >= c[kPlaneCold] && s.z < c[kPlaneCold] && r2(s) > c[kRcSq]) {
+      hits += 1;
+      mz += energized_plane(k, s, tr, c[kPlaneCold], 1.0f, c[kECold], &d_e);
+      e_cold += d_e;
+    }
+    if (pz <= c[kPlaneHot] && s.z > c[kPlaneHot] && r2(s) > c[kRcSq]) {
+      hits += 1;
+      mz += energized_plane(k, s, tr, c[kPlaneHot], -1.0f, c[kEHot], &d_e);
+      e_hot += d_e;
+    }
+
+    // CASE 4: alumina gap side wall with the temperature ramp (momentum
+    // only).
+    if (pz < c[kGapHiMAr] && pz > c[kGapLoPAr] && prior_r2 <= c[kCrGapSq] &&
+        r2(s) > c[kCrGapSq]) {
+      hits += 1;
+      if (energized_cylinder(k, s, tr, c[kCrGap], c[kCrGapRr], true, 0.0f,
+                             c[kAlphaGap], &d_pz, &d_e)) {
+        mz += d_pz;
+      } else {
+        errs += 1;
+      }
+    }
+
+    // CASE 5: gap cylinder bases, bottom (hot) then top (cold).
+    bool in_gap_prior = pz <= c[kGapHiMAr] && pz >= c[kGapLoPAr];
+    if (prior_r2 >= c[kCrPoreSq] && s.z < c[kGapLoPAr] && in_gap_prior) {
+      hits += 1;
+      mz += energized_plane(k, s, tr, c[kGapLoPAr], 1.0f, c[kEHot], &d_e);
+      e_hot += d_e;
+    }
+    if (prior_r2 >= c[kCrPoreSq] && s.z > c[kGapHiMAr] && in_gap_prior) {
+      hits += 1;
+      mz += energized_plane(k, s, tr, c[kGapHiMAr], -1.0f, c[kECold], &d_e);
+      e_cold += d_e;
+    }
+
+    // CASE 6: coated pore side wall, hot band then cold band.
+    if (prior_r2 <= c[kCrPoreSq] && r2(s) > c[kCrPoreSq] &&
+        s.z <= c[kGapLoPAr] && s.z >= c[kPlaneHot]) {
+      hits += 1;
+      if (energized_cylinder(k, s, tr, c[kCrPore], c[kCrPoreRr], false,
+                             c[kEHot], c[kAlphaCoat], &d_pz, &d_e)) {
+        mz += d_pz;
+        e_hot += d_e;
+      } else {
+        errs += 1;
+      }
+    }
+    if (prior_r2 <= c[kCrPoreSq] && r2(s) > c[kCrPoreSq] &&
+        s.z < c[kPlaneCold] && s.z > c[kGapHiMAr]) {
+      hits += 1;
+      if (energized_cylinder(k, s, tr, c[kCrPore], c[kCrPoreRr], false,
+                             c[kECold], c[kAlphaCoat], &d_pz, &d_e)) {
+        mz += d_pz;
+        e_cold += d_e;
+      } else {
+        errs += 1;
+      }
+    }
+
+    // RECAPTURE (oob.pore_recapture): z first, then the radial checks on
+    // the updated z.
+    float x = s.x, y = s.y, z = s.z;
+    if (z < 0.0f) {
+      z = c[kZInset];
+      recaptured += 1;
+    }
+    if (z > c[kH]) {
+      z = c[kHMZInset];
+      recaptured += 1;
+    }
+    if (x * x + y * y > c[kROaSq]) {
+      x = 0.0f;
+      y = 0.0f;
+      recaptured += 1;
+    }
+    bool inside = z > c[kOah] && z < c[kHMOah];
+    if (x * x + y * y > c[kGapRSq] && inside) {
+      x = 0.0f;
+      y = 0.0f;
+      recaptured += 1;
+    }
+    bool in_coated = (z > c[kOah] && z < c[kGapBottom]) ||
+                     (z > c[kGapTop] && z < c[kHMOah]);
+    if (x * x + y * y > c[kRcSq] && in_coated) {
+      x = 0.0f;
+      y = 0.0f;
+      recaptured += 1;
+    }
+    recap_out[i] = (x != s.x) || (y != s.y) || (z != s.z);
+
+    pos_out[3 * i] = x;
+    pos_out[3 * i + 1] = y;
+    pos_out[3 * i + 2] = z;
+    vel_out[3 * i] = s.vx;
+    vel_out[3 * i + 1] = s.vy;
+    vel_out[3 * i + 2] = s.vz;
+    for (int j = 0; j < 4; ++j) {
+      paths_out[4 * i + j] = s.p[j];
+      pend_vals_out[4 * i + j] = s.pv[j];
+    }
+    has_out[i] = s.has;
+    pend_mask_out[i] = s.pm;
+  }
+
+  // Ledger: a fixed-order tree over the block.
+  sh[0][t] = mz;
+  sh[1][t] = e_hot;
+  sh[2][t] = e_cold;
+  __syncthreads();
+  for (int w = amc::kThreads / 2; w > 0; w >>= 1) {
+    if (t < w) {
+      for (int q = 0; q < 3; ++q) sh[q][t] = sh[q][t] + sh[q][t + w];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    for (int q = 0; q < 3; ++q) block_ledger[3 * blockIdx.x + q] = sh[q][0];
+  }
+  // Counts: integer warp sums, one atomic a warp.
+  int v[3] = {hits, errs, recaptured};
+  for (int q = 0; q < 3; ++q) {
+    int w = __reduce_add_sync(0xffffffffu, v[q]);
+    if ((t & 31) == 0 && w != 0) atomicAdd(&counts[q], w);
+  }
+}
+
+// One block: each thread sums a contiguous run of block partials in order,
+// then a fixed tree over the threads.
+__global__ void ledger_totals_kernel(const float* __restrict__ block_ledger,
+                                     int nblocks, float* __restrict__ ledger) {
+  __shared__ float sh[3][kTotalsThreads];
+  int t = threadIdx.x;
+  int per = (nblocks + kTotalsThreads - 1) / kTotalsThreads;
+  int lo = min(t * per, nblocks);
+  int hi = min(lo + per, nblocks);
+  float f[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = lo; b < hi; ++b) {
+    for (int q = 0; q < 3; ++q) f[q] = f[q] + block_ledger[3 * b + q];
+  }
+  for (int q = 0; q < 3; ++q) sh[q][t] = f[q];
+  __syncthreads();
+  for (int w = kTotalsThreads / 2; w > 0; w >>= 1) {
+    if (t < w) {
+      for (int q = 0; q < 3; ++q) sh[q][t] = sh[q][t] + sh[q][t + w];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    for (int q = 0; q < 3; ++q) ledger[q] = sh[q][0];
+  }
+}
+
+}  // namespace
+
+// params: kNumParams float32 constants (enum Param); horner: num_horner
+// (1..32) coefficients, highest degree first.  Outputs are fresh arrays;
+// ledger (3 f32: momentum_z, energy_hot, energy_cold) and counts (3 i32:
+// wall hits, errors, recaptured).  Scratch: block_ledger (nblocks*3 f32).
+AMC_EXPORT int amc_pore_advance(
+    const float* pos, const float* vel, const float* paths,
+    const uint8_t* has_collided, const float* pend_vals,
+    const uint8_t* pend_mask, const float* uniforms, const float* params,
+    const float* horner, int num_horner, int n, float* pos_out,
+    float* vel_out, float* paths_out, uint8_t* has_out, float* pend_vals_out,
+    uint8_t* pend_mask_out, uint8_t* recap_out, float* speed_pre_out,
+    float* block_ledger, float* ledger, int* counts, cudaStream_t stream) {
+  if (num_horner < 1 || num_horner > kMaxHorner) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int nblocks = amc::blocks_for(n);
+  cudaMemsetAsync(counts, 0, 3 * sizeof(int), stream);
+  if (nblocks > 0) {
+    pore_advance_kernel<<<nblocks, amc::kThreads, 0, stream>>>(
+        pos, vel, paths, has_collided, pend_vals, pend_mask, uniforms, params,
+        horner, num_horner, n, pos_out, vel_out, paths_out, has_out,
+        pend_vals_out, pend_mask_out, recap_out, speed_pre_out, block_ledger,
+        counts);
+  }
+  ledger_totals_kernel<<<1, kTotalsThreads, 0, stream>>>(block_ledger,
+                                                         nblocks, ledger);
+  return static_cast<int>(cudaGetLastError());
+}

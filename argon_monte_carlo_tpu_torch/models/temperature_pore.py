@@ -9,20 +9,26 @@ Temperature_Pore_MC.py:690-753 verbatim.
 
 ``wall_pass`` takes the step's (N, 2) uniforms as a tensor: the engine
 draws them from its Generator (or a caller's ``draw``), and one shared
-trig evaluation feeds every energized case's cone draw.
+trig evaluation feeds every energized case's cone draw.  The workload's
+``advance`` -- drift, wall pass and post-wall recapture -- is K8
+(``ops/pore_pass.py``) for CUDA tensors and that plain sequence for CPU
+tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .. import rng
 from ..config import PoreConfig
-from ..engine import WallLedger, Workload
+from ..engine import WallLedger, Workload, advance_plain
 from ..init import init_pore
 from ..models.base import apply_tracked
 from ..ops import fp
 from ..ops import oob as oob_ops
+from ..ops import pore_pass
 from ..ops import walls as wall_ops
 
 
@@ -60,7 +66,9 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
     def r2(pos):
         return pos[:, 0] * pos[:, 0] + pos[:, 1] * pos[:, 1]
 
-    def wall_pass(state, prior, measure, uniforms):
+    def wall_pass(state, prior, measure, uniforms, cases=None):
+        """The six cases in the reference's order; ``cases``, if a dict,
+        receives each case's mask by name."""
         dtype, device = state.pos.dtype, state.pos.device
         trig = rng.cone_trig(uniforms, cos_cone)
         zero = torch.zeros((), dtype=dtype, device=device)
@@ -70,6 +78,11 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
 
         pz = prior[:, 2]
         prior_r2 = r2(prior)
+
+        def note(name, mask):
+            if cases is not None:
+                cases[name] = mask
+            return mask
 
         def energized(state, measure, case_mask, event_fn):
             ev = event_fn(state, case_mask)
@@ -81,22 +94,22 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
                     torch.sum(ev.err_mask, dtype=torch.int32))
 
         # CASE 1: bare specular open-air cylinder side (:693-694).
-        mask = fp.sqrt(r2(state.pos)) > r_oa
+        mask = note("1 open-air side", fp.sqrt(r2(state.pos)) > r_oa)
         ev = wall_ops.specular_cylinder(state, mask, cr_oa)
         state = ev.state
         errs = errs + torch.sum(ev.err_mask, dtype=torch.int32)
 
         # CASE 2: bare specular z caps (:699-703).
-        state = wall_ops.specular_plane(state, state.pos[:, 2] < 0.0, 2,
-                                        0.0).state
-        state = wall_ops.specular_plane(state, state.pos[:, 2] > h, 2,
-                                        h).state
+        state = wall_ops.specular_plane(
+            state, note("2 bottom cap", state.pos[:, 2] < 0.0), 2, 0.0).state
+        state = wall_ops.specular_plane(
+            state, note("2 top cap", state.pos[:, 2] > h), 2, h).state
 
         # CASE 3: coated annular faces (:708-716).
         plane_cold = h - oah + ar
-        mask = (pz >= plane_cold) & (state.pos[:, 2] < plane_cold) & (
-            r2(state.pos) > geom.pore_coated_radius**2
-        )
+        mask = note("3 cold face", (pz >= plane_cold)
+                    & (state.pos[:, 2] < plane_cold)
+                    & (r2(state.pos) > geom.pore_coated_radius**2))
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_plane(
@@ -107,9 +120,9 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         errs = errs + er
 
         plane_hot = oah - ar
-        mask = (pz <= plane_hot) & (state.pos[:, 2] > plane_hot) & (
-            r2(state.pos) > geom.pore_coated_radius**2
-        )
+        mask = note("3 hot face", (pz <= plane_hot)
+                    & (state.pos[:, 2] > plane_hot)
+                    & (r2(state.pos) > geom.pore_coated_radius**2))
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_plane(
@@ -120,12 +133,9 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         errs = errs + er
 
         # CASE 4: alumina gap side wall with the temperature ramp (:720-723).
-        mask = (
-            (pz < gap_hi - ar)
-            & (pz > gap_lo + ar)
-            & (prior_r2 <= cr_gap**2)
-            & (r2(state.pos) > cr_gap**2)
-        )
+        mask = note("4 gap side", (pz < gap_hi - ar) & (pz > gap_lo + ar)
+                    & (prior_r2 <= cr_gap**2)
+                    & (r2(state.pos) > cr_gap**2))
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_cylinder(
@@ -137,11 +147,8 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
 
         # CASE 5: gap cylinder bases (:728-738).
         in_gap_prior = (pz <= gap_hi - ar) & (pz >= gap_lo + ar)
-        mask = (
-            (prior_r2 >= cr_pore**2)
-            & (state.pos[:, 2] < gap_lo + ar)
-            & in_gap_prior
-        )
+        mask = note("5 gap bottom", (prior_r2 >= cr_pore**2)
+                    & (state.pos[:, 2] < gap_lo + ar) & in_gap_prior)
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_plane(
@@ -150,11 +157,8 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         )
         hits, momentum_z, energy_hot = hits + ch, momentum_z + dpz, energy_hot + de
         errs = errs + er
-        mask = (
-            (prior_r2 >= cr_pore**2)
-            & (state.pos[:, 2] > gap_hi - ar)
-            & in_gap_prior
-        )
+        mask = note("5 gap top", (prior_r2 >= cr_pore**2)
+                    & (state.pos[:, 2] > gap_hi - ar) & in_gap_prior)
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_plane(
@@ -167,7 +171,8 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         # CASE 6: coated pore side wall, hot then cold bands (:743-753).
         crossed = (prior_r2 <= cr_pore**2) & (r2(state.pos) > cr_pore**2)
         z = state.pos[:, 2]
-        mask = crossed & (z <= gap_lo + ar) & (z >= oah - ar)
+        mask = note("6 hot side", crossed & (z <= gap_lo + ar)
+                    & (z >= oah - ar))
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_cylinder(
@@ -178,7 +183,8 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         errs = errs + er
         crossed = (prior_r2 <= cr_pore**2) & (r2(state.pos) > cr_pore**2)
         z = state.pos[:, 2]
-        mask = crossed & (z < h - oah + ar) & (z > gap_hi - ar)
+        mask = note("6 cold side", crossed & (z < h - oah + ar)
+                    & (z > gap_hi - ar))
         state, measure, ch, dpz, de, er = energized(
             state, measure, mask,
             lambda s, m: wall_ops.energized_cylinder(
@@ -197,11 +203,38 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
     def recapture(state):
         return oob_ops.pore_recapture(state, geom, z_inset)
 
+    plain = advance_plain(wall_pass, recapture, cfg.dt)
+    params = pore_pass.PoreParams(
+        values=dict(
+            dt=cfg.dt, r_oa=r_oa, cr_oa=cr_oa, cr_oa_rr=cr_oa * cr_oa, h=h,
+            plane_cold=h - oah + ar, plane_hot=oah - ar,
+            rc_sq=geom.pore_coated_radius**2, e_cold=e_cold, e_hot=e_hot,
+            alpha_coat=alpha_coat, alpha_gap=alpha_gap, mass=mass,
+            half_mass=0.5 * mass, gap_hi_m_ar=gap_hi - ar,
+            gap_lo_p_ar=gap_lo + ar, cr_gap=cr_gap, cr_gap_sq=cr_gap**2,
+            cr_gap_rr=cr_gap * cr_gap, cr_pore=cr_pore,
+            cr_pore_sq=cr_pore**2, cr_pore_rr=cr_pore * cr_pore,
+            cos_cone=cos_cone, one_m_cos=1.0 - cos_cone,
+            two_pi=2.0 * math.pi, table_z_lo=gap_interp.z_lo,
+            table_span=gap_interp.z_hi - gap_interp.z_lo,
+            z_inset=z_inset, h_m_z_inset=h - z_inset,
+            r_oa_sq=geom.open_air_radius**2, oah=geom.open_air_height,
+            h_m_oah=h - geom.open_air_height, gap_r_sq=geom.gap_radius**2,
+            gap_bottom=geom.gap_bottom, gap_top=geom.gap_top,
+        ),
+        horner=gap_interp.power,
+    )
+
+    def advance(state, measure, uniforms):
+        return pore_pass.pore_advance(state, measure, uniforms, params,
+                                      plain)
+
     return Workload(
         cfg=cfg,
         init_fn=lambda gen, device: init_pore(cfg, gen, device),
         wall_pass=wall_pass,
-        post_wall=recapture,
+        advance=advance,
+        advance_plain=plain,
         post_pairs=recapture,
         fluid_volume=geom.volume,
     )

@@ -14,7 +14,9 @@ phase runs three kernels:
 
 The pairs engine's rebuild runs K2 and then ``rebuild_sweep`` (K1): the
 one-sided half-shell reach-mode sweep of the active cells, which keeps each
-particle's top_k lowest-index candidates and the rebuild-time planes.
+particle's top_k lowest-index candidates and the rebuild-time planes.  The
+cube's broad phase is ``allpairs_partner_search`` (K11), the exact O(N^2)
+lowest-index search, in place of K2 and K9.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, same signature
 and outputs) for tensors on the CPU and launches its CUDA kernel for
@@ -380,6 +382,71 @@ def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
         "partner_sweep", dev, p(pos), p(table), p(pslot), p(grid.neighbors),
         n, grid.num_cells, cap, search_radius * search_radius, p(partner),
     )
+    return partner
+
+
+# --------------------------------------------------------------------------
+# K11: the all-pairs partner search (collide.py:1001-1034)
+# --------------------------------------------------------------------------
+
+
+def allpairs_partner_search_plain(pos: torch.Tensor, search_radius: float,
+                                  tile: int = 2048) -> torch.Tensor:
+    """Plain version of K11: (N,) int32 lowest index j != i over all N with
+    d^2 < r^2, -1 for none -- the reference's masked minimum over j, with
+    d^2 = (dx*dx + dy*dy) + dz*dz and dx = x_i - x_j, each operation
+    rounded once.
+
+    Rows go in blocks of at most min(tile, 256) in z order, and each block
+    meets only the j whose z lies within ``reach`` of its own z range: any
+    other j has |z_i - z_j| > r for every row of the block, so |fl(dz)| >= r
+    and, rounding being monotone, d^2 >= r^2 -- no hit.  ``reach`` is r
+    plus a margin for the rounding of the window's bounds.  The answer
+    equals the reference's tiled scan over all N exactly, at a fraction of
+    the work."""
+    n = pos.shape[0]
+    dev = pos.device
+    r2 = search_radius * search_radius
+    order = torch.argsort(pos[:, 2], stable=True)
+    axes = pos[order].t().contiguous()      # (3, N) in z order
+    ids = order.to(torch.int32)             # each sorted row's index
+    z = axes[2]
+    partner = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return partner
+    z_max = max(abs(float(z[0])), abs(float(z[-1])))
+    reach = (search_radius * (1.0 + 1e-3)
+             + 4.0 * torch.finfo(pos.dtype).eps * z_max)
+    rows = max(1, min(tile, 256))
+    starts = torch.arange(0, n, rows, device=dev)
+    ends = torch.clamp(starts + rows, max=n)
+    lo = torch.searchsorted(z, z[starts] - reach)
+    hi = torch.searchsorted(z, z[ends - 1] + reach, right=True)
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    for s, e, a, b in zip(starts.tolist(), ends.tolist(), lo.tolist(),
+                          hi.tolist()):
+        cand = ids[None, a:b]
+        dx, dy, dz = axes[:, s:e, None] - axes[:, None, a:b]
+        d2 = dx.mul_(dx).add_(dy.mul_(dy)).add_(dz.mul_(dz))
+        hit = (d2 < r2) & (ids[s:e, None] != cand)
+        best[s:e] = torch.where(hit, cand, _NO_PARTNER).amin(dim=1)
+    partner[order] = torch.where(best < _NO_PARTNER, best, -1).to(torch.int32)
+    return partner
+
+
+def allpairs_partner_search(pos: torch.Tensor, search_radius: float,
+                            tile: int = 2048) -> torch.Tensor:
+    """K11 (see ``allpairs_partner_search_plain``); CUDA kernel for CUDA
+    tensors (which stages its own tiles; ``tile`` bounds only the plain
+    version's blocks)."""
+    if kernels.use_plain(pos):
+        return allpairs_partner_search_plain(pos, search_radius, tile)
+    dev = pos.device
+    n = pos.shape[0]
+    kernels.check(pos, "pos", torch.float32, (n, 3), dev)
+    partner = torch.empty(n, dtype=torch.int32, device=dev)
+    kernels.launch("allpairs_partner", dev, kernels.ptr(pos), n,
+                   search_radius * search_radius, kernels.ptr(partner))
     return partner
 
 

@@ -185,25 +185,37 @@ def energized_cylinder(state: ParticleState, mask: torch.Tensor,
                      energy)
 
 
-def gap_energy_interp(table_z_lo: float, table_z_hi: float, energies):
+@dataclasses.dataclass(frozen=True)
+class GapEnergyPoly:
+    """The gap's E_surf(z): a polynomial in t = 2 (z - z_lo) / (z_hi - z_lo)
+    - 1, clamped to [-1, 1], evaluated by Horner from ``power`` (highest
+    degree first).  K8 takes the same host doubles."""
+
+    z_lo: float
+    z_hi: float
+    power: tuple
+
+    def __call__(self, z: torch.Tensor) -> torch.Tensor:
+        t = torch.clamp(
+            fp.div(z - self.z_lo, self.z_hi - self.z_lo) * 2.0 - 1.0,
+            -1.0, 1.0,
+        )
+        acc = torch.full_like(t, self.power[0])
+        for c in self.power[1:]:
+            acc = acc * t + c
+        return acc
+
+
+def gap_energy_interp(table_z_lo: float, table_z_hi: float,
+                      energies) -> GapEnergyPoly:
     """Degree-12 Chebyshev fit of the gap's E_surf(z) samples, evaluated by
     Horner in the power basis (fit on the host, as in the reference)."""
     e = np.asarray(energies, np.float64)
     x = np.linspace(-1.0, 1.0, len(e))
     coeffs = np.polynomial.chebyshev.chebfit(x, e, deg=min(12, len(e) - 1))
     power = np.polynomial.chebyshev.cheb2poly(coeffs)[::-1]  # high->low
-
-    def interp(z: torch.Tensor) -> torch.Tensor:
-        t = torch.clamp(
-            fp.div(z - table_z_lo, table_z_hi - table_z_lo) * 2.0 - 1.0,
-            -1.0, 1.0,
-        )
-        acc = torch.full_like(t, float(power[0]))
-        for c in power[1:]:
-            acc = acc * t + float(c)
-        return acc
-
-    return interp
+    return GapEnergyPoly(float(table_z_lo), float(table_z_hi),
+                         tuple(float(c) for c in power))
 
 
 def cos_cone_from_deg(half_angle_deg: float) -> float:

@@ -14,10 +14,13 @@ exits non-zero without a result line):
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7; the pairs engine's K6, K1, K5, K3, K4 and K7's
-   compacted entry), with both times;
-3. the sweep slice and the pairs slice on the card against the same slices
-   on the CPU (the plain versions, which the CPU tests hold to the JAX
-   package) at 20k particles, 10 steps, from one state with one set of
+   compacted entry; K8, the fused drift/walls/recapture pass, over 16
+   steps of the pairs slice) and of the 24,627-particle cube (K11, also at
+   ~200k), with the kernel's, the plain version's and, where one exists,
+   the library call's time beside the kernel's bound;
+3. the sweep slice, the pairs slice and the cube on the card against the
+   same slices on the CPU (the plain versions, which the CPU tests hold to
+   the JAX package) at a small size, from one state with one set of
    uniforms;
 4. the pairs engine against the sweep engine on the card at 1M particles,
    100 steps, from one state with one set of uniforms;
@@ -25,19 +28,34 @@ exits non-zero without a result line):
    300 steps at 1M particles, float32, its invariants, throughput, init
    time and peak memory, with the launch count of every kernel in that run;
 6. the pairs slice (``narrowphase="pairs"``, ``rebuild_interval=8``) the
-   same way, with the rebuild and step times of one window.
+   same way, with the rebuild and step times of one window;
+7. the cube slice: ``Simulation(make_workload(CubeConfig()))``, 24,627
+   particles for 500 steps, and the reference's mean-free-path check on
+   its own validation configuration;
+8. where the time goes in each slice: untraced step time (CUDA events),
+   device time and device operations a step (``torch.profiler``), host
+   time of the step and of its per-particle stage (``cProfile``).
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
+``python3 chip_smoke.py --breakdown`` runs phases 0, 1 and 8 only; a copy
+of the script placed beside another checkout's package reads that
+checkout's step the same way, so two commits compare in one call.
 """
 
 from __future__ import annotations
 
+import argparse
+import cProfile
 import dataclasses
 import json
+import math
+import pstats
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from types import SimpleNamespace
 
 import torch
@@ -45,7 +63,7 @@ import torch
 import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch import kernels
 from argon_monte_carlo_tpu_torch.engine import build_grids, pairs_config_for
-from argon_monte_carlo_tpu_torch.init import init_pore
+from argon_monte_carlo_tpu_torch import init as init_ops
 from argon_monte_carlo_tpu_torch.ops import collide, measure as measure_ops
 from argon_monte_carlo_tpu_torch.ops import compact, oob
 from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
@@ -91,6 +109,27 @@ PAIRS_KERNELS = {
         source="argon_monte_carlo_tpu_torch/kernels/csrc/flush_hist.cu",
         replaces="argon_monte_carlo_tpu/ops/measure.py:88"),
 }
+# Both pore engines run K8 once a step; the cube's broad phase is K11.
+WALL_KERNELS = {
+    "pore_advance": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/pore_walls.cu",
+        replaces="argon_monte_carlo_tpu/models/temperature_pore.py:65"),
+}
+CUBE_KERNELS = {
+    "allpairs_partner": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/allpairs.cu",
+        replaces="argon_monte_carlo_tpu/ops/collide.py:1001"),
+}
+CUBE_STEPS = 500
+CUBE_PARTICLES = 24_627
+
+# The least time the card could take: NVIDIA's H100 SXM data sheet
+# (3.35 TB/s of HBM3, 67 TFLOP/s of float32 outside the tensor cores), at
+# the full 700 W.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations of one pair test: 3 sub, 3 mul, 2 add, 1 compare.
+PAIR_TEST_OPS = 9
 
 
 class CheckFailed(RuntimeError):
@@ -146,6 +185,61 @@ def exact(name, got, want):
     require(torch.equal(got, want), f"{name}: kernel != plain")
 
 
+def tensor_bytes(*items) -> int:
+    """Bytes of the distinct tensors in ``items`` (tensors, dataclasses or
+    tuples of them): each input read once, each output written once."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            key = (x.data_ptr(), x.numel())
+            if key not in seen:
+                seen.add(key)
+                total += x.numel() * x.element_size()
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+
+    for item in items:
+        walk(item)
+    return total
+
+
+def result(err, ms, plain_ms, nbytes, ops=0.0, library_ms=None) -> dict:
+    """One kernel's entry of the kernels line; the bound is the larger of
+    its bytes over the memory rate and its float32 operations over the
+    float32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms)
+
+
+def neighbor_slots(table, pslot, grid, n, cols=slice(0, 27)) -> int:
+    """Occupied slots in the listed particles' neighbour rows ``cols``:
+    the pair tests a sweep over those rows needs."""
+    occ = (table < n).sum(dim=1)
+    cap = grid.capacity
+    listed = pslot < grid.num_cells * cap
+    cell = (pslot[listed] // cap).long()
+    return int(occ[grid.neighbors[cell][:, cols].long()].sum())
+
+
+def print_times(results: dict, n: int, tag: str) -> None:
+    for name, r in results.items():
+        lib = (f", library {r['library_ms']!r} ms"
+               if r["library_ms"] is not None else "")
+        print(f"time {name}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} "
+              f"ms{lib}, bound {r['bound_ms']!r} ms ({r['bound_by']}) at "
+              f"N={n} {tag}")
+
+
 def config(particles=PARTICLES, **engine):
     return amt.temperature_pore_config(
         engine=amt.EngineConfig(broadphase="cells", **engine)
@@ -169,7 +263,7 @@ def check_kernels(tag: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    state = init_pore(cfg, gen, dev)
+    state = init_ops.init_pore(cfg, gen, dev)
     # One drift, so the positions are those a step bins (strays included).
     state = dataclasses.replace(state, pos=state.pos + cfg.dt * state.vel)
     n = state.num_particles
@@ -179,7 +273,7 @@ def check_kernels(tag: str) -> dict:
     results = {}
 
     # K2, at the auto capacity and at capacity 8 so that cells overflow.
-    k2_ms = k2_plain_ms = None
+    k2_ms = k2_plain_ms = k2_out = None
     for cap in (None, 8):
         g = grid if cap is None else amt.engine.build_grids(
             amt.make_workload(config(cell_capacity=cap)), dev)[1]
@@ -193,10 +287,14 @@ def check_kernels(tag: str) -> dict:
         if cap == 8:
             require(int(got[3]) > 0, "K2: capacity 8 did not overflow")
         else:
+            k2_out = got
             k2_ms = timed_ms(lambda: collide.bin_and_table(state.pos, g), 20)
             k2_plain_ms = timed_ms(
                 lambda: collide.bin_and_table_plain(state.pos, g), 5)
-    results["bin_and_table"] = (0.0, k2_ms, k2_plain_ms)
+    # ~9 float32 operations a particle: 3 subtractions, 3 divisions, 3
+    # floors.
+    results["bin_and_table"] = result(
+        0.0, k2_ms, k2_plain_ms, tensor_bytes(state.pos, k2_out), 9 * n)
 
     # K9.
     _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
@@ -205,12 +303,14 @@ def check_kernels(tag: str) -> dict:
           collide.partner_sweep_plain(state.pos, table, pslot, grid, r))
     print(f"K9 partner_sweep: exact; {int((partner >= 0).sum())} particles "
           f"with a partner {tag}")
-    results["partner_sweep"] = (
+    results["partner_sweep"] = result(
         0.0,
         timed_ms(lambda: collide.partner_sweep(state.pos, table, pslot,
                                                grid, r), 20),
         timed_ms(lambda: collide.partner_sweep_plain(state.pos, table, pslot,
                                                      grid, r), 3),
+        tensor_bytes(state.pos, table, pslot, grid.neighbors, partner),
+        PAIR_TEST_OPS * neighbor_slots(table, pslot, grid, n),
     )
 
     # K10, with paths, has_collided and staging drawn from the Generator.
@@ -236,11 +336,15 @@ def check_kernels(tag: str) -> dict:
     print(f"K10 resolve_pairs: {int(got_c)} pairs, count and staging "
           f"exact, state {k10_ulps} ulp from plain (bound 2), max abs err "
           f"{k10_err!r} {tag}")
-    results["resolve_pairs"] = (
+    # ~70 float32 operations a particle.
+    results["resolve_pairs"] = result(
         k10_err,
         timed_ms(lambda: collide.resolve_pairs(state, meas, partner, r), 20),
         timed_ms(lambda: collide.resolve_pairs_plain(state, meas, partner, r),
                  5),
+        tensor_bytes(state, partner, meas.pending_vals, meas.pending_mask,
+                     got_s, got_m.pending_vals, got_m.pending_mask),
+        70 * n,
     )
 
     # K7: the staging K10 left (realistic, compacted branch), a dense
@@ -272,15 +376,17 @@ def check_kernels(tag: str) -> dict:
               f"events={int(a.path_count) - int(m.path_count)}, "
               f"dropped={int(a.hist_drop_count) - int(m.hist_drop_count)}, "
               f"path_sum rel err {rel!r} (bound 1e-6) {tag}")
-    results["flush_hist"] = (
+    flushed = measure_ops.flush_hist(got_m, nb, hi)
+    results["flush_hist"] = result(
         k7_err,
         timed_ms(lambda: measure_ops.flush_hist(got_m, nb, hi), 20),
         timed_ms(lambda: measure_ops.flush_hist_plain(got_m, nb, hi), 5),
+        tensor_bytes(got_m.pending_vals, got_m.pending_mask, got_m.hist,
+                     got_m.path_sum, flushed.pending_vals,
+                     flushed.pending_mask, flushed.hist, flushed.path_sum),
+        4 * n,
     )
-    for name, (_, ms, plain_ms) in results.items():
-        verdict = "slower than" if ms > plain_ms else "faster than"
-        print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
-              f"(kernel {verdict} plain) at N={n} {tag}")
+    print_times(results, n, tag)
     return results
 
 
@@ -298,7 +404,7 @@ def pairs_case(particles: int = PARTICLES):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    state = init_pore(cfg, gen, dev)
+    state = init_ops.init_pore(cfg, gen, dev)
     state = dataclasses.replace(state, pos=state.pos + cfg.dt * state.vel)
     wl = amt.make_workload(cfg)
     _, grid = build_grids(wl, dev)
@@ -323,11 +429,15 @@ def check_compact(case, tag: str, reps: int):
               f"{max(count // 2, 1)} and {count + 1000}: exact {tag}")
     shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
     mask = u < 3e-3
-    return (0.0,
-            maybe_timed(lambda: compact.compact_indices(mask, shared, n),
-                        reps),
-            maybe_timed(lambda: compact.compact_indices_plain(mask, shared, n),
-                        reps))
+    # The library call: torch.nonzero gives the same ascending indices
+    # (without the truncation and padding), and syncs to size its output.
+    return result(
+        0.0,
+        maybe_timed(lambda: compact.compact_indices(mask, shared, n), reps),
+        maybe_timed(lambda: compact.compact_indices_plain(mask, shared, n),
+                    reps),
+        n + 4 * shared, 0.0,
+        maybe_timed(lambda: torch.nonzero(mask), reps))
 
 
 def check_rebuild_sweep(case, tag: str, reps: int):
@@ -361,9 +471,12 @@ def check_rebuild_sweep(case, tag: str, reps: int):
             timing = (maybe_timed(lambda: collide.rebuild_sweep(*args), reps),
                       maybe_timed(lambda: collide.rebuild_sweep_plain(*args),
                                   min(reps, 3)))
+            io = tensor_bytes(pos, reach, table, pslot, grid.neighbors,
+                              grid.active_rank, got)
+            tests = neighbor_slots(table, pslot, grid, case.n, slice(13, 27))
         else:
             require(int(overflow) > 0, "K1: capacity 8 did not spill")
-    return (0.0, *timing)
+    return result(0.0, *timing, io, PAIR_TEST_OPS * tests)
 
 
 def check_emit_pairs(case, tag: str, reps: int):
@@ -397,7 +510,8 @@ def check_emit_pairs(case, tag: str, reps: int):
             timing = (maybe_timed(lambda: pairs_ops.emit_pairs(*args), reps),
                       maybe_timed(lambda: pairs_ops.emit_pairs_plain(*args),
                                   min(reps, 5)))
-    return (0.0, *timing)
+            io = tensor_bytes(args[:7], got)
+    return result(0.0, *timing, io)
 
 
 def check_test_and_resolve(case, plist, tag: str, reps: int):
@@ -444,7 +558,11 @@ def check_test_and_resolve(case, plist, tag: str, reps: int):
                       maybe_timed(
                           lambda: pairs_ops.test_and_resolve_plain(*args),
                           min(reps, 5)))
-    return (err, *timing), after
+            io = tensor_bytes(state, meas.pending_vals, meas.pending_mask,
+                              plist.a, plist.b, gs, gm.pending_vals,
+                              gm.pending_mask, gmask)
+    return (result(err, *timing, io,
+                   PAIR_TEST_OPS * plist.a.shape[0] + 70 * n), after)
 
 
 def check_research_dirty(case, plist, state, tag: str, reps: int):
@@ -488,7 +606,22 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
                                   reps),
                       maybe_timed(lambda: pairs_ops.research_dirty_plain(
                           *args), min(reps, 5)))
-    return (0.0, *timing)
+            appended = int(got.cursor) - int(plist.cursor)
+    # What this dirty set needs: the bump mask and the bumped particles'
+    # slots and reach0; each dirty particle's index, pos, vel and slot; the
+    # slot planes (pos0, idx0, reach0: 20 bytes a slot) of the union of the
+    # dirty particles' 27 neighbour rows, each row once; the appended
+    # entries and latent counts.
+    cap = grid.capacity
+    live = dirty_idx[dirty_idx < n].long()
+    slot = plist.pslot0[live]
+    cells = (slot[slot < grid.num_cells * cap] // cap).long()
+    rows = grid.neighbors[cells].long()
+    occ = (plist.idx0 < n).sum(dim=1)
+    bumped = int(bump.sum())
+    io = (n + 8 * bumped + live.numel() * (4 + 12 + 12 + 4 + 4)
+          + torch.unique(rows).numel() * cap * 20 + 8 * appended)
+    return result(0.0, *timing, io, PAIR_TEST_OPS * int(occ[rows].sum()))
 
 
 def check_flush_compacted(case, meas, tag: str, reps: int):
@@ -523,7 +656,10 @@ def check_flush_compacted(case, meas, tag: str, reps: int):
                       maybe_timed(
                           lambda: measure_ops.flush_hist_compacted_plain(
                               meas, idx, nb, hi), min(reps, 5)))
-    return (err, *timing)
+            io = tensor_bytes(meas.pending_vals, meas.pending_mask, idx,
+                              meas.hist, meas.path_sum, a.pending_vals,
+                              a.pending_mask, a.hist, a.path_sum)
+    return result(err, *timing, io, 4 * n)
 
 
 def check_pairs_kernels(tag: str, particles: int = PARTICLES,
@@ -544,10 +680,8 @@ def check_pairs_kernels(tag: str, particles: int = PARTICLES,
                                                      reps)
     results["flush_hist_compacted"] = check_flush_compacted(case, meas, tag,
                                                             reps)
-    for name, (_, ms, plain_ms) in results.items():
-        verdict = "slower than" if ms > plain_ms else "faster than"
-        print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
-              f"(kernel {verdict} plain) at N={case.n} {tag}")
+    if reps > 0:
+        print_times(results, case.n, tag)
     return results
 
 
@@ -556,17 +690,19 @@ def check_pairs_kernels(tag: str, particles: int = PARTICLES,
 # --------------------------------------------------------------------------
 
 
-def check_against_cpu(tag: str, **engine) -> None:
+def check_against_cpu(tag: str, cfg=None, label=None, steps: int = 10,
+                      **engine) -> None:
     """A slice on the card against the same slice on the CPU -- the plain
-    versions, which tests/test_torch_engine.py holds to the JAX reference
-    -- from one initial state with one set of per-step uniforms, at a small
-    size.  Counts and the histogram must be equal; the state may differ by
-    the cos/sin rounding of the two devices (a few ulp a step)."""
-    steps = 10
-    label = engine.get("narrowphase", "sweep")
-    cfg = amt.temperature_pore_config(
-        engine=amt.EngineConfig(steps_per_epoch=5, **engine)).scaled_to(
-            20_000)
+    versions, which tests/test_torch_engine.py and test_torch_cube.py hold
+    to the JAX reference -- from one initial state with one set of per-step
+    uniforms, at a small size (the pore at 20k unless ``cfg`` is given).
+    Counts and the histogram must be equal; the state may differ by the
+    cos/sin rounding of the two devices (a few ulp a step)."""
+    label = label or engine.get("narrowphase", "sweep")
+    if cfg is None:
+        cfg = amt.temperature_pore_config(
+            engine=amt.EngineConfig(steps_per_epoch=5, **engine)).scaled_to(
+                20_000)
     cpu = amt.Simulation(amt.make_workload(cfg), device="cpu")
     gpu = amt.Simulation(amt.make_workload(cfg), device="cuda")
     state, meas, gen = cpu.init(SEED)
@@ -729,6 +865,10 @@ def run_slice(tag: str, names, **engine) -> dict:
     for name in names:
         require(counts.get(name, 0) > 0,
                 f"{label} slice: kernel {name} not launched")
+    # K8 is the step's whole per-particle stage: once a step.
+    require(counts.get("pore_advance", 0) == STEPS,
+            f"{label} slice: pore_advance launched "
+            f"{counts.get('pore_advance', 0)} times in {STEPS} steps")
     if label == "pairs":
         check_pairs_overflow("pairs slice", sim, step0,
                              int(meas.overflow_count), tag)
@@ -769,7 +909,379 @@ def run_slice(tag: str, names, **engine) -> dict:
     return counts
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# K8: the fused drift/walls/recapture pass, and K11: the all-pairs search
+# --------------------------------------------------------------------------
+
+# Ledger bound: the kernel and the plain version sum the same terms in two
+# different fixed orders; float32 sums of <= N terms differ by about
+# log2(N) 2^-24 sum|term| (1.2e-6 at 1M), so 1e-5 of sum|term|.
+LEDGER_REL = 1e-5
+# State bound: 0 ulp is expected (both round each operation once, IEEE,
+# and cosf/sinf are the non-fast-math functions torch.cos/torch.sin call);
+# 2 ulp allows one ulp in cos or sin, carried into the re-emitted
+# velocity.
+K8_ULPS = 2
+
+
+def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
+                       reps: int = 20, require_cases: bool = True) -> dict:
+    """K8 against its plain version on the card, over ``steps`` steps of
+    the pairs slice after its first 24: each step's state and uniforms go
+    through both, then the slice takes the step."""
+    cfg = config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    start = 24
+    state, meas, _ = sim.run(start, state=state, measure=meas, generator=gen)
+    n = state.num_particles
+    mass = cfg.physics.mass
+    cases = Counter()
+    ulps, err, ledger_err, energized = 0, 0.0, 0.0, 0
+    for i in range(steps):
+        u = torch.rand((n, 2), generator=gen, device="cuda")
+        masks = {}
+        want = wl.advance_plain(state, meas, u, masks)
+        got = wl.advance(state, meas, u)
+        again = wl.advance(state, meas, u)
+        (ws, wm, wl_, wrec, wrw, wsp), (gs, gm, gl, grec, grw, gsp) = want, got
+        for name, m in masks.items():
+            cases[name] += int(m.sum())
+        floats = [(gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)]
+        ulps = max(ulps, *(ulp_diff(a, b) for a, b in floats))
+        err = max(err, *(max_abs(a, b) for a, b in floats))
+        for name, a, b in (("has_collided", gs.has_collided, ws.has_collided),
+                           ("pending_mask", gm.pending_mask, wm.pending_mask),
+                           ("recap_w", grw, wrw), ("speed_pre", gsp, wsp),
+                           ("recaptured", grec, wrec),
+                           ("wall_hits", gl.wall_hits, wl_.wall_hits),
+                           ("errs", gl.errs, wl_.errs)):
+            exact(f"K8 {name} (step {i})", a, b.to(a.dtype))
+        set_ = wm.pending_mask
+        exact(f"K8 pending_vals where staged (step {i})",
+              gm.pending_vals[set_], wm.pending_vals[set_])
+        # sum|term| of the energized cases, from the plain version's masks.
+        hit = torch.zeros(n, dtype=torch.bool, device="cuda")
+        for name, m in masks.items():
+            if name[0] in "3456":
+                hit |= m
+        energized += int(hit.sum())
+        v0, v1 = state.vel[hit].double(), ws.vel[hit].double()
+        scale = {"momentum_z": mass * float((v1[:, 2] - v0[:, 2]).abs().sum()),
+                 "energy": 0.5 * mass * float(((v1 * v1).sum(1)
+                                               - (v0 * v0).sum(1)).abs().sum())}
+        for f in ("momentum_z", "energy_hot", "energy_cold"):
+            d = abs(float(getattr(gl, f)) - float(getattr(wl_, f)))
+            sc = scale["momentum_z" if f == "momentum_z" else "energy"]
+            rel = d / sc if sc > 0 else d
+            require(rel <= LEDGER_REL, f"K8 {f} (step {i}): {rel} of "
+                    f"sum|term| from plain")
+            ledger_err = max(ledger_err, rel)
+        for name, a, b in zip(
+                ("pos", "vel", "paths", "has_collided", "pending_vals",
+                 "pending_mask", "momentum_z", "energy_hot", "energy_cold",
+                 "wall_hits", "errs", "recaptured", "recap_w", "speed_pre"),
+                (gs.pos, gs.vel, gs.paths, gs.has_collided, gm.pending_vals,
+                 gm.pending_mask, *gl, grec, grw, gsp),
+                (again[0].pos, again[0].vel, again[0].paths,
+                 again[0].has_collided, again[1].pending_vals,
+                 again[1].pending_mask, *again[2], *again[3:])):
+            require(torch.equal(a, b), f"K8 {name}: two launches differ")
+        state, meas, _ = sim.run(1, state=state, measure=meas,
+                                 start_step=start + i, draw=lambda _: u)
+    require(ulps <= K8_ULPS, f"K8: state {ulps} ulp from plain")
+    groups = Counter()
+    for name, count in cases.items():
+        groups[name[0]] += count
+    print(f"K8 pore_advance: {steps} steps at N={n}; particles per case "
+          f"(plain masks) {dict(sorted(cases.items()))} {tag}")
+    print(f"K8 pore_advance: state {ulps} ulp from plain (bound {K8_ULPS}), "
+          f"max abs err {err!r}; masks, hits, errs, recaptures and speed_pre "
+          f"exact; pending_vals equal where staged; ledger within "
+          f"{ledger_err!r} of sum|term| (bound {LEDGER_REL}); two launches "
+          f"bitwise equal {tag}")
+    if require_cases:
+        for g in "123456":
+            require(groups[g] > 0, f"K8: case {g} took no particle")
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    out = wl.advance(state, meas, u)
+    # Each input read once (the uniforms only for energized hits), each
+    # output written once; ~60 float32 operations a particle.
+    io = (tensor_bytes(state, meas.pending_vals, meas.pending_mask)
+          + 8 * energized // steps
+          + tensor_bytes(out[0], out[1].pending_vals, out[1].pending_mask,
+                         out[2], out[3:]))
+    out = {"pore_advance": result(
+        err, maybe_timed(lambda: wl.advance(state, meas, u), reps),
+        maybe_timed(lambda: wl.advance_plain(state, meas, u), min(reps, 3)),
+        io, 60 * n)}
+    if reps > 0:
+        print_times(out, n, tag)
+    return out
+
+
+def cube_config(particles=None, **engine) -> amt.CubeConfig:
+    """The cube at its published density, in a box scaled to hold
+    ``particles`` (the published 100 nm box when None)."""
+    geom = amt.CubeGeometry()
+    if particles is not None:
+        side = geom.lx * (particles / CUBE_PARTICLES) ** (1.0 / 3.0)
+        geom = amt.CubeGeometry(lx=side, ly=side, lz=side)
+    return amt.CubeConfig(geometry=geom, engine=amt.EngineConfig(
+        broadphase="allpairs", **engine))
+
+
+def check_allpairs(tag: str, sizes=(None, 200_000), reps: int = 20) -> dict:
+    """K11 against its plain version, exactly, on the cube's state after
+    one drift: at the published 24,627 particles and at a larger box of
+    the same density (more tiles, one j-split)."""
+    out = None
+    for particles in sizes:
+        cfg = cube_config(particles)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cfg.seed)
+        state = init_ops.init_cube(cfg, gen)
+        pos = state.pos + cfg.dt * state.vel
+        n = pos.shape[0]
+        r = cfg.physics.collision_range + cfg.engine.skin
+        tile = cfg.engine.allpairs_tile
+        got = collide.allpairs_partner_search(pos, r, tile)
+        want = collide.allpairs_partner_search_plain(pos, r, tile)
+        exact(f"K11 partner (N={n})", got, want)
+        hits = int((got >= 0).sum())
+        require(hits > 0, f"K11: no particle with a partner at N={n}")
+        print(f"K11 allpairs_partner N={n}: exact; {hits} particles with a "
+              f"partner {tag}")
+        if out is None:
+            # The pair tests this data needs: up to the first hit, else all.
+            tests = int(torch.where(got >= 0, got.long() + 1, n).sum())
+            out = {"allpairs_partner": result(
+                0.0,
+                maybe_timed(lambda: collide.allpairs_partner_search(
+                    pos, r, tile), reps),
+                maybe_timed(lambda: collide.allpairs_partner_search_plain(
+                    pos, r, tile), min(reps, 3)),
+                tensor_bytes(pos, got), PAIR_TEST_OPS * tests)}
+            if reps > 0:
+                print_times(out, n, tag)
+    return out
+
+
+def kinetic(state) -> float:
+    return float((state.vel.double() ** 2).sum())
+
+
+def run_cube_slice(tag: str, k11_ms: float) -> dict:
+    """Phase 7: the cube at its published size, seed 127, 500 steps, 100
+    an epoch; then the reference's mean-free-path check on its own
+    validation configuration."""
+    cfg = cube_config(steps_per_epoch=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    state, meas, gen = sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = state.num_particles
+    require(n == CUBE_PARTICLES, f"cube: {n} particles")
+    e0 = kinetic(state)
+    marks = []
+
+    def on_epoch(_metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    kernels.launch_counts.clear()
+    state, meas, metrics = sim.run(state=state, measure=meas, generator=gen,
+                                   epoch_callback=on_epoch)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    steps = cfg.num_timesteps
+    g = cfg.geometry
+    pos = state.pos
+    inside = bool(((pos >= 0).all(0)
+                   & (pos <= torch.tensor([g.lx, g.ly, g.lz],
+                                          device="cuda")).all(0)).all())
+    require(inside, "cube slice: a particle left the box")
+    require(int(meas.err_count) == 0, "cube slice: wall-solver errors")
+    require(bool(torch.isfinite(pos).all()), "cube slice: non-finite state")
+    # Specular walls and elastic collisions conserve kinetic energy; in
+    # float32 each collision rounds the exchanged velocities once.
+    e_rel = abs(kinetic(state) - e0) / e0
+    require(e_rel <= 1e-5, f"cube slice: kinetic energy moved by {e_rel}")
+    for name in ("allpairs_partner", "resolve_pairs", "flush_hist"):
+        require(counts.get(name, 0) == steps,
+                f"cube slice: {name} launched {counts.get(name, 0)} times")
+    pairs = int(metrics.collisions.sum())
+    # At the reference's dt a particle drifts ~9.4 collision ranges a
+    # step, so end-of-step overlap detection resolves the snapshot
+    # overlaps, N density (4/3) pi cr^3 / 2 pairs a step (PARITY.md).
+    cr = cfg.physics.collision_range
+    snapshot = n * (n / g.volume) * (4.0 / 3.0) * math.pi * cr**3 / 2.0
+    rate = pairs / steps
+    require(abs(rate - snapshot) <= 0.2 * snapshot,
+            f"cube slice: {rate} pairs a step against {snapshot}")
+    mfp = float(meas.path_sum[0]) / int(meas.path_count)
+    steady = (steps - STEPS_PER_EPOCH) / (marks[-1] - marks[0])
+    step_ms = 1e3 / steady
+    print(f"cube slice: N={n} steps={steps} pairs={pairs} ({rate!r} a step; "
+          f"snapshot-overlap expectation {snapshot!r}) path_count="
+          f"{int(meas.path_count)} mfp={mfp!r} m ({mfp / cfg.physics.lambda_mfp!r}"
+          f" lambda at the reference dt) err=0 in-box kinetic energy "
+          f"rel change {e_rel!r} (bound 1e-5) {tag}")
+    print(f"cube slice: particle-steps/s={steady * n!r} (epochs 2-"
+          f"{len(marks)}), step {step_ms!r} ms, K11 share "
+          f"{k11_ms / step_ms!r}, init {init_s!r} s, peak memory "
+          f"{peak / 2**30!r} GiB {tag}")
+    print(f"cube slice: launches {counts} {tag}")
+    check_mfp(tag)
+    return counts
+
+
+def check_mfp(tag: str) -> None:
+    """The reference's own physics check (tests/test_mfp_validation.py):
+    sigma x4 in a 40 nm box at ambient density, ~0.2 nm of drift a step,
+    20 mean-free times, float32 on the card; the measured mean free path
+    within 20% of lambda."""
+    physics = amt.GasPhysics(sigma=3.6e-19 * 4.0)
+    geom = amt.CubeGeometry(lx=40e-9, ly=40e-9, lz=40e-9)
+    steps_per_mft = max(1, int(round(physics.tau / (0.2e-9 / physics.v_mean))))
+    cfg = amt.CubeConfig(
+        geometry=geom, physics=physics, nmft=20, steps_per_mft=steps_per_mft,
+        engine=amt.EngineConfig(broadphase="allpairs", steps_per_epoch=500))
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    t0 = time.perf_counter()
+    _, meas, _ = sim.run()
+    torch.cuda.synchronize()
+    count = int(meas.path_count)
+    measured = float(meas.path_sum[0]) / count
+    lam = physics.lambda_mfp
+    require(count > 3000, f"mfp check: {count} completed paths")
+    require(abs(measured - lam) <= 0.2 * lam,
+            f"mfp check: {measured} against lambda {lam}")
+    print(f"mfp check: N={cfg.num_molecules} steps={cfg.num_timesteps} "
+          f"paths={count} mfp={measured!r} m, lambda={lam!r} m, ratio "
+          f"{measured / lam!r} (bound 0.8-1.2), "
+          f"{time.perf_counter() - t0!r} s {tag}")
+
+
+def our_kernel_names() -> set:
+    """The __global__ function names of the port's CUDA sources."""
+    names = set()
+    for src in kernels.CSRC.glob("*.cu"):
+        names.update(re.findall(r"__global__\s+void\s+(\w+)",
+                                src.read_text()))
+    return names
+
+
+def kernel_short_name(name: str, ours: set) -> str:
+    """The port's kernel a device event ran, found by its name in the
+    demangled or the mangled symbol; else the first identifier followed
+    by '<' or '(' ('void at::native::elementwise_kernel<...>(...)' ->
+    'elementwise_kernel'); 'Memcpy DtoD (Device -> Device)' ->
+    'Memcpy DtoD'."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name.split(" (")[0]
+    for k in ours:
+        if re.search(rf"(?<![A-Za-z_]){k}(?![a-z0-9_])", name):
+            return k
+    m = re.search(r"([A-Za-z_]\w*)\s*[<(]", name)
+    return m.group(1) if m else name[:48]
+
+
+def breakdown(tag: str, label: str, cfg, traced: int = 16,
+              timed: int = 40, profiled: int = 24) -> None:
+    """Phase 8: where one slice's step time goes.  Untraced step time from
+    CUDA events; device time, its share in the port's kernels and device
+    operations a step from torch.profiler; host time of the step and of
+    its per-particle stage (``advance``) from cProfile."""
+    from torch.profiler import ProfilerActivity, profile
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    state, meas, gen = sim.init(SEED)
+    state, meas, _ = sim.run(24, state=state, measure=meas, generator=gen)
+    step = 24
+
+    def run(k):
+        nonlocal state, meas, step
+        state, meas, _ = sim.run(k, state=state, measure=meas,
+                                 generator=gen, start_step=step)
+        step += k
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    run(timed)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / timed
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(traced)
+        torch.cuda.synchronize()
+    ours = our_kernel_names()
+    device_us, ours_us, ops = 0.0, 0.0, 0
+    by_name = Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        device_us += us
+        ops += 1
+        short = kernel_short_name(e.name, ours)
+        by_name[short] += us
+        if short in ours:
+            ours_us += us
+    require(ours_us > 0, f"breakdown {label}: no device time in the port's "
+            f"kernels")
+    device_ms = device_us / 1e3 / traced
+    top = ", ".join(f"{k} {v / 1e3 / traced:.3f}"
+                    for k, v in by_name.most_common(8))
+
+    torch.cuda.synchronize()
+    prof_host = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof_host.enable()
+    run(profiled)
+    prof_host.disable()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / profiled
+    stats = pstats.Stats(prof_host)
+    # Host time of the per-particle stage: the workload's advance, and the
+    # plain wall pass (inside advance on the CPU; called by the step itself
+    # before K8).
+    stage = {name: sum(v[3] for k, v in stats.stats.items()
+                       if k[2] == name) * 1e3 / profiled
+             for name in ("advance", "wall_pass")}
+    print(f"breakdown {label}: step {step_ms!r} ms untraced; device "
+          f"{device_ms!r} ms a step ({device_ms / step_ms:.1%} busy, idle "
+          f"{1 - device_ms / step_ms:.1%}), {ops / traced:.1f} device ops a "
+          f"step, port kernels {ours_us / 1e3 / traced!r} ms a step; host "
+          f"{host_ms!r} ms a step under cProfile, advance "
+          f"{stage['advance']!r} ms, plain wall pass {stage['wall_pass']!r} "
+          f"ms {tag}")
+    print(f"breakdown {label}: device ms a step by kernel: {top} {tag}")
+
+
+def breakdowns(tag: str) -> None:
+    """Phase 8 for every slice this checkout has."""
+    breakdown(tag, "sweep", config())
+    breakdown(tag, "pairs", config(**PAIRS))
+    if hasattr(amt, "CubeConfig"):
+        breakdown(tag, "cube", cube_config())
+
+
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--breakdown", action="store_true",
+        help="run only phases 0, 1 and 8 and print no result line (a copy "
+             "of this script beside another checkout's package reads that "
+             "checkout the same way)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -788,22 +1300,34 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "error" in line.lower():
             print(f"  ptxas: {line.strip()} {tag}")
+    if args.breakdown:
+        breakdowns(tag)
+        return 0
 
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
+    results.update(check_pore_advance(tag))
+    results.update(check_allpairs(tag))
     check_against_cpu(tag)
     check_against_cpu(tag, narrowphase="pairs", rebuild_interval=5)
+    check_against_cpu(tag, cfg=cube_config(3_000, steps_per_epoch=5),
+                      label="cube", steps=20)
     compare_pairs_with_sweep(tag)
-    counts = run_slice(tag, KERNELS)
-    pairs_counts = run_slice(tag, ["bin_and_table", *PAIRS_KERNELS], **PAIRS)
-    counts.update({name: pairs_counts[name] for name in PAIRS_KERNELS})
+    counts = run_slice(tag, [*KERNELS, *WALL_KERNELS])
+    pairs_counts = run_slice(
+        tag, ["bin_and_table", *PAIRS_KERNELS, *WALL_KERNELS], **PAIRS)
+    counts.update({name: pairs_counts[name]
+                   for name in [*PAIRS_KERNELS, *WALL_KERNELS]})
+    cube_counts = run_cube_slice(tag, results["allpairs_partner"]["ms"])
+    counts.update({name: cube_counts[name] for name in CUBE_KERNELS})
+    breakdowns(tag)
 
-    sources = {**KERNELS, **PAIRS_KERNELS}
+    sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS}
+    require(set(results) == set(sources), "kernels line: entries missing")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **sources[name],
-         "launches": counts[name], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in results.items()
+         "launches": counts[name], **r}
+        for name, r in results.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -812,4 +1336,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

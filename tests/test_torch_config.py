@@ -105,18 +105,39 @@ def test_host_grid_equal(target, capacity):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(broadphase="allpairs"), "slice 7"),
     (dict(debug_audits=True), "slice 7"),
+    (dict(cube=True, broadphase="cells"), "slice 7"),
 ])
 def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcfg.EngineConfig(**kwargs)
+    """What the port does not run yet: the audits, and the cube on the cell
+    grid (it needs a grid centred on the box)."""
+    kwargs = dict(kwargs)
+    cube = kwargs.pop("cube", False)
+    with pytest.raises(NotImplementedError, match=match) as raised:
+        engine = tcfg.EngineConfig(**kwargs)
+        if cube:
+            tcfg.CubeConfig(engine=engine)
+    assert not cube or "centred on the box" in str(raised.value)
+
+
+def test_allpairs_options():
+    """The all-pairs broad phase runs the cube (its default) and the pore's
+    sweep; the pairs narrow phase refuses it, as the reference's
+    make_pairs_step_fn does (engine.py:343-344)."""
+    assert tcfg.CubeConfig().engine.broadphase == "allpairs"
+    eng = tcfg.EngineConfig(broadphase="allpairs")
+    assert eng.allpairs_tile == jcfg.EngineConfig().allpairs_tile
+    amt.temperature_pore_config(engine=eng)
+    with pytest.raises(ValueError, match="requires broadphase='cells'"):
+        tcfg.EngineConfig(broadphase="allpairs", narrowphase="pairs",
+                          rebuild_interval=8)
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(rebuild_interval=8),                       # the sweep re-sweeps
     dict(narrowphase="pairs", rebuild_interval=0),
     dict(narrowphase="verlet"),
+    dict(broadphase="octree"),
 ])
 def test_engine_options_checked(kwargs):
     with pytest.raises(ValueError):

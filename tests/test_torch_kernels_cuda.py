@@ -8,9 +8,11 @@ JAX; there, the JAX-importing conftest is skipped:
 
 Tolerances: integer outputs and staging exact; K10's and K3's state within
 2 ulp (both sides round every operation once, IEEE; measured 0); K7's
-path_sum within 1e-6 relative (block sums in another order).  The pairs
-engine's kernels run ``chip_smoke.py``'s own checks, at 200k particles and
-untimed.
+path_sum within 1e-6 relative (block sums in another order); K8's state
+within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
+why); K11 exact.  The pairs engine's kernels, K8 and K11 run
+``chip_smoke.py``'s own checks, untimed: the pore at 200k particles, the
+cube at its published 24,627.
 """
 
 import dataclasses
@@ -180,3 +182,21 @@ def test_flush_hist_compacted_kernel(pairs_case, plist):
 
 def test_pairs_engine_on_card_matches_cpu(device):
     chip_smoke.check_against_cpu("", narrowphase="pairs", rebuild_interval=5)
+
+
+def test_pore_advance_kernel(device):
+    before = kernels.launch_counts["pore_advance"]
+    chip_smoke.check_pore_advance("", particles=TARGET, steps=4, reps=0)
+    assert kernels.launch_counts["pore_advance"] > before
+
+
+def test_allpairs_partner_kernel(device):
+    before = kernels.launch_counts["allpairs_partner"]
+    chip_smoke.check_allpairs("", sizes=(None,), reps=0)
+    assert kernels.launch_counts["allpairs_partner"] == before + 1
+
+
+def test_cube_on_card_matches_cpu(device):
+    chip_smoke.check_against_cpu(
+        "", cfg=chip_smoke.cube_config(3_000, steps_per_epoch=5),
+        label="cube", steps=20)

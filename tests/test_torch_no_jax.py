@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: both are blocked in a
 fresh interpreter, which then imports every port module and runs two
-steps of the sweep engine and two of the pairs engine on the CPU."""
+steps each of the sweep engine, the pairs engine and the cube on the
+CPU."""
 
 import os
 import subprocess
@@ -26,6 +27,10 @@ cfg = amt.temperature_pore_config(engine=amt.EngineConfig(
 sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
 _, _, metrics = sim.run(num_steps=2)
 assert metrics.rebuilt.tolist() == [1, 0]
+cfg = amt.CubeConfig(num_particles_override=500)
+sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
+cube, _, metrics = sim.run(num_steps=2)
+assert metrics.collisions.shape == (2,) and cube.num_particles == 500
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", int(measure.collision_count))
