@@ -130,8 +130,8 @@ class CubeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PoreConfig:
-    """Thruster pore.  Only ``energized=True`` (Temperature_Pore_MC) runs in
-    the port; the specular pore is ROADMAP queue 1, slice 7."""
+    """Thruster pore: specular (Open_Air_Pore_MC, the default) or, with
+    ``energized=True``, the thermal-wall pore (Temperature_Pore_MC)."""
 
     geometry: PoreGeometry = PoreGeometry()
     energized: bool = False

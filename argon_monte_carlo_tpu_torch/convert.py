@@ -4,6 +4,10 @@ The port never imports JAX.  A caller passes ``np.asarray`` of each field
 of the reference's ``ParticleState`` / ``Measurements`` or grid, and gets
 the port's dataclasses on ``device``.  The tests use this to start both
 engines from one state and to show that the port builds the same grid.
+The sharded engines differ in layout: the reference keeps one flat array
+of ``n_shards * capacity`` lanes (and measurements stacked along a leading
+slab axis), the port one entry a slab; ``sharded_state_from_numpy`` and
+``sharded_state_to_numpy`` go between the two.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from .ops.pairs import PairList
 from .state import Measurements, ParticleState
 
 _INT_FIELDS = {"path_count", "collision_count", "err_count",
-               "overflow_count", "hist_drop_count", "hot_spill_count"}
+               "overflow_count", "hist_drop_count", "hot_spill_count",
+               "halo_trunc_count"}
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -30,7 +35,8 @@ def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float32):
     """(ParticleState, Measurements or None) from the reference's field
     arrays.  ``arrays`` holds pos, vel, paths, has_collided and, for the
     measurements, their fields too (hist stays float32, counters int32,
-    other floats ``dtype``); fields the port does not keep are ignored."""
+    other floats ``dtype``); fields the port does not keep are ignored and
+    a counter that ``arrays`` lacks starts at zero."""
     state = ParticleState(
         pos=_tensor(arrays["pos"], dtype, device),
         vel=_tensor(arrays["vel"], dtype, device),
@@ -48,7 +54,8 @@ def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float32):
         return torch.float32 if name == "hist" else dtype
 
     measure = Measurements(**{
-        f.name: _tensor(arrays[f.name], field_dtype(f.name), device)
+        f.name: _tensor(arrays.get(f.name, 0) if f.name in _INT_FIELDS
+                        else arrays[f.name], field_dtype(f.name), device)
         for f in dataclasses.fields(Measurements)
     })
     return state, measure
@@ -99,3 +106,51 @@ def pairlist_from_numpy(arrays: dict, capacity: int, device="cpu",
         overflow=_tensor(arrays["overflow"], torch.int32, device),
         spill=_tensor(arrays["spill"], torch.int32, device),
     )
+
+
+def sharded_state_from_numpy(arrays: dict, devices, dtype=torch.float32):
+    """The port's per-slab lists from the reference's flat sharded state:
+    ``arrays`` holds pos, vel, paths, has_collided, valid and gid of
+    ``len(devices) * capacity`` lanes and, for the measurements, their
+    fields stacked along a leading slab axis.  Returns (state, measure):
+    a list of (ParticleState, valid, gid) and a list of Measurements (or
+    None), slab s on ``devices[s]``."""
+    n_shards = len(devices)
+    lanes = np.asarray(arrays["valid"]).shape[0]
+    if lanes % n_shards:
+        raise ValueError(f"{lanes} lanes do not split into {n_shards} slabs")
+    cap = lanes // n_shards
+    fields = [f.name for f in dataclasses.fields(Measurements)]
+    state, measure = [], []
+    for s, dev in enumerate(devices):
+        rows = slice(s * cap, (s + 1) * cap)
+        part = {k: np.asarray(arrays[k])[rows]
+                for k in ("pos", "vel", "paths", "has_collided")}
+        if "hist" in arrays:
+            part.update({k: np.asarray(arrays[k])[s] for k in fields
+                         if k in arrays})
+        st, meas = state_from_numpy(part, dev, dtype)
+        state.append((st,
+                      _tensor(np.asarray(arrays["valid"])[rows], torch.bool,
+                              dev),
+                      _tensor(np.asarray(arrays["gid"])[rows], torch.int32,
+                              dev)))
+        measure.append(meas)
+    return state, (measure if "hist" in arrays else None)
+
+
+def sharded_state_to_numpy(state, measure=None) -> dict:
+    """The reference's layout from the port's per-slab lists: the state's
+    arrays, valid and gid concatenated over the slabs, and each
+    measurement field stacked along a leading slab axis."""
+    out = {
+        name: np.concatenate([getattr(st, name).cpu().numpy()
+                              for st, _, _ in state])
+        for name in ("pos", "vel", "paths", "has_collided")}
+    out["valid"] = np.concatenate([v.cpu().numpy() for _, v, _ in state])
+    out["gid"] = np.concatenate([g.cpu().numpy() for _, _, g in state])
+    if measure is not None:
+        for f in dataclasses.fields(Measurements):
+            out[f.name] = np.stack([getattr(m, f.name).cpu().numpy()
+                                    for m in measure])
+    return out

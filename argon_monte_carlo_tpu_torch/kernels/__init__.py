@@ -8,10 +8,11 @@ flags, so an edit rebuilds).  The library is loaded with ``ctypes``;
 nothing here runs when the package is imported, and nothing falls back:
 a missing ``nvcc`` or a failed build raises.
 
-Each exported function launches on PyTorch's current stream and returns
-``cudaGetLastError()``; :func:`launch` raises on a non-zero code and then
-adds one to ``launch_counts[name]``, so a run can show which kernels its
-main path went through.
+Each exported function launches on PyTorch's current stream of the
+tensors' device and returns ``cudaGetLastError()``; :func:`launch` makes
+that device current for the call, raises on a non-zero code and then adds
+one to ``launch_counts[name]``, so a run can show which kernels its main
+path went through.
 """
 
 from __future__ import annotations
@@ -41,11 +42,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Argument types of each exported amc_<name>, the stream last
 # (tests/test_torch_pairs.py holds them against the C declarations).
 _SIGNATURES = {
-    "bin_and_table": [_P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
+    "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "partner_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
-                      _P, _P, _P, _P, _P, _P, _P, _P],
+    "partner_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                      _P],
+    "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P],
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 12,
@@ -58,6 +60,8 @@ _SIGNATURES = {
                          _F] + [_P] * 18,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 12,
     "allpairs_partner": [_P, _I, _F, _P, _P],
+    "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 6,
+    "pack_indices": [_P, _I, _I] + [_P] * 7,
 }
 
 
@@ -151,13 +155,22 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def optional_ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """``ptr(t)``, or the null pointer for an argument left out."""
+    return ctypes.c_void_p(None) if t is None else ptr(t)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call ``amc_<name>`` on ``device``'s current stream; raise on a CUDA
-    error, else count the launch.  Scalars are passed as Python ints and
-    floats (ctypes converts them by the signature)."""
+    """Call ``amc_<name>`` on ``device``'s current stream, with ``device``
+    made the current one for the call (a launch on a stream of another
+    card than the current one fails); raise on a CUDA error, else count
+    the launch.  Scalars are passed as Python ints and floats (ctypes
+    converts them by the signature)."""
     fn = getattr(library(), f"amc_{name}")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    rc = fn(*args, stream)
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
     launch_counts[name] += 1

@@ -15,6 +15,11 @@
 // insertion-sorts its segment by particle index (occupancy ~11), which is
 // exactly the order of the reference's stable argsort, so the particles
 // that lose their slot in a full cell are the same ones.
+//
+// valid (optional, the z-slab engine's padding lanes; collide.py:350-351,
+// 374): a lane with valid[i] == 0 gets the dummy cell num_cells and the
+// dummy slot, is counted nowhere and enters no segment.  A null pointer
+// takes the same path as before the argument existed.
 #include "common.cuh"
 
 namespace {
@@ -22,15 +27,23 @@ namespace {
 constexpr int kScanThreads = 1024;
 
 // collide.py:324-349 (amc::assign_cell, shared with K4).
-__global__ void assign_cells_kernel(const float* __restrict__ pos, int n,
+__global__ void assign_cells_kernel(const float* __restrict__ pos,
+                                    const uint8_t* __restrict__ valid, int n,
                                     const int* __restrict__ nx,
                                     const int* __restrict__ layer_base,
                                     const float* __restrict__ half_extent,
                                     int nz, float z_lo, float cell_size,
+                                    int num_cells, int cap,
                                     int* __restrict__ cell_id,
+                                    int* __restrict__ pslot,
                                     int* __restrict__ counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (valid != nullptr && !valid[i]) {
+    cell_id[i] = num_cells;
+    pslot[i] = num_cells * cap;
+    return;
+  }
   int c = amc::assign_cell(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], nx,
                            layer_base, half_extent, nz, z_lo, cell_size);
   cell_id[i] = c;
@@ -66,11 +79,12 @@ __global__ void scan_kernel(const int* __restrict__ counts, int m,
 }
 
 __global__ void scatter_kernel(const int* __restrict__ cell_id, int n,
-                               int* __restrict__ cursor,
+                               int num_cells, int* __restrict__ cursor,
                                int* __restrict__ seg) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  seg[atomicAdd(&cursor[cell_id[i]], 1)] = i;
+  int c = cell_id[i];
+  if (c < num_cells) seg[atomicAdd(&cursor[c], 1)] = i;
 }
 
 // One thread per table row.  Real rows sort their segment and take its
@@ -110,7 +124,8 @@ __global__ void table_kernel(const int* __restrict__ counts,
 
 // Scratch (int32): counts, offsets, cursor (num_cells each), seg (n).
 AMC_EXPORT int amc_bin_and_table(
-    const float* pos, int n, const int* nx, const int* layer_base,
+    const float* pos, const uint8_t* valid, int n, const int* nx,
+    const int* layer_base,
     const float* half_extent, int nz, float z_lo, float cell_size,
     int num_cells, int cap, int* cell_id, int* counts, int* offsets,
     int* cursor, int* seg, int* table, int* pslot, int* overflow,
@@ -119,14 +134,14 @@ AMC_EXPORT int amc_bin_and_table(
   cudaMemsetAsync(overflow, 0, sizeof(int), stream);
   if (n > 0) {
     assign_cells_kernel<<<amc::blocks_for(n), amc::kThreads, 0, stream>>>(
-        pos, n, nx, layer_base, half_extent, nz, z_lo, cell_size, cell_id,
-        counts);
+        pos, valid, n, nx, layer_base, half_extent, nz, z_lo, cell_size,
+        num_cells, cap, cell_id, pslot, counts);
   }
   scan_kernel<<<1, kScanThreads, 0, stream>>>(counts, num_cells, offsets,
                                               cursor);
   if (n > 0) {
     scatter_kernel<<<amc::blocks_for(n), amc::kThreads, 0, stream>>>(
-        cell_id, n, cursor, seg);
+        cell_id, n, num_cells, cursor, seg);
   }
   table_kernel<<<amc::blocks_for(num_cells + 1), amc::kThreads, 0, stream>>>(
       counts, offsets, seg, n, num_cells, cap, table, pslot, overflow);

@@ -74,6 +74,14 @@ __device__ __forceinline__ int assign_cell(float x, float y, float z,
   return layer_base[iz] + iy * m + ix;
 }
 
+// The count and scan passes of a stream compaction (compact.cu), shared by
+// K6 and K12: block_vals[b] receives the number of set entries of mask in
+// block b (kThreads lanes a block), block_offsets[b] the number in the blocks
+// before it, *total the number in all.  block_vals and block_offsets hold
+// blocks_for(len) ints each.
+void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
+                      int* block_offsets, int* total, cudaStream_t stream);
+
 // K6 stream compaction (compact.cu), for the kernels that compact on the
 // way: the ascending indices of the set entries of mask[0, len) go to
 // out[0, size), truncated to size and padded with fill; *total receives

@@ -166,6 +166,17 @@ __global__ void emit_finish_kernel(const int* __restrict__ totals, int m_cap,
 
 namespace amc {
 
+void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
+                      int* block_offsets, int* total, cudaStream_t stream) {
+  int nblocks = blocks_for(len);
+  if (nblocks > 0) {
+    mask_count_kernel<<<nblocks, kThreads, 0, stream>>>(mask, len,
+                                                         block_vals);
+  }
+  scan_blocks_kernel<<<1, kScanThreads, 0, stream>>>(
+      block_vals, nblocks, 1, block_offsets, total);
+}
+
 void compact_launch(const uint8_t* mask, int len, int size, int fill,
                     int* out, int* total, int* block_vals,
                     int* block_offsets, cudaStream_t stream) {
@@ -173,12 +184,7 @@ void compact_launch(const uint8_t* mask, int len, int size, int fill,
   if (size > 0) {
     fill_kernel<<<blocks_for(size), kThreads, 0, stream>>>(out, size, fill);
   }
-  if (nblocks > 0) {
-    mask_count_kernel<<<nblocks, kThreads, 0, stream>>>(mask, len,
-                                                         block_vals);
-  }
-  scan_blocks_kernel<<<1, kScanThreads, 0, stream>>>(
-      block_vals, nblocks, 1, block_offsets, total);
+  mask_scan_launch(mask, len, block_vals, block_offsets, total, stream);
   if (nblocks > 0) {
     mask_write_kernel<<<nblocks, kThreads, 0, stream>>>(
         mask, len, block_offsets, size, out);

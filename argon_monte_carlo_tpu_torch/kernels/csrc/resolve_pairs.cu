@@ -16,6 +16,13 @@
 // only its own particle, into separate output arrays, so there are no
 // races.  The count of matched particles is an integer block reduction
 // plus one atomicAdd a block; the pair count is half of it.
+//
+// local (optional, the z-slab engine; collide.py:1067-1071, 1122-1142): a
+// lane that holds a neighbour's ghost is 0 there.  It takes part in the
+// match, but position, velocity, staging and path resets apply only where
+// ok && local; the count is then the number of lanes applied to, and the
+// matched mask goes to ok_out.  Null pointers take the same path as before
+// the arguments existed.
 #include "common.cuh"
 
 namespace {
@@ -24,11 +31,12 @@ __global__ void resolve_pairs_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ paths, const uint8_t* __restrict__ has_collided,
     const int* __restrict__ partner, const float* __restrict__ pend_vals,
-    const uint8_t* __restrict__ pend_mask, int n, float cr, float cr2,
-    float* __restrict__ pos_out, float* __restrict__ vel_out,
-    float* __restrict__ paths_out, uint8_t* __restrict__ has_out,
-    float* __restrict__ pend_vals_out, uint8_t* __restrict__ pend_mask_out,
-    int* __restrict__ ok_count) {
+    const uint8_t* __restrict__ pend_mask, const uint8_t* __restrict__ local,
+    int n, float cr, float cr2, float* __restrict__ pos_out,
+    float* __restrict__ vel_out, float* __restrict__ paths_out,
+    uint8_t* __restrict__ has_out, float* __restrict__ pend_vals_out,
+    uint8_t* __restrict__ pend_mask_out, uint8_t* __restrict__ ok_out,
+    int* __restrict__ count) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool ok = false;
   if (i < n) {
@@ -54,7 +62,10 @@ __global__ void resolve_pairs_kernel(
     cs = cs + dxz * dxz;
     float c = cs - cr2;
     float disc = b * b - (4.0f * a) * c;
-    ok = mutual && (a > 0.0f) && (disc >= 0.0f) && (c < 0.0f);
+    bool matched = mutual && (a > 0.0f) && (disc >= 0.0f) && (c < 0.0f);
+    if (ok_out != nullptr) ok_out[i] = matched;
+    // From here on ok is "apply": the matched lanes this slab owns.
+    ok = matched && (local == nullptr || local[i]);
     float sq = sqrtf(fmaxf(disc, 0.0f));
     float den = 2.0f * (a == 0.0f ? 1.0f : a);
     float t = fmaxf((-b + sq) / den, (-b - sq) / den);
@@ -97,7 +108,7 @@ __global__ void resolve_pairs_kernel(
     vel_out[3 * i + 2] = ok ? nvz : avz;
   }
   int block_ok = __syncthreads_count(ok);
-  if (threadIdx.x == 0 && block_ok > 0) atomicAdd(ok_count, block_ok);
+  if (threadIdx.x == 0 && block_ok > 0) atomicAdd(count, block_ok);
 }
 
 }  // namespace
@@ -105,15 +116,16 @@ __global__ void resolve_pairs_kernel(
 AMC_EXPORT int amc_resolve_pairs(
     const float* pos, const float* vel, const float* paths,
     const uint8_t* has_collided, const int* partner, const float* pend_vals,
-    const uint8_t* pend_mask, int n, float cr, float cr2, float* pos_out,
-    float* vel_out, float* paths_out, uint8_t* has_out, float* pend_vals_out,
-    uint8_t* pend_mask_out, int* ok_count, cudaStream_t stream) {
-  cudaMemsetAsync(ok_count, 0, sizeof(int), stream);
+    const uint8_t* pend_mask, const uint8_t* local, int n, float cr,
+    float cr2, float* pos_out, float* vel_out, float* paths_out,
+    uint8_t* has_out, float* pend_vals_out, uint8_t* pend_mask_out,
+    uint8_t* ok_out, int* count, cudaStream_t stream) {
+  cudaMemsetAsync(count, 0, sizeof(int), stream);
   if (n > 0) {
     resolve_pairs_kernel<<<amc::blocks_for(n), amc::kThreads, 0, stream>>>(
-        pos, vel, paths, has_collided, partner, pend_vals, pend_mask, n, cr,
-        cr2, pos_out, vel_out, paths_out, has_out, pend_vals_out,
-        pend_mask_out, ok_count);
+        pos, vel, paths, has_collided, partner, pend_vals, pend_mask, local,
+        n, cr, cr2, pos_out, vel_out, paths_out, has_out, pend_vals_out,
+        pend_mask_out, ok_out, count);
   }
   return static_cast<int>(cudaGetLastError());
 }

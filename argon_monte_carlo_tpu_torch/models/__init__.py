@@ -1,7 +1,9 @@
-"""Workload builders of the port: the cube and the temperature pore (the
-specular pore is ROADMAP queue 1, slice 7)."""
+"""The port's workloads: the cube, the specular pore and the temperature
+pore, each made from its config."""
 
 from .cube import make_cube_workload
+from .pore import make_pore_workload
 from .temperature_pore import make_temperature_pore_workload
 
-__all__ = ["make_cube_workload", "make_temperature_pore_workload"]
+__all__ = ["make_cube_workload", "make_pore_workload",
+           "make_temperature_pore_workload"]

@@ -34,10 +34,9 @@ from ..ops import walls as wall_ops
 
 def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
     if not cfg.energized:
-        raise NotImplementedError(
-            "the specular pore (energized=False) is not ported yet "
-            "(ROADMAP queue 1, slice 7)"
-        )
+        raise ValueError("make_temperature_pore_workload takes "
+                         "energized=True; the specular pore is "
+                         "make_pore_workload")
     geom = cfg.geometry
     physics = cfg.physics
     ar = physics.argon_radius

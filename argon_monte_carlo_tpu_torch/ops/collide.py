@@ -18,6 +18,13 @@ particle's top_k lowest-index candidates and the rebuild-time planes.  The
 cube's broad phase is ``allpairs_partner_search`` (K11), the exact O(N^2)
 lowest-index search, in place of K2 and K9.
 
+The z-slab engine (``parallel/shard.py``) runs K2, K9 and K10 over a slab's
+local and ghost lanes together, with their optional arguments: ``valid``
+(K2, K9: a lane that holds no particle), ``ids`` (K9: a particle and its
+ghost are two lanes with one id), ``cell_window`` (K9: the slab's own
+cells) and ``local_mask`` (K10: ghosts take part in the match, only local
+lanes are updated).  Without them each wrapper launches what it always did.
+
 Each wrapper takes the plain PyTorch version (``*_plain``, same signature
 and outputs) for tensors on the CPU and launches its CUDA kernel for
 tensors on a CUDA device; any other device, or a dtype or layout the
@@ -256,24 +263,33 @@ def assign_cells_plain(pos: torch.Tensor, grid: DeviceGrid) -> torch.Tensor:
     return grid.layer_base[iz] + iy * nx + ix
 
 
-def bin_and_table_plain(pos: torch.Tensor, grid: DeviceGrid):
+def bin_and_table_plain(pos: torch.Tensor, grid: DeviceGrid,
+                        valid: torch.Tensor | None = None):
     """Plain version of K2: (cell_id (N,), table (C+1, cap), pslot (N,),
     overflow ()) -- all int32, equal to the reference's assign_cells +
     build_cell_table.  The stable sort decides which particles keep a
-    slot in a full cell: the lowest indices do."""
+    slot in a full cell: the lowest indices do.
+
+    A lane with ``valid`` False (a slab's padding, collide.py:350-351, 374)
+    goes to the dummy cell ``num_cells``: it takes no slot (its pslot is
+    the dummy slot ``num_cells * cap``; the reference leaves dummy-row
+    ranks there, which read the same) and is no overflow."""
     n = pos.shape[0]
     cap = grid.capacity
     num_cells = grid.num_cells
     dev = pos.device
     cell_id = assign_cells_plain(pos, grid)
+    if valid is not None:
+        cell_id = torch.where(valid, cell_id, num_cells)
     sorted_cid, order = torch.sort(cell_id, stable=True)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     is_start = torch.ones(n, dtype=torch.bool, device=dev)
     is_start[1:] = sorted_cid[1:] != sorted_cid[:-1]
     first = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
     rank = idx - first
-    in_cap = rank < cap
-    overflow = torch.sum(~in_cap, dtype=torch.int32)
+    real = sorted_cid < num_cells
+    in_cap = (rank < cap) & real
+    overflow = torch.sum(~in_cap & real, dtype=torch.int32)
     slot = torch.where(in_cap, sorted_cid.long() * cap + rank,
                        num_cells * cap)
     # Out-of-capacity ranks are masked here; the reference writes them
@@ -286,15 +302,18 @@ def bin_and_table_plain(pos: torch.Tensor, grid: DeviceGrid):
     return cell_id, table.view(num_cells + 1, cap), pslot, overflow
 
 
-def bin_and_table(pos: torch.Tensor, grid: DeviceGrid):
+def bin_and_table(pos: torch.Tensor, grid: DeviceGrid,
+                  valid: torch.Tensor | None = None):
     """K2 (see ``bin_and_table_plain``); CUDA kernel for CUDA tensors."""
     if kernels.use_plain(pos):
-        return bin_and_table_plain(pos, grid)
+        return bin_and_table_plain(pos, grid, valid)
     dev = pos.device
     n = pos.shape[0]
     cap = grid.capacity
     num_cells = grid.num_cells
     kernels.check(pos, "pos", torch.float32, (n, 3), dev)
+    if valid is not None:
+        kernels.check(valid, "valid", torch.bool, (n,), dev)
     kernels.check(grid.nx, "grid.nx", torch.int32, (grid.nz,), dev)
     kernels.check(grid.layer_base, "grid.layer_base", torch.int32,
                   (grid.nz,), dev)
@@ -310,7 +329,8 @@ def bin_and_table(pos: torch.Tensor, grid: DeviceGrid):
     overflow = i32()
     p = kernels.ptr
     kernels.launch(
-        "bin_and_table", dev, p(pos), n, p(grid.nx), p(grid.layer_base),
+        "bin_and_table", dev, p(pos), kernels.optional_ptr(valid), n,
+        p(grid.nx), p(grid.layer_base),
         p(grid.half_extent), grid.nz, grid.z_lo, grid.cell_size, num_cells,
         cap, p(cell_id), p(counts), p(offsets), p(cursor), p(seg), p(table),
         p(pslot), p(overflow),
@@ -326,13 +346,24 @@ def bin_and_table(pos: torch.Tensor, grid: DeviceGrid):
 def partner_sweep_plain(pos: torch.Tensor, table: torch.Tensor,
                         pslot: torch.Tensor, grid: DeviceGrid,
                         search_radius: float,
-                        chunk: int = 1 << 15) -> torch.Tensor:
+                        chunk: int = 1 << 15,
+                        ids: torch.Tensor | None = None,
+                        valid: torch.Tensor | None = None,
+                        cell_window: tuple | None = None) -> torch.Tensor:
     """Plain version of K9: (N,) int32 lowest-index j != i in the 27
     neighbour cells of i's own row with d^2 < r^2, -1 for none.
 
     Works through the particles in chunks so the (chunk, 27*cap) candidate
     block stays small.  d^2 is formed as (dx*dx + dy*dy) + dz*dz with
     dx = x_i - x_j, the reference's order.
+
+    The z-slab engine's arguments (collide.py:433-442): ``ids`` (N,) int32
+    replaces the index in the self-exclusion (a candidate with the
+    particle's own id is skipped; the partner is still the lowest lane
+    index); a lane with ``valid`` False gets -1; ``cell_window`` =
+    (start, width) gives -1 to a particle whose own cell lies outside
+    [start, start + width) (its neighbour cells are read wherever they
+    lie).
     """
     n = pos.shape[0]
     cap = grid.capacity
@@ -341,19 +372,27 @@ def partner_sweep_plain(pos: torch.Tensor, table: torch.Tensor,
     # A far row at index n stands in for the sentinel slots.
     pos_pad = torch.cat([pos, torch.full((1, 3), 1e9, dtype=pos.dtype,
                                          device=pos.device)])
+    index = torch.arange(n, dtype=torch.int32, device=pos.device)
+    ids_pad = torch.cat([index if ids is None else ids,
+                         torch.full((1,), -2, dtype=torch.int32,
+                                    device=pos.device)])
     out = torch.empty(n, dtype=torch.int32, device=pos.device)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         s = pslot[lo:hi].long()
         listed = s < dummy
+        if valid is not None:
+            listed = listed & valid[lo:hi]
+        if cell_window is not None:
+            start, width = cell_window
+            listed = listed & (s // cap >= start) & (s // cap < start + width)
         cell = torch.where(listed, s // cap, 0)
         cand = table[grid.neighbors[cell].long()].reshape(hi - lo, 27 * cap)
         cl = cand.long()
         d = pos[lo:hi, None, :] - pos_pad[cl]
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
         d2 = d2 + d[..., 2] * d[..., 2]
-        own = torch.arange(lo, hi, dtype=torch.int32, device=pos.device)
-        hit = (d2 < r2) & (cand < n) & (cand != own[:, None])
+        hit = (d2 < r2) & (cand < n) & (ids_pad[cl] != ids_pad[lo:hi, None])
         best = torch.where(hit, cand, _NO_PARTNER).amin(dim=1)
         best = torch.where(listed & (best < _NO_PARTNER), best, -1)
         out[lo:hi] = best.to(torch.int32)
@@ -362,15 +401,26 @@ def partner_sweep_plain(pos: torch.Tensor, table: torch.Tensor,
 
 def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
                   pslot: torch.Tensor, grid: DeviceGrid,
-                  search_radius: float) -> torch.Tensor:
+                  search_radius: float,
+                  ids: torch.Tensor | None = None,
+                  valid: torch.Tensor | None = None,
+                  cell_window: tuple | None = None) -> torch.Tensor:
     """K9 (see ``partner_sweep_plain``); CUDA kernel for CUDA tensors.
     The kernel reads each table row up to its first sentinel, which holds
     for every table ``bin_and_table`` builds."""
     if kernels.use_plain(pos):
-        return partner_sweep_plain(pos, table, pslot, grid, search_radius)
+        return partner_sweep_plain(pos, table, pslot, grid, search_radius,
+                                   ids=ids, valid=valid,
+                                   cell_window=cell_window)
     dev = pos.device
     n = pos.shape[0]
     cap = grid.capacity
+    if ids is not None:
+        kernels.check(ids, "ids", torch.int32, (n,), dev)
+    if valid is not None:
+        kernels.check(valid, "valid", torch.bool, (n,), dev)
+    start, width = (0, grid.num_cells) if cell_window is None else (
+        int(cell_window[0]), int(cell_window[1]))
     kernels.check(pos, "pos", torch.float32, (n, 3), dev)
     kernels.check(table, "table", torch.int32, (grid.num_cells + 1, cap), dev)
     kernels.check(pslot, "pslot", torch.int32, (n,), dev)
@@ -380,7 +430,9 @@ def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
     p = kernels.ptr
     kernels.launch(
         "partner_sweep", dev, p(pos), p(table), p(pslot), p(grid.neighbors),
-        n, grid.num_cells, cap, search_radius * search_radius, p(partner),
+        kernels.optional_ptr(ids), kernels.optional_ptr(valid), n,
+        grid.num_cells, cap, start, width, search_radius * search_radius,
+        p(partner),
     )
     return partner
 
@@ -568,7 +620,8 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_pairs_plain(state: ParticleState, measure: Measurements,
-                        partner: torch.Tensor, collision_range: float):
+                        partner: torch.Tensor, collision_range: float,
+                        local_mask: torch.Tensor | None = None):
     """Plain version of K10.  Returns (state, measure, n_collisions ()).
 
     A pair (a, b) is resolved iff partner[a] == b and partner[b] == a and
@@ -577,6 +630,13 @@ def resolve_pairs_plain(state: ParticleState, measure: Measurements,
     contact normal and replay.  Completed paths are staged with the
     pre-collision velocity (record_completed) and path accumulators reset
     to the residual along the new direction (end_paths).
+
+    With ``local_mask`` (the z-slab engine, collide.py:1067-1071): a lane
+    holding a neighbour's ghost takes part in the match, but state,
+    staging and path resets apply only where ``ok & local_mask``; the
+    count is then sum(apply), not halved (the caller counts each pair on
+    the slab that owns the lower id), and the matched mask ``ok`` is
+    returned fourth: (state, measure, n_applied (), ok (N,)).
     """
     n = state.pos.shape[0]
     pos, vel = state.pos, state.vel
@@ -604,27 +664,32 @@ def resolve_pairs_plain(state: ParticleState, measure: Measurements,
     new_vel = vel - p_scal[:, None] * normal
     new_pos = qa + new_vel * t[:, None]
 
+    apply = ok if local_mask is None else ok & local_mask
     measure = measure_ops.record_completed(
-        measure, state.paths, state.has_collided, vel, t, ok)
+        measure, state.paths, state.has_collided, vel, t, apply)
     state = dataclasses.replace(
         state,
-        pos=torch.where(ok[:, None], new_pos, pos),
-        vel=torch.where(ok[:, None], new_vel, vel),
+        pos=torch.where(apply[:, None], new_pos, pos),
+        vel=torch.where(apply[:, None], new_vel, vel),
     )
-    state = measure_ops.end_paths(state, ok, t, state.vel,
+    state = measure_ops.end_paths(state, apply, t, state.vel,
                                   zero_residual=False)
-    n_collisions = torch.sum(ok, dtype=torch.int32) // 2
-    return state, measure, n_collisions
+    if local_mask is None:
+        return state, measure, torch.sum(ok, dtype=torch.int32) // 2
+    return state, measure, torch.sum(apply, dtype=torch.int32), ok
 
 
 def resolve_pairs(state: ParticleState, measure: Measurements,
-                  partner: torch.Tensor, collision_range: float):
+                  partner: torch.Tensor, collision_range: float,
+                  local_mask: torch.Tensor | None = None):
     """K10 (see ``resolve_pairs_plain``); CUDA kernel for CUDA tensors.
-    Returns (state, measure, n_collisions ()) with ``collision_count``
-    left to the caller, as in the plain version."""
+    Returns (state, measure, n_collisions ()) -- with ``local_mask``,
+    (state, measure, n_applied (), ok (N,)) -- and leaves
+    ``collision_count`` to the caller, as the plain version does."""
     pos = state.pos
     if kernels.use_plain(pos):
-        return resolve_pairs_plain(state, measure, partner, collision_range)
+        return resolve_pairs_plain(state, measure, partner, collision_range,
+                                   local_mask)
     dev = pos.device
     n = pos.shape[0]
     f32, b8 = torch.float32, torch.bool
@@ -638,17 +703,24 @@ def resolve_pairs(state: ParticleState, measure: Measurements,
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
+    ok = None
+    if local_mask is not None:
+        kernels.check(local_mask, "local_mask", b8, (n,), dev)
+        ok = torch.empty(n, dtype=b8, device=dev)
     outs = [torch.empty_like(t) for t, *_ in inputs if t is not partner]
     pos_o, vel_o, paths_o, has_o, pv_o, pm_o = outs
-    ok_count = torch.empty((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
     p = kernels.ptr
     cr = collision_range
     kernels.launch(
-        "resolve_pairs", dev, *(p(t) for t, *_ in inputs), n, cr, cr * cr,
-        *(p(t) for t in outs), p(ok_count),
+        "resolve_pairs", dev, *(p(t) for t, *_ in inputs),
+        kernels.optional_ptr(local_mask), n, cr, cr * cr,
+        *(p(t) for t in outs), kernels.optional_ptr(ok), p(count),
     )
     state = ParticleState(pos=pos_o, vel=vel_o, paths=paths_o,
                           has_collided=has_o)
     measure = dataclasses.replace(measure, pending_vals=pv_o,
                                   pending_mask=pm_o)
-    return state, measure, ok_count // 2
+    if local_mask is None:
+        return state, measure, count // 2
+    return state, measure, count, ok

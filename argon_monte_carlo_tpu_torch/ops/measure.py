@@ -52,14 +52,20 @@ def record_completed(measure: Measurements, paths_before: torch.Tensor,
                      vel_before: torch.Tensor, t: torch.Tensor,
                      mask: torch.Tensor) -> Measurements:
     """Stage ``|path_k - |v_k| t|`` for masked particles whose partial path
-    already ended (Open_Air_Cube_MC.py:267-272)."""
+    already ended (Open_Air_Cube_MC.py:267-272).  A staging area longer
+    than the particle arrays (a slab's local and ghost lanes, measure.py:
+    65-73) takes the events in its first rows and keeps the rest."""
     emit = mask & has_collided_before
     comps = torch.abs(paths_before - path_components(vel_before) * t[:, None])
-    return dataclasses.replace(
-        measure,
-        pending_vals=torch.where(emit[:, None], comps, measure.pending_vals),
-        pending_mask=measure.pending_mask | emit,
-    )
+    m = comps.shape[0]
+    vals, staged = measure.pending_vals, measure.pending_mask
+    new_vals = torch.where(emit[:, None], comps, vals[:m])
+    new_mask = staged[:m] | emit
+    if vals.shape[0] > m:
+        new_vals = torch.cat([new_vals, vals[m:]])
+        new_mask = torch.cat([new_mask, staged[m:]])
+    return dataclasses.replace(measure, pending_vals=new_vals,
+                               pending_mask=new_mask)
 
 
 def end_paths(state: ParticleState, mask: torch.Tensor, t: torch.Tensor,

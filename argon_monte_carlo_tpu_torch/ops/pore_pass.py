@@ -70,26 +70,41 @@ def pore_advance(state: ParticleState, measure: Measurements,
                  uniforms: torch.Tensor, params: PoreParams,
                  plain: Callable):
     """K8 (see the module docstring); ``plain(state, measure, uniforms)``
-    runs for CPU tensors."""
+    runs for CPU tensors.  The staging planes may have more rows than the
+    state (a slab's local and ghost lanes): the kernel stages into the
+    first n rows and the rest is carried over, as in the plain version
+    (``measure.record_completed``)."""
     pos = state.pos
     if kernels.use_plain(pos):
         return plain(state, measure, uniforms)
     dev = pos.device
     n = pos.shape[0]
+    rows = measure.pending_vals.shape[0]
     f32, b8 = torch.float32, torch.bool
+    kernels.check(measure.pending_vals, "pending_vals", f32, (rows, 4), dev)
+    kernels.check(measure.pending_mask, "pending_mask", b8, (rows,), dev)
+    if rows < n:
+        raise ValueError(f"pending_vals: {rows} rows for {n} particles")
     inputs = [
         (pos, "pos", f32, (n, 3)), (state.vel, "vel", f32, (n, 3)),
         (state.paths, "paths", f32, (n, 4)),
         (state.has_collided, "has_collided", b8, (n,)),
-        (measure.pending_vals, "pending_vals", f32, (n, 4)),
-        (measure.pending_mask, "pending_mask", b8, (n,)),
+        (measure.pending_vals[:n], "pending_vals", f32, (n, 4)),
+        (measure.pending_mask[:n], "pending_mask", b8, (n,)),
         (uniforms, "uniforms", f32, (n, 2)),
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
     prm, horner = params.on(dev)
-    outs = [torch.empty_like(t) for t, *_ in inputs[:6]]
-    pos_o, vel_o, paths_o, has_o, pv_o, pm_o = outs
+    outs = [torch.empty_like(t) for t, *_ in inputs[:4]]
+    # The kernel writes the first n rows of the staging planes in place.
+    pv_o = torch.empty_like(measure.pending_vals)
+    pm_o = torch.empty_like(measure.pending_mask)
+    if rows > n:
+        pv_o[n:] = measure.pending_vals[n:]
+        pm_o[n:] = measure.pending_mask[n:]
+    outs += [pv_o, pm_o]
+    pos_o, vel_o, paths_o, has_o = outs[:4]
     recap_w = torch.empty(n, dtype=b8, device=dev)
     speed_pre = torch.empty(n, dtype=f32, device=dev)
     block_ledger = torch.empty((-(-n // 256), 3), dtype=f32, device=dev)

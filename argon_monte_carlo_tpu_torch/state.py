@@ -64,10 +64,13 @@ class Measurements:
     hot_spill_count: pairs engine only -- rebuild-time cell-table spills
           and strays in inactive cells, absorbed by the hot set (not a
           loss, so separate from overflow_count).
+    halo_trunc_count: sharded engine only -- halo-band lanes that did not
+          fit the halo buffer.  The particle stays on its owner; only its
+          visibility to the neighbouring slab's pair search is lost, so it
+          is kept apart from overflow_count (particles actually lost).
     pending_vals / pending_mask: per-particle staging of this step's
-          completed paths, folded in by the histogram flush.
-
-    The sharded engine's ``halo_trunc_count`` arrives with that engine.
+          completed paths, folded in by the histogram flush.  The sharded
+          engine sizes it for a slab's local and ghost lanes together.
     """
 
     hist: torch.Tensor
@@ -78,6 +81,7 @@ class Measurements:
     overflow_count: torch.Tensor
     hist_drop_count: torch.Tensor
     hot_spill_count: torch.Tensor
+    halo_trunc_count: torch.Tensor
     pending_vals: torch.Tensor
     pending_mask: torch.Tensor
 
@@ -94,6 +98,7 @@ class Measurements:
             overflow_count=_count(device),
             hist_drop_count=_count(device),
             hot_spill_count=_count(device),
+            halo_trunc_count=_count(device),
             pending_vals=torch.zeros((num_particles, NUM_PATH_AXES),
                                      dtype=dtype, device=device),
             pending_mask=torch.zeros((num_particles,), dtype=torch.bool,

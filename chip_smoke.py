@@ -17,11 +17,14 @@ exits non-zero without a result line):
    compacted entry; K8, the fused drift/walls/recapture pass, over 16
    steps of the pairs slice) and of the 24,627-particle cube (K11, also at
    ~200k), with the kernel's, the plain version's and, where one exists,
-   the library call's time beside the kernel's bound;
-3. the sweep slice, the pairs slice and the cube on the card against the
-   same slices on the CPU (the plain versions, which the CPU tests hold to
-   the JAX package) at a small size, from one state with one set of
-   uniforms;
+   the library call's time beside the kernel's bound; K12 (band and index
+   packing) at the band sizes of the 1M pore cut in 4 z-slabs, with room
+   and truncated, and K2, K9 and K10 with their z-slab arguments on one
+   slab's local and ghost lanes;
+3. the sweep slice, the pairs slice, the cube and the 4-slab sharded sweep
+   on the card against the same slices on the CPU (the plain versions,
+   which the CPU tests hold to the JAX package) at a small size, from one
+   state with one set of uniforms;
 4. the pairs engine against the sweep engine on the card at 1M particles,
    100 steps, from one state with one set of uniforms;
 5. the sweep slice: ``Simulation(make_workload(cfg), device="cuda")`` for
@@ -32,13 +35,20 @@ exits non-zero without a result line):
 7. the cube slice: ``Simulation(make_workload(CubeConfig()))``, 24,627
    particles for 500 steps, and the reference's mean-free-path check on
    its own validation configuration;
-8. where the time goes in each slice: untraced step time (CUDA events),
+8. the sharded slice: ``ShardedSimulation(make_workload(cfg), n_shards=4)``
+   at 1M particles with all four slabs on the one card, 300 steps:
+   particles and global ids conserved after every epoch, no overflow, halo
+   and migrant traffic across every interior face, pair collisions within
+   1% of the single-slab sweep's; and the specular pore, one slab, 1M
+   particles for 100 steps, its kinetic energy constant;
+9. where the time goes in each slice: untraced step time (CUDA events),
    device time and device operations a step (``torch.profiler``), host
-   time of the step and of its per-particle stage (``cProfile``).
+   time of the step and of its per-particle stage (``cProfile``); the
+   sharded sweep at 1, 2 and 4 slabs.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
-``python3 chip_smoke.py --breakdown`` runs phases 0, 1 and 8 only; a copy
+``python3 chip_smoke.py --breakdown`` runs phases 0, 1 and 9 only; a copy
 of the script placed beside another checkout's package reads that
 checkout's step the same way, so two commits compare in one call.
 """
@@ -65,9 +75,10 @@ from argon_monte_carlo_tpu_torch import kernels
 from argon_monte_carlo_tpu_torch.engine import build_grids, pairs_config_for
 from argon_monte_carlo_tpu_torch import init as init_ops
 from argon_monte_carlo_tpu_torch.ops import collide, measure as measure_ops
-from argon_monte_carlo_tpu_torch.ops import compact, oob
+from argon_monte_carlo_tpu_torch.ops import compact, oob, pack
 from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
-from argon_monte_carlo_tpu_torch.state import Measurements, StepMetrics
+from argon_monte_carlo_tpu_torch.state import (Measurements, ParticleState,
+                                               StepMetrics)
 
 PARTICLES = 1_000_000
 STEPS = 300
@@ -120,6 +131,14 @@ CUBE_KERNELS = {
         source="argon_monte_carlo_tpu_torch/kernels/csrc/allpairs.cu",
         replaces="argon_monte_carlo_tpu/ops/collide.py:1001"),
 }
+# The z-slab engine packs its halo bands and migrants with K12, four
+# launches a slab a step.
+SHARD_KERNELS = {
+    "pack_band": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/pack.cu",
+        replaces="argon_monte_carlo_tpu/parallel/shard.py:210"),
+}
+SLABS = 4
 CUBE_STEPS = 500
 CUBE_PARTICLES = 24_627
 
@@ -708,11 +727,6 @@ def check_against_cpu(tag: str, cfg=None, label=None, steps: int = 10,
     state, meas, gen = cpu.init(SEED)
     uniforms = torch.rand((steps, state.num_particles, 2), generator=gen)
 
-    def to_card(obj):
-        return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name).cuda()
-            for f in dataclasses.fields(obj)})
-
     s_c, m_c, met_c = cpu.run(steps, state=state, measure=meas,
                               draw=lambda i: uniforms[i])
     s_g, m_g, met_g = gpu.run(steps, state=to_card(state),
@@ -811,8 +825,9 @@ def check_pairs_overflow(label, sim, step0, total, tag):
           f"particles against research_capacity {cap}); 0 after it {tag}")
 
 
-def run_slice(tag: str, names, **engine) -> dict:
-    """Phases 5 and 6: one main path, counted."""
+def run_slice(tag: str, names, **engine):
+    """Phases 5 and 6: one main path, counted.  Returns (launch counts,
+    pair collisions of the run)."""
     label = engine.get("narrowphase", "sweep")
     cfg = config(steps_per_epoch=STEPS_PER_EPOCH, **engine)
     torch.cuda.synchronize()
@@ -906,7 +921,7 @@ def run_slice(tag: str, names, **engine) -> dict:
               f"{ev[1].elapsed_time(ev[2]) / k!r} ms (mean of one window of "
               f"{k}) {tag}")
     print(f"{label} slice: launches {counts} {tag}")
-    return counts
+    return counts, pairs
 
 
 # --------------------------------------------------------------------------
@@ -1168,6 +1183,471 @@ def check_mfp(tag: str) -> None:
           f"{time.perf_counter() - t0!r} s {tag}")
 
 
+# --------------------------------------------------------------------------
+# The z-slab engine: K12, the slab arguments of K2, K9 and K10, the sharded
+# slice and the specular pore
+# --------------------------------------------------------------------------
+
+
+def sharded_sim(particles=PARTICLES, n_shards=SLABS, devices=None,
+                energized=True, **engine):
+    """The pore cut in ``n_shards`` z-slabs, all on the one card unless
+    ``devices`` says otherwise."""
+    if energized:
+        cfg = config(particles, **engine)
+    else:
+        cfg = amt.PoreConfig(engine=amt.EngineConfig(
+            broadphase="cells", **engine)).scaled_to(particles)
+    return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=n_shards,
+                                 devices=devices)
+
+
+def slab_case(particles: int = PARTICLES):
+    """The fuller interior slab of the pore cut in SLABS slabs, state of
+    seed 17 after one drift, with two colliding pairs planted across each
+    of its faces: its lanes, its band and migrant masks, and its local and
+    ghost lanes put together as the engine's step does."""
+    sim = sharded_sim(particles)
+    plan = sim.plan
+    state, _, _ = sim.init(SEED)
+    consts = sim.slab_constants()
+    dt = sim.cfg.dt
+    drifted = [(dataclasses.replace(st, vel=st.vel.clone(), pos=torch.where(
+        valid[:, None], st.pos + dt * st.vel, st.pos)), valid, gid)
+        for st, valid, gid in state]
+    s = max(range(1, SLABS - 1), key=lambda k: int(drifted[k][1].sum()))
+    # Two overlapping, approaching pairs across each face of slab s, one
+    # particle on either side, so that local lanes find ghost partners.
+    cr = sim.cfg.physics.collision_range
+    for lower in (s - 1, s):
+        z_face = float(plan.slab_z[lower + 1])
+        for k in range(2):
+            for slab, lane, side in ((lower, k, -1.0), (lower + 1, 2 + k, 1.0)):
+                st = drifted[slab][0]
+                st.pos[lane] = torch.tensor(
+                    [(2 * k - 1) * 5 * cr, 0.0, z_face + side * 0.3 * cr])
+                st.vel[lane] = torch.tensor([0.0, 0.0, -side * 300.0])
+
+    def halo(k, up):
+        st, valid, gid = drifted[k]
+        z = st.pos[:, 2]
+        edge = z > consts[k].up_edge if up else z < consts[k].down_edge
+        return pack.pack_band({"pos": st.pos, "vel": st.vel, "gid": gid},
+                              valid & edge, plan.halo_capacity)
+
+    (gb, gb_flag, _), (ga, ga_flag, _) = halo(s - 1, True), halo(s + 1, False)
+    st, valid, gid = drifted[s]
+    c = consts[s]
+    z = st.pos[:, 2]
+    return SimpleNamespace(
+        sim=sim, plan=plan, c=c, st=st, valid=valid, gid=gid,
+        cap=plan.shard_capacity, cr=cr,
+        gen=torch.Generator(device="cuda").manual_seed(SEED),
+        band={"pos": st.pos, "vel": st.vel, "gid": gid},
+        payload={"pos": st.pos, "vel": st.vel, "paths": st.paths,
+                 "hc": st.has_collided, "gid": gid},
+        halo_up=valid & (z > c.up_edge), go_up=valid & (z >= c.z_hi),
+        pos=torch.cat([st.pos, gb["pos"], ga["pos"]]),
+        vel=torch.cat([st.vel, gb["vel"], ga["vel"]]),
+        ids=torch.cat([gid, gb["gid"], ga["gid"]]),
+        lanes=torch.cat([valid, gb_flag, ga_flag]),
+        local=torch.cat([valid, c.ghost_false]),
+        window=(c.cell_start, plan.cell_window))
+
+
+def check_pack(case, tag: str, reps: int) -> dict:
+    """K12 against its plain versions at the slab's real sizes: the halo
+    band (pos, vel, gid into halo_capacity slots) and the migrants (five
+    fields into migration_capacity slots), each with room and with a
+    capacity of half the count (the highest lanes dropped), and the index
+    form on the same masks: buffers bitwise, flags and dropped exact.
+    Timed on the halo band; the library column is torch.nonzero plus one
+    index_select a field."""
+    plan = case.plan
+    for label, fields, mask, capacity in (
+            ("halo band", case.band, case.halo_up, plan.halo_capacity),
+            ("migrants", case.payload, case.go_up, plan.migration_capacity)):
+        count = int(mask.sum())
+        require(0 < count <= capacity,
+                f"K12 {label}: {count} lanes for {capacity} slots")
+        for cap in (capacity, max(count // 2, 1)):
+            got = pack.pack_band(fields, mask, cap)
+            want = pack.pack_band_plain(fields, mask, cap)
+            for name in fields:
+                exact(f"K12 {label} {name} (capacity {cap})", got[0][name],
+                      want[0][name])
+            got_i = pack.pack_indices(mask, cap)
+            want_i = pack.pack_indices_plain(mask, cap)
+            for name, a, b in (("flag", got[1], want[1]),
+                               ("dropped", got[2], want[2]),
+                               ("idx", got_i[0], want_i[0]),
+                               ("idx flag", got_i[1], want_i[1]),
+                               ("idx dropped", got_i[2], want_i[2])):
+                exact(f"K12 {label} {name} (capacity {cap})", a, b)
+            require(int(got[2]) == max(count - cap, 0),
+                    f"K12 {label}: dropped {int(got[2])} of {count} at "
+                    f"capacity {cap}")
+            print(f"K12 pack_band {label}: {count} of {mask.shape[0]} lanes "
+                  f"into {cap} slots, {len(fields)} fields: buffers bitwise, "
+                  f"flag, dropped={int(got[2])} and the index form exact "
+                  f"{tag}")
+    fields, mask, cap = case.band, case.halo_up, plan.halo_capacity
+    count = int(mask.sum())
+    row_bytes = sum(a[0].numel() * a.element_size() for a in fields.values())
+
+    def library():
+        idx = torch.nonzero(mask).flatten()[:cap]
+        return [torch.index_select(a, 0, idx) for a in fields.values()]
+
+    # The mask once, the kept rows read, every slot and its flag written.
+    io = mask.shape[0] + count * row_bytes + cap * (row_bytes + 1) + 4
+    out = {"pack_band": result(
+        0.0, maybe_timed(lambda: pack.pack_band(fields, mask, cap), reps),
+        maybe_timed(lambda: pack.pack_band_plain(fields, mask, cap), reps),
+        io, 0.0, maybe_timed(library, reps))}
+    if reps > 0:
+        print_times(out, mask.shape[0], tag)
+    return out
+
+
+def check_slab_kernels(case, tag: str, reps: int) -> None:
+    """K2, K9 and K10 with their z-slab arguments against their plain
+    versions on one slab's local and ghost lanes (exact, exact, state
+    within 2 ulp); and with arguments that change nothing (every lane
+    valid, ids = lane index, the whole grid as window, every lane local)
+    against the calls without them."""
+    grid, r, cap = case.c.grid, case.cr, case.cap
+    pos, ids, lanes, local = case.pos, case.ids, case.lanes, case.local
+    n = pos.shape[0]
+    got = collide.bin_and_table(pos, grid, valid=lanes)
+    want = collide.bin_and_table_plain(pos, grid, valid=lanes)
+    for name, a, b in zip(("cell_id", "table", "pslot", "overflow"), got,
+                          want):
+        exact(f"K2 {name} (valid)", a, b)
+    _, table, pslot, overflow = got
+    print(f"K2 bin_and_table valid=: exact on {n} lanes "
+          f"({int(lanes.sum())} valid, {int(lanes[cap:].sum())} ghosts); "
+          f"overflow={int(overflow)} {tag}")
+
+    kw = dict(ids=ids, valid=lanes, cell_window=case.window)
+    partner = collide.partner_sweep(pos, table, pslot, grid, r, **kw)
+    exact("K9 partner (ids, valid, cell_window)", partner,
+          collide.partner_sweep_plain(pos, table, pslot, grid, r, **kw))
+    has = partner >= 0
+    require(int((has[:cap] & (partner[:cap] >= cap)).sum()) >= 4,
+            "K9 (slab): the pairs planted across the faces found no ghost "
+            "partner")
+    print(f"K9 partner_sweep ids=, valid=, cell_window={case.window}: "
+          f"exact; {int(has.sum())} lanes with a partner, "
+          f"{int((has[:cap] & (partner[:cap] >= cap)).sum())} local lanes "
+          f"whose partner is a ghost {tag}")
+
+    u = torch.rand((n, 6), generator=case.gen, device="cuda")
+    ghost = ~local
+    paths = torch.where(ghost[:, None], 0.0, u[:, :4] * 2e-7)
+    comb = ParticleState(pos=pos, vel=case.vel, paths=paths,
+                         has_collided=(u[:, 4] < 0.6) & local)
+    meas = dataclasses.replace(
+        Measurements.zeros(case.sim.cfg.engine.num_bins, torch.float32, n,
+                           "cuda"),
+        pending_vals=u[:, :4].flip(1) * 1e-6, pending_mask=u[:, 5] < 0.1)
+    gs, gm, gc, gok = collide.resolve_pairs(comb, meas, partner, r,
+                                            local_mask=local)
+    ws, wm, wc, wok = collide.resolve_pairs_plain(comb, meas, partner, r,
+                                                  local_mask=local)
+    exact("K10 count (local_mask)", gc.int(), wc.int())
+    exact("K10 ok (local_mask)", gok, wok)
+    exact("K10 has_collided (local_mask)", gs.has_collided, ws.has_collided)
+    exact("K10 pending_mask (local_mask)", gm.pending_mask, wm.pending_mask)
+    exact("K10 pending_vals (local_mask)", gm.pending_vals, wm.pending_vals)
+    floats = [(gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)]
+    ulps = max(ulp_diff(a, b) for a, b in floats)
+    require(ulps <= 2, f"K10 (local_mask): {ulps} ulp from plain")
+    for name, a, b in (("pos", gs.pos, pos), ("vel", gs.vel, case.vel),
+                       ("paths", gs.paths, paths)):
+        exact(f"K10 ghost lanes' {name} untouched", a[ghost], b[ghost])
+    print(f"K10 resolve_pairs local_mask=: {int(gok.sum())} lanes matched, "
+          f"{int(gc)} applied (local); count, ok mask and staging exact, "
+          f"state {ulps} ulp from plain (bound 2), ghost lanes untouched "
+          f"{tag}")
+
+    # Arguments that change nothing, on the valid lanes alone.
+    live = pos[lanes].contiguous()
+    m = live.shape[0]
+    everyone = torch.ones(m, dtype=torch.bool, device="cuda")
+    plain_k2 = collide.bin_and_table(live, grid)
+    for name, a, b in zip(("cell_id", "table", "pslot", "overflow"),
+                          collide.bin_and_table(live, grid, valid=everyone),
+                          plain_k2):
+        exact(f"K2 {name} (every lane valid) against no argument", a, b)
+    _, t2, p2, _ = plain_k2
+    plain_k9 = collide.partner_sweep(live, t2, p2, grid, r)
+    exact("K9 (neutral arguments) against no argument",
+          collide.partner_sweep(
+              live, t2, p2, grid, r, valid=everyone,
+              ids=torch.arange(m, dtype=torch.int32, device="cuda"),
+              cell_window=(0, grid.num_cells)), plain_k9)
+    small = ParticleState(pos=live, vel=case.vel[lanes].contiguous(),
+                          paths=paths[lanes].contiguous(),
+                          has_collided=comb.has_collided[lanes].contiguous())
+    smeas = dataclasses.replace(
+        meas, pending_vals=meas.pending_vals[lanes].contiguous(),
+        pending_mask=meas.pending_mask[lanes].contiguous())
+    a_s, a_m, a_c = collide.resolve_pairs(small, smeas, plain_k9, r)
+    b_s, b_m, b_c, b_ok = collide.resolve_pairs(small, smeas, plain_k9, r,
+                                                local_mask=everyone)
+    for f in ("pos", "vel", "paths", "has_collided"):
+        exact(f"K10 {f} (every lane local) against no argument",
+              getattr(b_s, f), getattr(a_s, f))
+    exact("K10 pending_vals (every lane local) against no argument",
+          b_m.pending_vals, a_m.pending_vals)
+    require(int(b_c) == 2 * int(a_c) == int(b_ok.sum()),
+            f"K10: {int(b_c)} applied against {int(a_c)} pairs")
+    print(f"K2, K9, K10 with arguments that change nothing: equal to the "
+          f"calls without them on {m} lanes ({int(a_c)} pairs) {tag}")
+    if reps > 0:
+        for name, fn, plain in (
+                ("bin_and_table",
+                 lambda: collide.bin_and_table(pos, grid, valid=lanes),
+                 lambda: collide.bin_and_table_plain(pos, grid, valid=lanes)),
+                ("partner_sweep",
+                 lambda: collide.partner_sweep(pos, table, pslot, grid, r,
+                                               **kw),
+                 lambda: collide.partner_sweep_plain(pos, table, pslot, grid,
+                                                     r, **kw)),
+                ("resolve_pairs",
+                 lambda: collide.resolve_pairs(comb, meas, partner, r,
+                                               local_mask=local),
+                 lambda: collide.resolve_pairs_plain(comb, meas, partner, r,
+                                                     local_mask=local))):
+            print(f"time {name} with its z-slab arguments: kernel "
+                  f"{timed_ms(fn, reps)!r} ms, plain "
+                  f"{timed_ms(plain, min(reps, 3))!r} ms on {n} lanes of one "
+                  f"of {SLABS} slabs {tag}")
+
+
+def check_slab(tag: str, particles: int = PARTICLES, reps: int = 20) -> dict:
+    """Phase 2, z-slab side: K12, and K2, K9, K10 with their arguments."""
+    case = slab_case(particles)
+    out = check_pack(case, tag, reps)
+    check_slab_kernels(case, tag, reps)
+    return out
+
+
+def to_card(obj):
+    """A dataclass of tensors, a tensor, or a list or tuple of them, on
+    the card."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cuda()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_card(x) for x in obj)
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cuda()
+        for f in dataclasses.fields(obj)})
+
+
+def slab_of_gid(state, n: int) -> torch.Tensor:
+    """(n,) the slab that holds each global id; fails unless the live
+    lanes hold every id 0..n-1 exactly once."""
+    where = torch.full((n,), -1, dtype=torch.int64, device="cuda")
+    live = 0
+    for s, (_, valid, gid) in enumerate(state):
+        ids = gid[valid].long().to("cuda")
+        live += ids.numel()
+        where[ids] = s
+    require(live == n and int((where >= 0).sum()) == n,
+            f"sharded: {live} live lanes, {int((where >= 0).sum())} distinct "
+            f"ids, expected {n}")
+    return where
+
+
+def check_sharded_against_cpu(tag: str, particles: int = 20_000,
+                              steps: int = 10) -> None:
+    """The 4-slab sharded sweep on the card against the same on the CPU
+    (which tests/test_torch_sharding.py holds to the JAX package), from
+    one split state and one set of uniforms: valid, gid, counts and the
+    histogram equal, the state within the cos/sin rounding of the two
+    devices."""
+    cpu = sharded_sim(particles, devices=["cpu"], steps_per_epoch=5)
+    gpu = sharded_sim(particles, steps_per_epoch=5)
+    state, meas, _ = cpu.init(SEED)
+    n = cpu.cfg.num_molecules
+    cap = cpu.plan.shard_capacity
+    gen = torch.Generator().manual_seed(SEED)
+    uniforms = torch.rand((steps, SLABS, cap, 2), generator=gen)
+    s_c, m_c, met_c = cpu.run(steps, state=state, measure=meas,
+                              draw=lambda s, i: uniforms[i, s])
+    s_g, m_g, met_g = gpu.run(steps, state=to_card(state),
+                              measure=to_card(meas),
+                              draw=lambda s, i: uniforms[i, s].cuda())
+    for f in ("collisions", "wall_hits", "oob_after_walls",
+              "oob_after_pairs"):
+        exact(f"sharded small run {f}", getattr(met_g, f).cpu(),
+              getattr(met_c, f))
+    t_c, t_g = cpu.finalize_measure(m_c), gpu.finalize_measure(m_g)
+    for f in ("hist", "path_count", "collision_count", "err_count",
+              "overflow_count", "halo_trunc_count", "hist_drop_count"):
+        exact(f"sharded small run {f}", getattr(t_g, f).cpu(),
+              getattr(t_c, f))
+    rel = 0.0
+    for k, ((st_g, v_g, g_g), (st_c, v_c, g_c)) in enumerate(zip(s_g, s_c)):
+        exact(f"sharded small run valid (slab {k})", v_g.cpu(), v_c)
+        exact(f"sharded small run gid (slab {k})", g_g.cpu()[v_c], g_c[v_c])
+        exact(f"sharded small run has_collided (slab {k})",
+              st_g.has_collided.cpu()[v_c], st_c.has_collided[v_c])
+        for f in ("pos", "vel", "paths"):
+            a, b = getattr(st_g, f).cpu()[v_c], getattr(st_c, f)[v_c]
+            rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+    require(rel <= 1e-5, f"sharded small run: state differs by {rel} "
+            f"relative")
+    moved = int((slab_of_gid(s_g, n) != slab_of_gid(to_card(state), n)).sum())
+    pairs = int((met_c.collisions - met_c.wall_hits).sum())
+    require(moved > 0 and pairs > 0,
+            f"sharded small run: {moved} migrants, {pairs} pair collisions")
+    print(f"sharded small run vs CPU: N={n} slabs={SLABS} steps={steps} "
+          f"pairs={pairs} wall_hits={int(met_c.wall_hits.sum())} "
+          f"migrated={moved}: valid, gid, counts and histogram equal, state "
+          f"max rel err {rel!r} (bound 1e-5) {tag}")
+
+
+def run_sharded_slice(tag: str, sweep_pairs: int) -> dict:
+    """Phase 8: the sharded sweep at full width, counted.  ``sweep_pairs``
+    is the single-slab sweep's pair-collision total over the same steps
+    from the same initial state (phase 5)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = sharded_sim(steps_per_epoch=STEPS_PER_EPOCH)
+    state, meas, gens = sim.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sim.cfg.num_molecules
+    plan = sim.plan
+    epochs, per_epoch = [], []
+    kernels.launch_counts.clear()
+    for e in range(STEPS // STEPS_PER_EPOCH):
+        t0 = time.perf_counter()
+        state, meas, met = sim.run(
+            STEPS_PER_EPOCH, state=state, measure=meas, generators=gens,
+            start_step=e * STEPS_PER_EPOCH)
+        torch.cuda.synchronize()
+        per_epoch.append(time.perf_counter() - t0)
+        counts = dict(kernels.launch_counts)
+        epochs.append(met)
+        slab_of_gid(state, n)  # every id 0..N-1 live exactly once
+    peak = torch.cuda.max_memory_allocated()
+    metrics = StepMetrics.concat(epochs)
+    tot = sim.finalize_measure(meas)
+    for f in ("overflow_count", "halo_trunc_count", "err_count"):
+        require(int(getattr(tot, f)) == 0,
+                f"sharded slice: {f}={int(getattr(tot, f))}")
+    live = ParticleState(**{
+        f.name: torch.cat([getattr(st, f.name)[valid]
+                           for st, valid, _ in state])
+        for f in dataclasses.fields(ParticleState)})
+    require(all(bool(torch.isfinite(t).all())
+                for t in (live.pos, live.vel, live.paths)),
+            "sharded slice: non-finite state")
+    require(int(oob.pore_oob_count(live, sim.cfg.geometry)) == 0,
+            "sharded slice: particles out of bounds")
+    pairs = int((metrics.collisions - metrics.wall_hits).sum())
+    hits = int(metrics.wall_hits.sum())
+    require(abs(pairs - sweep_pairs) <= 0.01 * sweep_pairs,
+            f"sharded slice: {pairs} pair collisions against the single "
+            f"slab's {sweep_pairs}")
+    require(int(tot.collision_count) == pairs + hits,
+            "sharded slice: collision_count is not pairs + wall hits")
+    drop = int(tot.hist_drop_count)
+    require(drop == 0 and bool(
+        (tot.hist.sum(dim=1) == int(tot.path_count)).all()),
+        "sharded slice: histogram rows do not sum to path_count")
+    expected = {"pack_band": 4, "pore_advance": 1, "bin_and_table": 1,
+                "partner_sweep": 1, "resolve_pairs": 1, "flush_hist": 1,
+                "compact": 1}
+    for name, per_step in expected.items():
+        require(counts.get(name, 0) == per_step * SLABS * STEPS,
+                f"sharded slice: {name} launched {counts.get(name, 0)} "
+                f"times, expected {per_step} a slab a step")
+
+    # Traffic across every interior face: the lanes in each halo band now,
+    # and the particles that PROBE more steps move to another slab (the
+    # narrow pore's face sees one or two a step).
+    consts = sim.slab_constants()
+    halo = []
+    for s, ((st, valid, _), c) in enumerate(zip(state, consts)):
+        z = st.pos[:, 2]
+        if s < SLABS - 1:
+            halo.append(int((valid & (z > c.up_edge)).sum()))
+        if s > 0:
+            halo.append(int((valid & (z < c.down_edge)).sum()))
+    before = slab_of_gid(state, n)
+    probe = 20
+    after = slab_of_gid(sim.run(probe, state=state, measure=meas,
+                                generators=gens, start_step=STEPS)[0], n)
+    up = [int(((before == s) & (after == s + 1)).sum())
+          for s in range(SLABS - 1)]
+    down = [int(((before == s + 1) & (after == s)).sum())
+            for s in range(SLABS - 1)]
+    require(min(halo) > 0 and min(up) > 0 and min(down) > 0,
+            f"sharded slice: a face without traffic (halo {halo}, up {up}, "
+            f"down {down})")
+    steady = (STEPS - STEPS_PER_EPOCH) / sum(per_epoch[1:])
+    print(f"sharded slice: N={n} slabs={SLABS} on "
+          f"{len(set(sim.devices))} card(s) steps={STEPS} pairs={pairs} "
+          f"(single slab {sweep_pairs}) wall_hits={hits} "
+          f"path_count={int(tot.path_count)} overflow=0 halo_trunc=0 err=0 "
+          f"oob=0 finite=True; ids 0..N-1 live after every epoch; lanes "
+          f"{[int(v.sum()) for _, v, _ in state]} of {plan.shard_capacity} "
+          f"{tag}")
+    print(f"sharded slice: halo lanes by face and direction {halo} of "
+          f"{plan.halo_capacity} slots, particles moved a slab up {up} and "
+          f"down {down} by {probe} more steps ({plan.migration_capacity} "
+          f"slots a step) {tag}")
+    print(f"sharded slice: particle-steps/s={steady * n!r} (epochs 2-"
+          f"{len(per_epoch)}), step {1e3 / steady!r} ms, first epoch "
+          f"{per_epoch[0]!r} s, init {init_s!r} s, peak memory "
+          f"{peak / 2**30!r} GiB {tag}")
+    print(f"sharded slice: launches {counts} {tag}")
+    return counts
+
+
+def check_specular_pore(tag: str, steps: int = 100) -> None:
+    """The specular pore on the card, one slab, 1M particles: a closed
+    system without random draws, so its kinetic energy is constant;
+    every wall hit and every pair collision ends a path (it stages a
+    completed path or ends the particle's first, partial one)."""
+    cfg = amt.PoreConfig(engine=amt.EngineConfig(
+        broadphase="cells", steps_per_epoch=steps)).scaled_to(PARTICLES)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    state, meas, gen = sim.init(SEED)
+    e0 = kinetic(state)
+    t0 = time.perf_counter()
+    state, meas, metrics = sim.run(steps, state=state, measure=meas,
+                                   generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    e_rel = abs(kinetic(state) - e0) / e0
+    require(e_rel <= 1e-5, f"specular pore: kinetic energy moved by {e_rel}")
+    require(int(meas.err_count) == 0, "specular pore: wall-solver errors")
+    require(bool(torch.isfinite(state.pos).all()),
+            "specular pore: non-finite state")
+    hits = int(metrics.wall_hits.sum())
+    pairs = int((metrics.collisions - metrics.wall_hits).sum())
+    events = hits + 2 * pairs
+    ended = int(meas.path_count) + int(state.has_collided.sum())
+    # A particle with two events in one step stages one path, so a few
+    # events end no path of their own.
+    require(hits > 0 and pairs > 0 and 0 <= events - ended <= 0.01 * events,
+            f"specular pore: {events} events ended {ended} paths")
+    nudged = int((metrics.oob_after_walls + metrics.oob_after_pairs).sum())
+    print(f"specular pore: N={state.num_particles} steps={steps} "
+          f"pairs={pairs} wall_hits={hits}; paths ended {ended} of {events} "
+          f"events (the rest shared a step with another), nudged={nudged}, "
+          f"err=0, kinetic energy rel change {e_rel!r} (bound 1e-5), "
+          f"{state.num_particles * steps / seconds!r} particle-steps/s "
+          f"{tag}")
+
+
 def our_kernel_names() -> set:
     """The __global__ function names of the port's CUDA sources."""
     names = set()
@@ -1193,22 +1673,30 @@ def kernel_short_name(name: str, ours: set) -> str:
 
 
 def breakdown(tag: str, label: str, cfg, traced: int = 16,
-              timed: int = 40, profiled: int = 24) -> None:
-    """Phase 8: where one slice's step time goes.  Untraced step time from
+              timed: int = 40, profiled: int = 24, n_shards=None) -> None:
+    """Phase 9: where one slice's step time goes.  Untraced step time from
     CUDA events; device time, its share in the port's kernels and device
     operations a step from torch.profiler; host time of the step and of
-    its per-particle stage (``advance``) from cProfile."""
+    its per-particle stage (``advance``) from cProfile.  With ``n_shards``
+    the slice is the sharded sweep with that many slabs on the card."""
     from torch.profiler import ProfilerActivity, profile
-    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    if n_shards is None:
+        sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+        draws = "generator"
+    else:
+        sim = amt.ShardedSimulation(amt.make_workload(cfg),
+                                    n_shards=n_shards)
+        draws = "generators"
     state, meas, gen = sim.init(SEED)
-    state, meas, _ = sim.run(24, state=state, measure=meas, generator=gen)
-    step = 24
+    step = 0
 
     def run(k):
         nonlocal state, meas, step
         state, meas, _ = sim.run(k, state=state, measure=meas,
-                                 generator=gen, start_step=step)
+                                 start_step=step, **{draws: gen})
         step += k
+
+    run(24)
 
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1267,18 +1755,22 @@ def breakdown(tag: str, label: str, cfg, traced: int = 16,
 
 
 def breakdowns(tag: str) -> None:
-    """Phase 8 for every slice this checkout has."""
+    """Phase 9 for every slice this checkout has."""
     breakdown(tag, "sweep", config())
     breakdown(tag, "pairs", config(**PAIRS))
     if hasattr(amt, "CubeConfig"):
         breakdown(tag, "cube", cube_config())
+    if hasattr(amt, "ShardedSimulation"):
+        for n_shards in (1, 2, SLABS):
+            breakdown(tag, f"sharded sweep, {n_shards} slab(s)", config(),
+                      n_shards=n_shards)
 
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--breakdown", action="store_true",
-        help="run only phases 0, 1 and 8 and print no result line (a copy "
+        help="run only phases 0, 1 and 9 and print no result line (a copy "
              "of this script beside another checkout's package reads that "
              "checkout the same way)")
     args = parser.parse_args(argv)
@@ -1308,21 +1800,27 @@ def main(argv) -> int:
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))
     results.update(check_allpairs(tag))
+    results.update(check_slab(tag))
     check_against_cpu(tag)
     check_against_cpu(tag, narrowphase="pairs", rebuild_interval=5)
     check_against_cpu(tag, cfg=cube_config(3_000, steps_per_epoch=5),
                       label="cube", steps=20)
+    check_sharded_against_cpu(tag)
     compare_pairs_with_sweep(tag)
-    counts = run_slice(tag, [*KERNELS, *WALL_KERNELS])
-    pairs_counts = run_slice(
+    counts, sweep_pairs = run_slice(tag, [*KERNELS, *WALL_KERNELS])
+    pairs_counts, _ = run_slice(
         tag, ["bin_and_table", *PAIRS_KERNELS, *WALL_KERNELS], **PAIRS)
     counts.update({name: pairs_counts[name]
                    for name in [*PAIRS_KERNELS, *WALL_KERNELS]})
     cube_counts = run_cube_slice(tag, results["allpairs_partner"]["ms"])
     counts.update({name: cube_counts[name] for name in CUBE_KERNELS})
+    shard_counts = run_sharded_slice(tag, sweep_pairs)
+    counts.update({name: shard_counts[name] for name in SHARD_KERNELS})
+    check_specular_pore(tag)
     breakdowns(tag)
 
-    sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS}
+    sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS,
+               **SHARD_KERNELS}
     require(set(results) == set(sources), "kernels line: entries missing")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **sources[name],

@@ -7,8 +7,15 @@ masks, counts) are exact.  Floats: float64 within 1e-12 relative, float32
 within 4 ulp of the array's magnitude (both packages round every
 operation the same way; the bound leaves room for the XLA CPU compiler's
 own choices).
+
+The z-slab engine's arguments -- ``valid`` (K2, K9), ``ids`` and
+``cell_window`` (K9), ``local_mask`` (K10) -- are held to the same JAX
+functions called with them, on lanes that hold duplicates with one id (a
+particle beside its own ghost copy), padding and a window over part of the
+grid.
 """
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -189,3 +196,202 @@ def test_wrappers_choose_by_device():
     assert dict(amt.kernels.launch_counts) == before
     with pytest.raises(ValueError, match="plain version runs on the CPU"):
         tcollide.bin_and_table(pos.to("meta"), tgrid)
+
+
+# --------------------------------------------------------------------------
+# The z-slab engine's arguments
+# --------------------------------------------------------------------------
+
+
+def slab_lanes(cfg, rng, np_dtype, copies=300):
+    """Lanes as a slab's pair phase sees them: particles, ``copies`` of
+    them repeated at the same place under the same id (what a ghost of
+    oneself would be), ids that are no lane indices, and a tenth of the
+    lanes holding nothing, parked far away."""
+    base = clustered_positions(cfg, rng)
+    pos = np.concatenate([base, base[:copies]]).astype(np_dtype)
+    n = pos.shape[0]
+    ids = rng.permutation(base.shape[0]).astype(np.int32) + 7
+    ids = np.concatenate([ids, ids[:copies]])
+    valid = rng.uniform(size=n) > 0.1
+    pos[~valid] = 1e9
+    return pos, ids, valid
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("capacity", [None, 4])
+def test_bin_and_table_valid_matches_reference(dtype, capacity):
+    np_dtype, t_dtype = DTYPES[dtype]
+    cfg, host_grid = pore_setup(capacity)
+    jgrid, tgrid = grids(host_grid, np_dtype, t_dtype)
+    pos, _, valid = slab_lanes(cfg, np.random.default_rng(5), np_dtype)
+
+    cid_j = jcollide.assign_cells(jnp.asarray(pos), jgrid, jnp.asarray(valid))
+    table_j, overflow_j, pslot_j = jcollide.build_cell_table(cid_j, jgrid)
+    cid_t, table_t, pslot_t, overflow_t = tcollide.bin_and_table_plain(
+        torch.from_numpy(pos), tgrid, valid=torch.from_numpy(valid))
+
+    dummy = host_grid.num_cells * host_grid.capacity
+    np.testing.assert_array_equal(cid_t.numpy(), np.asarray(cid_j))
+    np.testing.assert_array_equal(table_t.numpy(), np.asarray(table_j))
+    assert int(overflow_t) == int(overflow_j)
+    # An invalid lane takes no slot: the reference leaves its rank in the
+    # dummy row (num_cells * cap + rank), which reads the same.
+    np.testing.assert_array_equal(pslot_t.numpy(),
+                                  np.minimum(np.asarray(pslot_j), dummy))
+    assert (cid_t.numpy()[~valid] == host_grid.num_cells).all()
+    assert (pslot_t.numpy()[~valid] == dummy).all()
+    assert (int(overflow_t) > 0) == (capacity == 4)
+    # Without the argument the far lanes would be binned and counted.
+    assert not torch.equal(
+        tcollide.bin_and_table_plain(torch.from_numpy(pos), tgrid)[0], cid_t)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("window", [None, (0.3, 0.4)],
+                         ids=["whole-grid", "window"])
+def test_partner_sweep_slab_arguments_match_reference(dtype, window):
+    np_dtype, t_dtype = DTYPES[dtype]
+    cfg, host_grid = pore_setup()
+    jgrid, tgrid = grids(host_grid, np_dtype, t_dtype)
+    pos, ids, valid = slab_lanes(cfg, np.random.default_rng(6), np_dtype)
+    radius = cfg.physics.collision_range
+    if window is not None:
+        cells = host_grid.num_cells
+        window = (int(window[0] * cells), int(window[1] * cells))
+
+    partner_j, overflow_j = jcollide.cell_partner_search(
+        jnp.asarray(pos), jgrid, radius, ids=jnp.asarray(ids),
+        valid=jnp.asarray(valid), cell_window=window)
+    pos_t, ids_t, valid_t = (torch.from_numpy(a) for a in (pos, ids, valid))
+    _, table, pslot, overflow_t = tcollide.bin_and_table_plain(
+        pos_t, tgrid, valid=valid_t)
+    partner_t = tcollide.partner_sweep_plain(
+        pos_t, table, pslot, tgrid, radius, chunk=1024, ids=ids_t,
+        valid=valid_t, cell_window=window)
+    np.testing.assert_array_equal(partner_t.numpy(), np.asarray(partner_j))
+    assert int(overflow_t) == int(overflow_j)
+    got = partner_t.numpy()
+    assert (got >= 0).sum() > (100 if window else 500)
+    assert (got[~valid] == -1).all()
+    # No lane pairs with a lane of its own id, though its copy sits at
+    # distance zero; with lane indices as ids the copies would pair.
+    has = got >= 0
+    assert (ids[got[has]] != ids[has]).all()
+    by_index = tcollide.partner_sweep_plain(pos_t, table, pslot, tgrid,
+                                            radius, chunk=1024)
+    assert (ids[by_index.numpy()[has]] == ids[has]).any()
+    if window:
+        cell = pslot.numpy() // host_grid.capacity
+        outside = (cell < window[0]) | (cell >= window[0] + window[1])
+        assert (got[outside] == -1).all() and (by_index.numpy()[outside]
+                                               >= 0).any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_resolve_pairs_local_mask_matches_reference(dtype):
+    np_dtype, t_dtype = DTYPES[dtype]
+    cfg, host_grid = pore_setup()
+    jgrid, tgrid = grids(host_grid, np_dtype, t_dtype)
+    rng = np.random.default_rng(7)
+    pos, ids, valid = slab_lanes(cfg, rng, np_dtype)
+    n = pos.shape[0]
+    local = valid & (rng.uniform(size=n) < 0.7)
+    arrays = {
+        "pos": pos,
+        "vel": (rng.normal(size=(n, 3)) * 300.0).astype(np_dtype),
+        "paths": rng.uniform(0, 2e-7, (n, 4)).astype(np_dtype),
+        "has_collided": rng.uniform(size=n) < 0.7,
+    }
+    pending_vals = rng.uniform(0, 1e-6, (n, 4)).astype(np_dtype)
+    pending_mask = rng.uniform(size=n) < 0.1
+    cr = cfg.physics.collision_range
+    partner, _ = jcollide.cell_partner_search(
+        jnp.asarray(pos), jgrid, cr, ids=jnp.asarray(ids),
+        valid=jnp.asarray(valid))
+
+    jstate = JState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    jmeas = JMeasurements.zeros(200, np_dtype, num_particles=n)
+    jmeas.pending_vals = jnp.asarray(pending_vals)
+    jmeas.pending_mask = jnp.asarray(pending_mask)
+    jstate, jmeas, count_j, ok_j = jcollide.resolve_collisions(
+        jstate, jmeas, partner, cr, cfg.physics.mass, 200, 1e-6,
+        local_mask=jnp.asarray(local))
+
+    tstate, _ = convert.state_from_numpy(arrays, "cpu", t_dtype)
+    tmeas = dataclasses.replace(
+        amt.state.Measurements.zeros(200, t_dtype, num_particles=n),
+        pending_vals=torch.from_numpy(pending_vals),
+        pending_mask=torch.from_numpy(pending_mask))
+    before = tmeas.collision_count.clone()
+    tstate, tmeas, count_t, ok_t = tcollide.resolve_pairs_plain(
+        tstate, tmeas, torch.from_numpy(np.array(partner)), cr,
+        local_mask=torch.from_numpy(local))
+
+    ok = ok_t.numpy()
+    np.testing.assert_array_equal(ok, np.asarray(ok_j))
+    assert int(count_t) == int(count_j) == int((ok & local).sum()) > 100
+    assert (ok & ~local).sum() > 20      # ghosts matched, and left alone
+    assert torch.equal(tmeas.collision_count, before)
+    for f in ("pos", "vel", "paths"):
+        assert_floats(getattr(tstate, f).numpy(), getattr(jstate, f),
+                      np_dtype)
+        np.testing.assert_array_equal(getattr(tstate, f).numpy()[~local],
+                                      arrays[f][~local])
+    np.testing.assert_array_equal(tstate.has_collided.numpy(),
+                                  np.asarray(jstate.has_collided))
+    np.testing.assert_array_equal(tmeas.pending_mask.numpy(),
+                                  np.asarray(jmeas.pending_mask))
+    assert_floats(tmeas.pending_vals.numpy(), jmeas.pending_vals, np_dtype)
+
+
+@pytest.mark.parametrize("slab", [False, True], ids=["plain", "slab"])
+def test_sweep_wrappers_pass_declared_arguments(monkeypatch, slab):
+    """K2, K9 and K10, forced down their kernel side with the launch
+    intercepted, pass exactly the declared argument kinds: null pointers
+    and the whole grid as window without the z-slab arguments, the
+    tensors and the window with them."""
+    calls = {}
+
+    def fake_launch(name, device, *args):
+        calls[name] = args
+        sig = amt.kernels._SIGNATURES[name][:-1]  # the stream is launch's
+        assert len(args) == len(sig), name
+        for arg, kind in zip(args, sig):
+            want = {ctypes.c_void_p: ctypes.c_void_p, ctypes.c_int: int,
+                    ctypes.c_float: float}[kind]
+            assert isinstance(arg, want), (name, arg, kind)
+
+    cfg, host_grid = pore_setup()
+    _, tgrid = grids(host_grid, np.float32, torch.float32)
+    pos, ids, valid = slab_lanes(cfg, np.random.default_rng(8), np.float32)
+    n = pos.shape[0]
+    pos_t, ids_t, valid_t = (torch.from_numpy(a) for a in (pos, ids, valid))
+    state = amt.state.ParticleState.zeros(n)
+    state.pos = pos_t
+    meas = amt.state.Measurements.zeros(200, torch.float32, num_particles=n)
+    table = torch.zeros((tgrid.num_cells + 1, tgrid.capacity),
+                        dtype=torch.int32)
+    pslot = torch.zeros(n, dtype=torch.int32)
+    monkeypatch.setattr(amt.kernels, "use_plain", lambda t: False)
+    monkeypatch.setattr(amt.kernels, "launch", fake_launch)
+    cr = cfg.physics.collision_range
+    if slab:
+        tcollide.bin_and_table(pos_t, tgrid, valid=valid_t)
+        tcollide.partner_sweep(pos_t, table, pslot, tgrid, cr, ids=ids_t,
+                               valid=valid_t, cell_window=(100, 50))
+        out = tcollide.resolve_pairs(state, meas, pslot, cr,
+                                     local_mask=valid_t)
+        assert len(out) == 4 and out[3].shape == (n,)
+    else:
+        tcollide.bin_and_table(pos_t, tgrid)
+        tcollide.partner_sweep(pos_t, table, pslot, tgrid, cr)
+        assert len(tcollide.resolve_pairs(state, meas, pslot, cr)) == 3
+    given = (lambda a: a.value is not None) if slab else (
+        lambda a: a.value is None)
+    assert given(calls["bin_and_table"][1])
+    assert all(given(a) for a in calls["partner_sweep"][4:6])
+    assert calls["partner_sweep"][9:11] == (
+        (100, 50) if slab else (0, tgrid.num_cells))
+    assert given(calls["resolve_pairs"][7])
+    assert given(calls["resolve_pairs"][-2])

@@ -10,9 +10,11 @@ Tolerances: integer outputs and staging exact; K10's and K3's state within
 2 ulp (both sides round every operation once, IEEE; measured 0); K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
-why); K11 exact.  The pairs engine's kernels, K8 and K11 run
-``chip_smoke.py``'s own checks, untimed: the pore at 200k particles, the
-cube at its published 24,627.
+why); K11 exact; K12's buffers bitwise, its flags and counts exact.  The
+pairs engine's kernels, K8, K11, K12 and the z-slab arguments of K2, K9 and
+K10 run ``chip_smoke.py``'s own checks, untimed: the pore at 200k
+particles (cut in 4 z-slabs for K12 and the sharded sweep), the cube at its
+published 24,627.
 """
 
 import dataclasses
@@ -200,3 +202,25 @@ def test_cube_on_card_matches_cpu(device):
     chip_smoke.check_against_cpu(
         "", cfg=chip_smoke.cube_config(3_000, steps_per_epoch=5),
         label="cube", steps=20)
+
+
+def test_pack_and_slab_argument_kernels(device):
+    """K12 with room and truncated, its index form, and K2, K9 and K10 with
+    ``valid``, ``ids``, ``cell_window`` and ``local_mask`` on one slab's
+    local and ghost lanes."""
+    before = dict(kernels.launch_counts)
+    chip_smoke.check_slab("", particles=TARGET, reps=0)
+    for name in ("pack_band", "pack_indices", "bin_and_table",
+                 "partner_sweep", "resolve_pairs"):
+        assert kernels.launch_counts[name] > before.get(name, 0), name
+
+
+def test_pack_band_refuses_float64(device):
+    mask = torch.ones(8, dtype=torch.bool, device=device)
+    rows = torch.zeros((8, 3), dtype=torch.float64, device=device)
+    with pytest.raises(TypeError):
+        chip_smoke.pack.pack_band({"pos": rows}, mask, 4)
+
+
+def test_sharded_sweep_on_card_matches_cpu(device):
+    chip_smoke.check_sharded_against_cpu("", particles=TARGET)

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package: both are blocked in a
 fresh interpreter, which then imports every port module and runs two
-steps each of the sweep engine, the pairs engine and the cube on the
-CPU."""
+steps each of the sweep engine, the pairs engine, the cube, the specular
+pore and the 4-slab sharded sweep on the CPU."""
 
 import os
 import subprocess
@@ -31,6 +31,17 @@ cfg = amt.CubeConfig(num_particles_override=500)
 sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
 cube, _, metrics = sim.run(num_steps=2)
 assert metrics.collisions.shape == (2,) and cube.num_particles == 500
+cfg = amt.PoreConfig().scaled_to(2000)
+sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
+_, specular, metrics = sim.run(num_steps=2)
+assert metrics.wall_hits.shape == (2,) and int(specular.err_count) == 0
+cfg = amt.temperature_pore_config().scaled_to(2000)
+sim = amt.ShardedSimulation(amt.make_workload(cfg), n_shards=4,
+                            devices=["cpu"])
+slabs, per_slab, metrics = sim.run(num_steps=2)
+assert metrics.collisions.shape == (2,) and len(slabs) == len(per_slab) == 4
+assert sum(int(valid.sum()) for _, valid, _ in slabs) == cfg.num_molecules
+assert int(sim.finalize_measure(per_slab).overflow_count) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", int(measure.collision_count))
