@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops.collide import DeviceGrid, active_rank_for
+from .ops.collide import DeviceGrid, active_rank_for, cell_runs
 from .ops.pairs import PairList
 from .state import Measurements, ParticleState
 
@@ -80,6 +80,8 @@ def grid_from_numpy(arrays: dict, device="cpu",
         active_rank=_tensor(
             active_rank_for(num_cells, arrays.get("active_cells")),
             torch.int32, device),
+        run_start=_tensor(cell_runs(arrays["nx"], arrays["layer_base"]),
+                          torch.int32, device),
     )
 
 

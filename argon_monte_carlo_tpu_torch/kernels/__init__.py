@@ -44,14 +44,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "partner_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
-                      _P],
+    "partner_sweep": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
     "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P],
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 12,
-    "compact": [_P, _I, _I, _I] + [_P] * 5,
+    "compact": [_P, _I, _I, _I, _I, _P, _P, _P],
     "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
     "rebuild_sweep": [_P] * 6 + [_I] * 4 + [_P] * 5,
     "test_and_resolve": [_P] * 8 + [_I, _I, _I, _F, _F] + [_P] * 16,

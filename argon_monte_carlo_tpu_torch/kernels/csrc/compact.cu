@@ -1,11 +1,13 @@
-// K6 compact and K5 emit_pairs: two stream compactions on one scan.
+// K6 compact and K5 emit_pairs: stream compactions.
 //
 // K6 replaces argon_monte_carlo_tpu/ops/compact.py compact_indices
 // (:23-46), a sort-based lowering of jnp.nonzero(size=, fill_value=) on the
 // TPU: the ascending indices of a mask's set entries, truncated to size,
-// padded with fill.  The pairs engine compacts with it at the rebuild, in
-// K3 (colliding entries), in K4 (appended candidates) and once a step over
-// all particles (engine.py:398-419).
+// padded with fill.  The pairs engine compacts with it twice a step over
+// all particles (engine.py:398-419), the z-slab engine once a slab a step
+// (the free lanes of the merge); K3 (colliding entries) and K4 (appended
+// candidates) compact on the way inside their own launches with
+// compact_launch below.
 //
 // K5 replaces argon_monte_carlo_tpu/ops/pairs.py rebuild_finish (:208-277):
 // the (N, top_k) rebuild candidates become the pair list (a, b), the
@@ -15,15 +17,31 @@
 // gives the same list even when truncated, because the first m_cap entries
 // come from at most m_cap particles.
 //
-// Bound: memory.  Each pass reads the mask or the candidates once; the
-// scan over block totals is one block.
+// Bound: memory for the passes (the mask or the candidates read once); K6's
+// mask of 1M bytes is 0.3 us of traffic, so K6 is bound by its launches.
 //
-// Design: per block, a count (__syncthreads_count for a mask, a block scan
-// for K5's per-particle entry counts); one block scans the block totals
-// (Hillis-Steele over 1024 threads, each owning a contiguous chunk, as K2
-// and K7 do) and totals up to three channels; per block, each element
-// writes at its block's offset plus its rank inside the block.  Integer
-// only, so the output is the same in every run.
+// Design, K6: one launch, a single pass (a chained scan with decoupled
+// look-back).  A block takes its tile from an atomic ticket, so tiles start
+// in ticket order and a tile only ever waits for tiles that already run.
+// Each thread loads 16 mask bytes at once, counts them, and the block scans
+// the counts; the block publishes its tile's total in a status word, warp 0
+// looks back over the earlier tiles' words (32 at a time) until it meets an
+// inclusive prefix, publishes its own inclusive prefix, and every thread
+// writes its indices at prefix + rank below size.  The block of the last
+// tile knows the grand total: it pads [min(total, size), size) with fill and
+// resets the ticket, so there is no fill launch and no memset.  A status
+// word carries the call's generation beside its flag and value, so words
+// left by earlier calls read as "not ready" and the scratch is never
+// cleared; it belongs to one stream (ops/compact.py keeps one a stream).
+// Integer only: the same output in every run.
+//
+// Design, the multi-pass form (K5; compact_launch for K3 and K4;
+// mask_scan_launch for K12): per block, a count (__syncthreads_count for a
+// mask, a block scan for K5's per-particle entry counts); one block scans
+// the block totals (Hillis-Steele over 1024 threads, each owning a
+// contiguous chunk, as K2 and K7 do) and totals up to three channels; per
+// block, each element writes at its block's offset plus its rank inside the
+// block.
 #include "common.cuh"
 
 namespace {
@@ -162,6 +180,118 @@ __global__ void emit_finish_kernel(const int* __restrict__ totals, int m_cap,
   *spill = *old_spill + *cell_overflow + totals[2];
 }
 
+
+// ---------------------------------------------------------------------------
+// K6: the single-pass compaction
+// ---------------------------------------------------------------------------
+
+constexpr int kTileBytes = 16;  // mask bytes a thread, one vector load
+constexpr int kTile = amc::kThreads * kTileBytes;
+// Flags of a tile's status word.  The word is
+// (generation << 34) | (flag << 32) | value: one 64-bit store publishes all.
+constexpr unsigned kAggregate = 1u;  // value = the tile's own total
+constexpr unsigned kInclusive = 2u;  // value = the total up to and with it
+
+__device__ __forceinline__ unsigned long long status_word(unsigned generation,
+                                                          unsigned flag,
+                                                          int value) {
+  return (static_cast<unsigned long long>((generation << 2) | flag) << 32) |
+         static_cast<unsigned>(value);
+}
+
+// The number of set entries in the tiles before `tile` (> 0).  All 32 lanes
+// of warp 0 call it.  Lane l reads the word of tile base - l and waits
+// until it carries this call's generation; the window moves back by 32
+// until it holds an inclusive prefix.
+__device__ __forceinline__ int look_back(
+    const volatile unsigned long long* status, int tile,
+    unsigned generation) {
+  const unsigned kFull = 0xffffffffu;
+  int lane = threadIdx.x;
+  int prefix = 0;
+  for (int base = tile - 1;; base -= 32) {
+    int t = base - lane;
+    // Before tile 0 there is nothing: an inclusive prefix of 0.
+    unsigned flag = kInclusive;
+    int value = 0;
+    if (t >= 0) {
+      unsigned long long word;
+      do {
+        word = status[t];
+      } while (static_cast<unsigned>(word >> 34) != generation);
+      flag = static_cast<unsigned>(word >> 32) & 3u;
+      value = static_cast<int>(static_cast<unsigned>(word));
+    }
+    unsigned inclusive = __ballot_sync(kFull, flag == kInclusive);
+    int nearest = inclusive != 0 ? __ffs(inclusive) - 1 : 31;
+    int v = lane <= nearest ? value : 0;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    prefix += v;
+    if (inclusive != 0) return prefix;
+  }
+}
+
+// scratch[0] is the ticket counter (zero between calls), scratch[1 + t] the
+// status word of tile t.  kVector: mask is 16-byte aligned.
+template <bool kVector>
+__launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
+    const uint8_t* __restrict__ mask, int len, int ntiles, int size, int fill,
+    unsigned generation, unsigned long long* __restrict__ scratch,
+    int* __restrict__ out) {
+  __shared__ int s_tile;
+  __shared__ int s_prefix;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  volatile unsigned long long* status = scratch + 1;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  int tile = s_tile;
+  long long first = static_cast<long long>(tile) * kTile +
+                    threadIdx.x * kTileBytes;
+  unsigned bits = 0;  // bit k: entry first + k is set
+  if (kVector && first + kTileBytes <= len) {
+    uint4 v = *reinterpret_cast<const uint4*>(mask + first);
+    unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < kTileBytes; ++k) {
+      if ((words[k >> 2] >> (8 * (k & 3))) & 0xffu) bits |= 1u << k;
+    }
+  } else {
+    for (int k = 0; k < kTileBytes; ++k) {
+      if (first + k < len && mask[first + k]) bits |= 1u << k;
+    }
+  }
+  int tile_total;
+  int rank = amc::block_exclusive_scan(__popc(bits), &tile_total);
+  if (threadIdx.x < 32) {
+    int prefix = 0;
+    if (tile > 0) {
+      if (threadIdx.x == 0) {
+        status[tile] = status_word(generation, kAggregate, tile_total);
+      }
+      prefix = look_back(status, tile, generation);
+    }
+    if (threadIdx.x == 0) {
+      status[tile] = status_word(generation, kInclusive, prefix + tile_total);
+      s_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  int prefix = s_prefix;
+  rank += prefix;
+  while (bits != 0 && rank < size) {
+    out[rank++] = static_cast<int>(first) + __ffs(bits) - 1;
+    bits &= bits - 1;
+  }
+  if (tile == ntiles - 1) {
+    // Every ticket is taken and every earlier tile is counted in prefix.
+    for (int k = min(prefix + tile_total, size) + threadIdx.x; k < size;
+         k += amc::kThreads) {
+      out[k] = fill;
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
+}
+
 }  // namespace
 
 namespace amc {
@@ -193,12 +323,22 @@ void compact_launch(const uint8_t* mask, int len, int size, int fill,
 
 }  // namespace amc
 
-// Scratch: block_vals, block_offsets (blocks_for(len) ints each).
+// K6.  scratch holds 1 + ceil(len / 4096) 64-bit words, belongs to this
+// stream, was zero when it was allocated and is written by nothing else;
+// generation is in [1, 2^30) and larger than in any earlier call on this
+// scratch.  One launch.
 AMC_EXPORT int amc_compact(const uint8_t* mask, int len, int size, int fill,
-                           int* out, int* total, int* block_vals,
-                           int* block_offsets, cudaStream_t stream) {
-  amc::compact_launch(mask, len, size, fill, out, total, block_vals,
-                      block_offsets, stream);
+                           int generation, int* out,
+                           unsigned long long* scratch, cudaStream_t stream) {
+  int ntiles = max(amc::blocks_for(len, kTile), 1);
+  unsigned gen = static_cast<unsigned>(generation);
+  if ((reinterpret_cast<uintptr_t>(mask) & 15u) == 0) {
+    compact_single_pass_kernel<true><<<ntiles, amc::kThreads, 0, stream>>>(
+        mask, len, ntiles, size, fill, gen, scratch, out);
+  } else {
+    compact_single_pass_kernel<false><<<ntiles, amc::kThreads, 0, stream>>>(
+        mask, len, ntiles, size, fill, gen, scratch, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

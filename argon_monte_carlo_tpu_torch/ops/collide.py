@@ -45,6 +45,11 @@ from . import fp
 from . import measure as measure_ops
 
 _NO_PARTNER = 1 << 30
+# Cells of one run of K9's cell walk (cell_walk.cuh kRunCells).
+RUN_CELLS = 8
+# The walk's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 4 bytes
+# a slot of capacity, of the 227 KB a block can have.
+_MAX_WALK_CAPACITY = 128
 
 
 # --------------------------------------------------------------------------
@@ -187,14 +192,54 @@ def grid_for_pore(geom, cell_size: float, capacity: int) -> Grid:
                       capacity, region_radius_of_z=region_radius_of_z)
 
 
+def cell_runs(nx, layer_base, run_cells: int = RUN_CELLS) -> np.ndarray:
+    """(R + 1,) int32 run starts of K9's cell walk: the cell ids 0..C cut
+    into runs [start[r], start[r + 1]) of at most ``run_cells`` consecutive
+    cells that never leave one x-row of one layer (cell ids run x-fastest,
+    ``base + iy * n + ix``).  An x-row of n cells is cut into
+    ceil(n / run_cells) runs of nearly equal length."""
+    nx = np.asarray(nx, dtype=np.int64)
+    starts = []
+    for n, base in zip(nx, np.asarray(layer_base, dtype=np.int64)):
+        pieces = -(-n // run_cells)
+        cuts = (np.arange(pieces) * n) // pieces
+        starts.append((base + n * np.arange(n)[:, None] + cuts[None, :])
+                      .ravel())
+    num_cells = int(layer_base[-1]) + int(nx[-1]) ** 2
+    return np.concatenate(starts + [[num_cells]]).astype(np.int32)
+
+
+def run_rows(neighbors: np.ndarray, run_start: np.ndarray,
+             run_cells: int = RUN_CELLS) -> np.ndarray:
+    """(R, 9, run_cells + 2) the table rows K9's cell walk stages for each
+    run and each (dz, dy) group g, the kernel's arithmetic on the host
+    (cell_walk.cuh): column 3g of the run's first cell, column 3g + 1 of
+    every cell, column 3g + 2 of its last; ``num_cells`` (the empty dummy
+    row) beyond a short run.  Cell k of the run then finds its columns 3g,
+    3g + 1, 3g + 2 at rows k, k + 1, k + 2 of group g."""
+    num_cells = neighbors.shape[0]
+    c0 = run_start[:-1].astype(np.int64)
+    length = run_start[1:].astype(np.int64) - c0
+    grouped = neighbors.reshape(num_cells, 9, 3)
+    rows = np.full((c0.shape[0], 9, run_cells + 2), num_cells, np.int32)
+    rows[:, :, 0] = grouped[c0, :, 0]
+    for k in range(run_cells):
+        has = length > k
+        rows[has, :, k + 1] = grouped[c0[has] + k, :, 1]
+    runs = np.arange(c0.shape[0])
+    rows[runs, :, length + 1] = grouped[c0 + length - 1, :, 2]
+    return rows
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceGrid:
     """Grid tables on the device: int32 nx, layer_base and neighbors, the
-    working-dtype half_extent, the scalars the kernels take, and
+    working-dtype half_extent, the scalars the kernels take,
     ``active_rank`` -- each cell's rank in the active-cell list, -1 for an
     inactive cell and for the dummy cell (reference DeviceGrid.active_rank,
     collide.py:245-250; every cell is active when the host grid has no
-    list)."""
+    list) -- and ``run_start``, the runs of K9's cell walk
+    (``cell_runs``)."""
 
     nx: torch.Tensor           # (nz,) int32
     layer_base: torch.Tensor   # (nz,) int32
@@ -206,6 +251,7 @@ class DeviceGrid:
     num_cells: int
     capacity: int
     active_rank: torch.Tensor  # (num_cells + 1,) int32
+    run_start: torch.Tensor    # (runs + 1,) int32
 
     @staticmethod
     def from_grid(grid: Grid, dtype, device) -> "DeviceGrid":
@@ -225,6 +271,7 @@ class DeviceGrid:
             capacity=grid.capacity,
             active_rank=put(active_rank_for(grid.num_cells,
                                             grid.active_cells), torch.int32),
+            run_start=put(cell_runs(grid.nx, grid.layer_base), torch.int32),
         )
 
 
@@ -406,8 +453,11 @@ def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
                   valid: torch.Tensor | None = None,
                   cell_window: tuple | None = None) -> torch.Tensor:
     """K9 (see ``partner_sweep_plain``); CUDA kernel for CUDA tensors.
-    The kernel reads each table row up to its first sentinel, which holds
-    for every table ``bin_and_table`` builds."""
+    The kernel walks the table by cells (``grid.run_start``), not the
+    particles by index: ``table`` and ``pslot`` must come from
+    ``bin_and_table`` on this grid, so that a particle with a slot is
+    listed in its cell's row, rows are filled from the front and the dummy
+    row is empty.  ``pslot`` itself is then not read."""
     if kernels.use_plain(pos):
         return partner_sweep_plain(pos, table, pslot, grid, search_radius,
                                    ids=ids, valid=valid,
@@ -415,24 +465,31 @@ def partner_sweep(pos: torch.Tensor, table: torch.Tensor,
     dev = pos.device
     n = pos.shape[0]
     cap = grid.capacity
+    if cap > _MAX_WALK_CAPACITY:
+        raise ValueError(f"cell capacity {cap}: the kernel stages a run's "
+                         f"neighbourhood in shared memory, which holds "
+                         f"capacities up to {_MAX_WALK_CAPACITY}")
     if ids is not None:
         kernels.check(ids, "ids", torch.int32, (n,), dev)
     if valid is not None:
         kernels.check(valid, "valid", torch.bool, (n,), dev)
     start, width = (0, grid.num_cells) if cell_window is None else (
         int(cell_window[0]), int(cell_window[1]))
+    runs = grid.run_start.shape[0] - 1
     kernels.check(pos, "pos", torch.float32, (n, 3), dev)
     kernels.check(table, "table", torch.int32, (grid.num_cells + 1, cap), dev)
     kernels.check(pslot, "pslot", torch.int32, (n,), dev)
     kernels.check(grid.neighbors, "grid.neighbors", torch.int32,
                   (grid.num_cells, 27), dev)
+    kernels.check(grid.run_start, "grid.run_start", torch.int32, (runs + 1,),
+                  dev)
     partner = torch.empty(n, dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
-        "partner_sweep", dev, p(pos), p(table), p(pslot), p(grid.neighbors),
-        kernels.optional_ptr(ids), kernels.optional_ptr(valid), n,
-        grid.num_cells, cap, start, width, search_radius * search_radius,
-        p(partner),
+        "partner_sweep", dev, p(pos), p(table), p(grid.neighbors),
+        p(grid.run_start), kernels.optional_ptr(ids),
+        kernels.optional_ptr(valid), n, grid.num_cells, cap, runs, RUN_CELLS,
+        start, width, search_radius * search_radius, p(partner),
     )
     return partner
 

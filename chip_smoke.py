@@ -13,9 +13,11 @@ exits non-zero without a result line):
    (one ``nvcc`` process a source, all started together);
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
-   K2, K9, K10, K7; the pairs engine's K6, K1, K5, K3, K4 and K7's
-   compacted entry; K8, the fused drift/walls/recapture pass, over 16
-   steps of the pairs slice) and of the 24,627-particle cube (K11, also at
+   K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
+   overflow; the pairs engine's K6, K1, K5, K3, K4 and K7's compacted
+   entry, K6 also at lengths around its tile, on an unaligned view and
+   over 100 calls in a row; K8, the fused drift/walls/recapture pass,
+   over 16 steps of the pairs slice) and of the 24,627-particle cube (K11, also at
    ~200k), with the kernel's, the plain version's and, where one exists,
    the library call's time beside the kernel's bound; K12 (band and index
    packing) at the band sizes of the 1M pore cut in 4 z-slabs, with room
@@ -293,10 +295,12 @@ def check_kernels(tag: str) -> dict:
 
     # K2, at the auto capacity and at capacity 8 so that cells overflow.
     k2_ms = k2_plain_ms = k2_out = None
+    binned = []
     for cap in (None, 8):
         g = grid if cap is None else amt.engine.build_grids(
             amt.make_workload(config(cell_capacity=cap)), dev)[1]
         got = collide.bin_and_table(state.pos, g)
+        binned.append((g, got))
         want = collide.bin_and_table_plain(state.pos, g)
         for name, a, b in zip(("cell_id", "table", "pslot", "overflow"),
                               got, want):
@@ -315,13 +319,19 @@ def check_kernels(tag: str) -> dict:
     results["bin_and_table"] = result(
         0.0, k2_ms, k2_plain_ms, tensor_bytes(state.pos, k2_out), 9 * n)
 
-    # K9.
-    _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
-    partner = collide.partner_sweep(state.pos, table, pslot, grid, r)
-    exact("K9 partner", partner,
-          collide.partner_sweep_plain(state.pos, table, pslot, grid, r))
-    print(f"K9 partner_sweep: exact; {int((partner >= 0).sum())} particles "
-          f"with a partner {tag}")
+    # K9, at the auto capacity and at capacity 8, where particles beyond
+    # a full cell's row have no slot: no partner, nobody's candidate.
+    for g, (_, table, pslot, overflow) in reversed(binned):
+        partner = collide.partner_sweep(state.pos, table, pslot, g, r)
+        exact(f"K9 partner (capacity {g.capacity})", partner,
+              collide.partner_sweep_plain(state.pos, table, pslot, g, r))
+        unlisted = pslot >= g.num_cells * g.capacity
+        require(bool((partner[unlisted] == -1).all()),
+                "K9: a particle without a slot has a partner")
+        print(f"K9 partner_sweep capacity={g.capacity}: exact; "
+              f"{int((partner >= 0).sum())} particles with a partner, "
+              f"{int(unlisted.sum())} without a slot ({int(overflow)} over "
+              f"capacity) {tag}")
     results["partner_sweep"] = result(
         0.0,
         timed_ms(lambda: collide.partner_sweep(state.pos, table, pslot,
@@ -432,8 +442,16 @@ def pairs_case(particles: int = PARTICLES):
                            cr=cfg.physics.collision_range, dt=cfg.dt)
 
 
+COMPACT_LENGTHS = (1, 255, 4_097, 1_000_003)
+
+
 def check_compact(case, tag: str, reps: int):
-    """K6 on masks of three densities, truncated and padded; timed at the
+    """K6, exactly: on masks of three densities at N, truncated and padded;
+    at lengths around its tile and vector widths with every, no and some
+    entries set, at size 0 and sizes below and above the count; on a view
+    that is not 16-byte aligned; and over 100 calls in a row on one stream
+    with changing masks and lengths, checked only afterwards (each call
+    finds the status words the calls before it left).  Timed at the
     engine's shared per-step compaction."""
     n = case.n
     u = torch.rand(n, generator=case.gen, device=case.dev)
@@ -446,6 +464,40 @@ def check_compact(case, tag: str, reps: int):
                   compact.compact_indices_plain(mask, size, n))
         print(f"K6 compact density={density}: {count} set, sizes "
               f"{max(count // 2, 1)} and {count + 1000}: exact {tag}")
+    for length in COMPACT_LENGTHS:
+        v = torch.rand(length, generator=case.gen, device=case.dev)
+        sizes = set()
+        for label, mask in (("all set", v >= 0), ("none set", v < 0),
+                            ("density 0.3", v < 0.3)):
+            count = int(mask.sum())
+            for size in (0, max(count // 2, 1), count + 7):
+                sizes.add(size)
+                exact(f"K6 compact (length {length}, {label}, size {size})",
+                      compact.compact_indices(mask, size, length),
+                      compact.compact_indices_plain(mask, size, length))
+        print(f"K6 compact length={length}: all, none and 0.3 of the "
+              f"entries set, sizes {sorted(sizes)}: exact {tag}")
+    whole = u < 0.2
+    view = whole[5:]
+    require(view.data_ptr() % 16 != 0 and view.is_contiguous(),
+            "K6: the view is aligned")
+    exact("K6 compact (unaligned view)",
+          compact.compact_indices(view, n // 8, n),
+          compact.compact_indices_plain(view, n // 8, n))
+    calls = []
+    for k in range(100):
+        length = 1 + (k * 7_919_131) % n if k % 3 else 1 + k * 41
+        mask = u[:length] < (0.002, 0.3, 0.95)[k % 3]
+        size = (length // 7, 64, length + 3)[(k // 3) % 3]
+        calls.append((mask, size, length))
+    outs = [compact.compact_indices(*call) for call in calls]
+    torch.cuda.synchronize()
+    for k, (call, out) in enumerate(zip(calls, outs)):
+        exact(f"K6 compact (call {k} of 100 in a row, length {call[2]}, "
+              f"size {call[1]})", out, compact.compact_indices_plain(*call))
+    print(f"K6 compact: an unaligned view, and 100 calls in a row on one "
+          f"stream with lengths {min(c[2] for c in calls)}-"
+          f"{max(c[2] for c in calls)}: exact {tag}")
     shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
     mask = u < 3e-3
     # The library call: torch.nonzero gives the same ascending indices

@@ -391,7 +391,241 @@ def test_sweep_wrappers_pass_declared_arguments(monkeypatch, slab):
         lambda a: a.value is None)
     assert given(calls["bin_and_table"][1])
     assert all(given(a) for a in calls["partner_sweep"][4:6])
-    assert calls["partner_sweep"][9:11] == (
+    assert calls["partner_sweep"][11:13] == (
         (100, 50) if slab else (0, tgrid.num_cells))
+    assert calls["partner_sweep"][9:11] == (
+        tgrid.run_start.shape[0] - 1, tcollide.RUN_CELLS)
     assert given(calls["resolve_pairs"][7])
     assert given(calls["resolve_pairs"][-2])
+
+
+# --------------------------------------------------------------------------
+# What K9's cell walk leans on: the table's row contract, the run
+# arithmetic, and the shapes the walk finds hard
+# --------------------------------------------------------------------------
+
+
+def crowded_positions(cfg, rng, clump=40):
+    """``clustered_positions`` plus ``clump`` particles inside one
+    collision range of a base particle, so that one cell is over any small
+    capacity."""
+    pos = clustered_positions(cfg, rng)
+    cr = cfg.physics.collision_range
+    d = rng.normal(size=(clump, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    crowd = pos[7] + d * cr * rng.uniform(0.05, 0.45, (clump, 1))
+    return np.concatenate([pos, crowd])[rng.permutation(pos.shape[0] + clump)]
+
+
+@pytest.mark.parametrize("with_valid", [False, True],
+                         ids=["all-lanes", "valid"])
+@pytest.mark.parametrize("capacity", [None, 8])
+def test_table_rows_are_ascending_and_sentinel_terminated(capacity,
+                                                          with_valid):
+    """The contract of K2's table that the cell walk reads rows by: equal
+    to the reference's table; every row lists particle indices ascending,
+    from the front, and holds only the sentinel after its first sentinel;
+    the dummy row is all sentinel; a particle has a slot exactly when its
+    row lists it, at that slot; a full cell keeps its lowest indices."""
+    cfg, host_grid = pore_setup(capacity)
+    jgrid, tgrid = grids(host_grid, np.float32, torch.float32)
+    rng = np.random.default_rng(11)
+    pos = crowded_positions(cfg, rng).astype(np.float32)
+    n = pos.shape[0]
+    valid = rng.uniform(size=n) > 0.1 if with_valid else None
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tvalid = None if valid is None else torch.from_numpy(valid)
+
+    cid_j = jcollide.assign_cells(jnp.asarray(pos), jgrid, jvalid)
+    table_j, overflow_j, _ = jcollide.build_cell_table(cid_j, jgrid)
+    cid, table, pslot, overflow = tcollide.bin_and_table_plain(
+        torch.from_numpy(pos), tgrid, valid=tvalid)
+    table, pslot, cid = table.numpy(), pslot.numpy(), cid.numpy()
+    np.testing.assert_array_equal(table, np.asarray(table_j))
+    assert int(overflow) == int(overflow_j)
+    if capacity == 8:
+        assert int(overflow) > 0
+
+    cap, cells = host_grid.capacity, host_grid.num_cells
+    listed = table < n
+    count = listed.sum(axis=1)
+    # From the front, nothing after the first sentinel.
+    np.testing.assert_array_equal(listed,
+                                  np.arange(cap)[None, :] < count[:, None])
+    assert (table[~listed] == n).all() and count[cells] == 0
+    # Ascending inside a row.
+    both = listed[:, 1:]
+    assert (np.diff(table, axis=1)[both] > 0).all()
+    # pslot is the inverse of the table, the dummy slot for the rest.
+    rows, slots = np.nonzero(listed)
+    np.testing.assert_array_equal(pslot[table[rows, slots]],
+                                  rows * cap + slots)
+    np.testing.assert_array_equal(cid[table[rows, slots]], rows)
+    unlisted = np.ones(n, bool)
+    unlisted[table[listed]] = False
+    assert (pslot[unlisted] == cells * cap).all()
+    if valid is not None:
+        assert unlisted[~valid].all()
+    # A full cell keeps its lowest indices.
+    for c in np.flatnonzero(count == cap)[:20]:
+        members = np.flatnonzero(cid == c)
+        np.testing.assert_array_equal(table[c], members[:cap])
+
+
+@pytest.mark.parametrize("target", [TARGET, 1_000_000],
+                         ids=["pore-4k", "pore-1M"])
+def test_cell_runs_and_staged_rows_equal_grid_neighbors(target):
+    """The cell walk's arithmetic on the host: the runs cut the cell ids
+    into pieces of at most RUN_CELLS cells that stay inside one x-row, and
+    for every cell k of every run the staged rows k, k + 1, k + 2 of group
+    g are ``Grid.neighbors[cell, 3g : 3g + 3]`` -- layer edges, the change
+    of nx between layers and the dummy row included."""
+    cfg = amc.temperature_pore_config().scaled_to(target)
+    eng = jcfg.EngineConfig()
+    n, vol = cfg.num_molecules, cfg.geometry.volume
+    host = jcollide.grid_for_pore(
+        cfg.geometry, jcfg.cell_size_for(eng, cfg.physics, n, vol),
+        jcfg.cell_capacity_for(eng, cfg.physics, n, vol))
+    # The port's own host grid is the reference's, array for array.
+    ours = tcollide.grid_for_pore(cfg.geometry, host.cell_size,
+                                  host.capacity)
+    np.testing.assert_array_equal(ours.neighbors, host.neighbors)
+    cells = host.num_cells
+    starts = tcollide.cell_runs(host.nx, host.layer_base)
+    length = np.diff(starts)
+    assert starts[0] == 0 and starts[-1] == cells and starts.dtype == np.int32
+    assert length.min() >= 1 and length.max() <= tcollide.RUN_CELLS
+    assert len(set(host.nx.tolist())) > 1      # nx changes between layers
+    # A run stays inside one x-row: same layer, same iy.
+    layer = np.searchsorted(host.layer_base, starts[:-1], side="right") - 1
+    local = starts[:-1] - host.layer_base[layer]
+    nx = host.nx[layer]
+    assert (local // nx == (local + length - 1) // nx).all()
+    assert (local + length <= nx * nx).all()
+
+    rows = tcollide.run_rows(host.neighbors, starts)
+    assert rows.shape == (len(length), 9, tcollide.RUN_CELLS + 2)
+    cell = np.arange(cells)
+    run = np.searchsorted(starts, cell, side="right") - 1
+    k = cell - starts[run]
+    grouped = host.neighbors.reshape(cells, 9, 3)
+    for dx in range(3):
+        staged = rows[run[:, None], np.arange(9)[None, :], (k + dx)[:, None]]
+        np.testing.assert_array_equal(staged, grouped[:, :, dx])
+    assert (grouped == cells).any()            # edges reach the dummy row
+    # Beyond a short run the staged rows are the empty dummy row.
+    beyond = np.arange(tcollide.RUN_CELLS + 2)[None, :] >= length[:, None] + 2
+    assert (rows.transpose(0, 2, 1)[beyond] == cells).all()
+    # The device grid carries the same runs.
+    _, tgrid = grids(host, np.float32, torch.float32)
+    np.testing.assert_array_equal(tgrid.run_start.numpy(), starts)
+
+
+def _hard_case(name, cfg, host_grid, rng):
+    """(pos, ids, valid, window, check) for one shape the cell walk finds
+    hard; ``check(partner, pslot)`` asserts that the case is really there."""
+    cr = cfg.physics.collision_range
+    g = cfg.geometry
+    cap, cells = host_grid.capacity, host_grid.num_cells
+    dummy = cells * cap
+    ids = valid = window = None
+    if name == "full-cell":
+        pos = crowded_positions(cfg, rng)
+
+        def check(partner, pslot):
+            lost = pslot == dummy
+            assert lost.sum() > 10 and (partner[lost] == -1).all()
+            assert not np.isin(partner[partner >= 0],
+                               np.flatnonzero(lost)).any()
+    elif name == "stray":
+        # Close pairs in the grid's corner cells, far outside the gas (no
+        # active cell there), and beyond the grid, clamped into its edge.
+        pos = clustered_positions(cfg, rng)
+        half = float(host_grid.half_extent[0])
+        corner = np.array([half - 0.3 * host_grid.cell_size] * 2 + [1e-9])
+        out = np.array([3 * half, -3 * half, g.total_height + 5e-9])
+        d = np.array([0.4 * cr, 0.0, 0.0])
+        pos = np.concatenate([pos, [corner, corner + d, out, out + d]])
+        first = pos.shape[0] - 4
+
+        def check(partner, pslot):
+            np.testing.assert_array_equal(
+                partner[first:], [first + 1, first, first + 3, first + 2])
+            active = np.zeros(cells + 1, bool)
+            active[host_grid.active_cells] = True
+            assert not active[pslot[first:first + 2] // cap].any()
+    elif name == "empty-region":
+        pos = clustered_positions(cfg, rng)
+        pos = pos[pos[:, 2] > 0.6 * g.total_height]
+
+        def check(partner, pslot):
+            occupied = np.zeros(cells + 1, bool)
+            occupied[pslot // cap] = True
+            assert occupied[:cells].mean() < 0.5 and (partner >= 0).sum() > 100
+    elif name == "ragged-n":
+        pos = clustered_positions(cfg, rng)[:3677]
+
+        def check(partner, pslot):
+            assert all(pos.shape[0] % k for k in (2, 3, 7, 8, 32, 256))
+            assert (partner >= 0).sum() > 100
+    elif name == "ghost-copy":
+        pos, ids, valid = slab_lanes(cfg, rng, np.float64)
+
+        def check(partner, pslot):
+            has = partner >= 0
+            assert (ids[partner[has]] != ids[has]).all()
+            # A copy sits at distance zero and is skipped all the same.
+            assert has[:300].any() and (partner[~valid] == -1).all()
+    elif name == "window-cut":
+        # The window starts and ends in the middle of an x-row, so runs and
+        # neighbourhoods straddle both ends; partners outside it are kept.
+        pos = clustered_positions(cfg, rng)
+        iz = host_grid.nz // 2
+        nx = int(host_grid.nx[iz])
+        iy, ix = nx // 2, nx // 2 - 1
+        start = int(host_grid.layer_base[iz]) + iy * nx + ix
+        window = (start, 3 * nx * nx + 5)
+        # A pair across the window's first cell boundary along x.
+        size, half = host_grid.cell_size, float(host_grid.half_extent[iz])
+        edge = np.array([ix * size - half, (iy + 0.5) * size - half,
+                         host_grid.z_lo + (iz + 0.5) * size])
+        d = np.array([0.2 * cr, 0.0, 0.0])
+        pos = np.concatenate([pos, [edge + d, edge - d]])
+
+        def check(partner, pslot):
+            cell = pslot // cap
+            inside = (cell >= window[0]) & (cell < window[0] + window[1])
+            assert (partner[~inside] == -1).all()
+            has = inside & (partner >= 0)
+            assert has.sum() > 20
+            assert (~inside[partner[has]]).any()
+    return pos, ids, valid, window, check
+
+
+@pytest.mark.parametrize("case", ["full-cell", "stray", "empty-region",
+                                  "ragged-n", "ghost-copy", "window-cut"])
+def test_partner_sweep_plain_matches_reference_on_hard_shapes(case):
+    capacity = 4 if case == "full-cell" else None
+    cfg, host_grid = pore_setup(capacity)
+    jgrid, tgrid = grids(host_grid, np.float32, torch.float32)
+    pos, ids, valid, window, check = _hard_case(
+        case, cfg, host_grid, np.random.default_rng(21))
+    pos = pos.astype(np.float32)
+    radius = cfg.physics.collision_range
+
+    def maybe(a, to):
+        return None if a is None else to(a)
+
+    partner_j, overflow_j = jcollide.cell_partner_search(
+        jnp.asarray(pos), jgrid, radius, ids=maybe(ids, jnp.asarray),
+        valid=maybe(valid, jnp.asarray), cell_window=window)
+    pos_t = torch.from_numpy(pos)
+    _, table, pslot, overflow_t = tcollide.bin_and_table_plain(
+        pos_t, tgrid, valid=maybe(valid, torch.from_numpy))
+    partner_t = tcollide.partner_sweep_plain(
+        pos_t, table, pslot, tgrid, radius, chunk=1024,
+        ids=maybe(ids, torch.from_numpy),
+        valid=maybe(valid, torch.from_numpy), cell_window=window)
+    np.testing.assert_array_equal(partner_t.numpy(), np.asarray(partner_j))
+    assert int(overflow_t) == int(overflow_j)
+    check(partner_t.numpy(), pslot.numpy())

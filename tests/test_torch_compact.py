@@ -1,0 +1,92 @@
+"""Port vs reference: K6's plain version against ``jnp.nonzero(size=,
+fill_value=)`` and the JAX package's ``compact_indices`` at the lengths the
+single-pass kernel finds hard (one entry, just under a block of 256, one
+past a tile of 4,096, a million and three: a ragged last tile and a ragged
+last vector), with every, no and some entries set, at size 0 and sizes
+below and above the count; and the wrapper's scratch bookkeeping (one
+scratch a device and stream, a generation a call, a new zeroed scratch for
+a larger mask or a wrapped counter).
+
+Tolerance: exact (integers).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from argon_monte_carlo_tpu.ops.compact import compact_indices as jcompact
+from argon_monte_carlo_tpu_torch.ops import compact as tcompact
+
+LENGTHS = (1, 255, 4_097, 1_000_003)
+FILLS = {"all-set": 1.0, "none-set": 0.0, "some-set": 0.3}
+
+
+@pytest.mark.parametrize("fill", sorted(FILLS))
+@pytest.mark.parametrize("length", LENGTHS)
+def test_compact_indices_plain_matches_nonzero_at_hard_lengths(length, fill):
+    rng = np.random.default_rng(length)
+    mask = rng.random(length) < FILLS[fill]
+    count = int(mask.sum())
+    assert count == {"all-set": length, "none-set": 0}.get(fill, count)
+    for size in (0, max(count // 2, 1), count + 7):
+        want = jnp.nonzero(jnp.asarray(mask), size=size,
+                           fill_value=length)[0]
+        got = tcompact.compact_indices_plain(torch.from_numpy(mask), size,
+                                             length)
+        assert got.dtype == torch.int32 and got.shape == (size,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if size > 0:
+            np.testing.assert_array_equal(
+                got.numpy(),
+                np.asarray(jcompact(jnp.asarray(mask), size, length)))
+        # Ascending, truncated to the lowest indices, padded with the fill.
+        kept = min(count, size)
+        np.testing.assert_array_equal(got.numpy()[:kept],
+                                      np.flatnonzero(mask)[:kept])
+        assert (got.numpy()[kept:] == length).all()
+
+
+def test_compact_wrapper_takes_the_plain_version_on_the_cpu():
+    mask = torch.tensor([False, True, True, False, True])
+    before = dict(tcompact.kernels.launch_counts)
+    got = tcompact.compact_indices(mask, 4, 5)
+    assert got.tolist() == [1, 2, 4, 5]
+    assert dict(tcompact.kernels.launch_counts) == before
+
+
+def test_compact_scratch_generations(monkeypatch):
+    """Each call on one device and stream gets the same scratch and the
+    next generation; a mask with more tiles than the scratch has words, or
+    a generation counter at its end, gets a new zeroed scratch that starts
+    again at generation 1."""
+    monkeypatch.setattr(tcompact, "_scratch", {})
+    dev = torch.device("cpu")
+    first, gen = tcompact._scratch_for(dev, 245)
+    assert gen == 1 and first.dtype == torch.int64
+    assert first.shape[0] >= 246 and int(first.abs().sum()) == 0
+    again, gen = tcompact._scratch_for(dev, 3)
+    assert again is first and gen == 2
+    # More tiles than words: a larger scratch, zeroed, generation 1.
+    first.fill_(-1)
+    larger, gen = tcompact._scratch_for(dev, first.shape[0] + 5)
+    assert larger is not first and gen == 1
+    assert larger.shape[0] >= first.shape[0] + 6
+    assert int(larger.abs().sum()) == 0
+    # The counter never reaches the 30 bits a status word holds.
+    tcompact._scratch[(dev.index, 0)][1] = tcompact._GENERATIONS - 2
+    same, gen = tcompact._scratch_for(dev, 3)
+    assert same is larger and gen == tcompact._GENERATIONS - 1
+    fresh, gen = tcompact._scratch_for(dev, 3)
+    assert fresh is not larger and gen == 1
+    assert len(tcompact._scratch) == 1
+
+
+def test_compact_tile_matches_the_kernel_source():
+    """The wrapper sizes the scratch by the kernel's tile."""
+    src = (tcompact.kernels.CSRC / "compact.cu").read_text()
+    assert "constexpr int kTileBytes = 16;" in src
+    assert "constexpr int kTile = amc::kThreads * kTileBytes;" in src
+    common = (tcompact.kernels.CSRC / "common.cuh").read_text()
+    assert "constexpr int kThreads = 256;" in common
+    assert tcompact.TILE == 256 * 16

@@ -28,7 +28,7 @@ import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch import kernels
 from argon_monte_carlo_tpu_torch.engine import build_grids
 from argon_monte_carlo_tpu_torch.init import init_pore
-from argon_monte_carlo_tpu_torch.ops import collide
+from argon_monte_carlo_tpu_torch.ops import collide, compact
 from argon_monte_carlo_tpu_torch.ops import measure as measure_ops
 from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
 from argon_monte_carlo_tpu_torch.state import Measurements
@@ -79,13 +79,22 @@ def test_bin_and_table_kernel(device, capacity):
         assert int(got[3]) > 0
 
 
-def test_partner_sweep_kernel(device):
-    cfg, _, state, grid = setup(device)
+@pytest.mark.parametrize("capacity", [None, 8, 40])
+def test_partner_sweep_kernel(device, capacity):
+    """K9 at the auto capacity, at 8 (cells overflow) and at 40 (above a
+    warp's 32 slots: the kernel's chunked staging loop)."""
+    cfg, _, state, grid = setup(device, capacity)
     r = cfg.physics.collision_range
-    _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
+    _, table, pslot, overflow = collide.bin_and_table(state.pos, grid)
+    before = kernels.launch_counts["partner_sweep"]
     got = collide.partner_sweep(state.pos, table, pslot, grid, r)
     want = collide.partner_sweep_plain(state.pos, table, pslot, grid, r)
+    assert kernels.launch_counts["partner_sweep"] == before + 1
     assert torch.equal(got, want) and int((got >= 0).sum()) > 0
+    if capacity == 8:
+        # Particles beyond a full cell's row: no slot, no partner.
+        assert int(overflow) > 0
+        assert (got[pslot >= grid.num_cells * grid.capacity] == -1).all()
 
 
 def test_resolve_pairs_kernel(device):
@@ -153,9 +162,32 @@ def plist(pairs_case):
 
 
 def test_compact_kernel(pairs_case):
+    """K6 at three densities, at lengths around its tile with every, no and
+    some entries set, on an unaligned view and over 100 calls in a row."""
     before = kernels.launch_counts["compact"]
     chip_smoke.check_compact(pairs_case, "", 0)
-    assert kernels.launch_counts["compact"] > before
+    assert kernels.launch_counts["compact"] > before + 100
+
+
+def test_compact_kernel_on_a_second_stream(device):
+    """A second stream of the device compacts with a scratch of its own, so
+    calls interleaved on two streams are both right."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    u = torch.rand(300_000, generator=gen, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    outs = []
+    for k in range(20):
+        mask = u[: 1000 + 14_000 * k] < 0.05 * (1 + k % 5)
+        outs.append((mask, compact.compact_indices(mask, 4096, u.shape[0])))
+        with torch.cuda.stream(side):
+            outs.append((mask, compact.compact_indices(mask, 512,
+                                                       u.shape[0])))
+    torch.cuda.synchronize()
+    assert len(compact._scratch) >= 2
+    for mask, out in outs:
+        assert torch.equal(out, compact.compact_indices_plain(
+            mask, out.shape[0], u.shape[0]))
 
 
 def test_rebuild_sweep_kernel(pairs_case):
