@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from . import kernels
 from .config import cell_capacity_for, cell_size_for, pairs_cell_capacity_for
 from .ops import collide
 from .ops import measure as measure_ops
@@ -302,8 +303,11 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
         research_dropped = (torch.sum(dirty, dtype=torch.int32)
                             - torch.sum(dirty_idx < n, dtype=torch.int32))
         plist = dataclasses.replace(plist, hot=hot)
+        # In place: the list is this step's alone (``hot`` was made above,
+        # the rest is the Simulation's carried list, replaced by the one
+        # returned here).
         plist, research_lost, latent_per = pairs_ops.research_dirty(
-            state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
+            state, plist, dirty_idx, bump, grid, pcfg, cr, dt, in_place=True)
         force = research_lost | (research_dropped > 0)
         plist = dataclasses.replace(
             plist,
@@ -363,6 +367,7 @@ class Simulation:
         self.workload = workload
         self.cfg = workload.cfg
         self.device = torch.device(device)
+        kernels.require_float32(self.cfg.engine.dtype, [self.device])
         self.host_grid, self.grid = build_grids(workload, self.device)
         self._pairs_mode = self.cfg.engine.narrowphase == "pairs"
         self._plist = None

@@ -50,13 +50,13 @@ _SIGNATURES = {
     "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P],
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 12,
-    "compact": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "compact": [_P, _I, _I, _I, _P, _P, _P],
     "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
-    "rebuild_sweep": [_P] * 6 + [_I] * 4 + [_P] * 5,
+    "rebuild_sweep": [_P] * 7 + [_I] * 6 + [_P] * 5,
     "test_and_resolve": [_P] * 8 + [_I, _I, _I, _F, _F] + [_P] * 16,
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                         _F] + [_P] * 18,
+                         _F] + [_P] * 13,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 12,
     "allpairs_partner": [_P, _I, _F, _P, _P],
     "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 6,
@@ -173,6 +173,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
     launch_counts[name] += 1
+
+
+def require_float32(dtype: str, devices) -> None:
+    """Raise unless a run of working dtype ``dtype`` ("float32" or
+    "float64") can use ``devices``: every kernel takes float32 only, so
+    float64, the dtype of the CPU parity tests, runs on the CPU alone.
+    Looks at the devices' types only and needs no card."""
+    if dtype != "float32" and any(torch.device(d).type == "cuda"
+                                  for d in devices):
+        raise ValueError(
+            f"dtype={dtype!r} on a CUDA device: the CUDA kernels take "
+            f"float32 only; float64 is the CPU parity dtype (pass "
+            f"device='cpu', or EngineConfig(dtype='float32'))")
 
 
 def use_plain(t: torch.Tensor) -> bool:

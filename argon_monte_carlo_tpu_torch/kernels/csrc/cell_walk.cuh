@@ -30,8 +30,13 @@
 // row k + 1 of group 4.  A position is fetched from global memory
 // 9 (len + 2) / len times a call instead of once for every pair test.
 //
-// K9 (partner_sweep.cu) walks all nine groups; the pairs rebuild's sweep
-// (half shell: columns 13-26, i.e. groups 4 to 8) can stage from group_lo = 4.
+// K9 (partner_sweep.cu) walks all nine groups.  K1 (rebuild_sweep.cu), the
+// pairs rebuild's sweep, reads the half shell, columns 13-26: that is rows
+// k + 1 and k + 2 of group 4 (columns 13 and 14; column 12, row k, is outside
+// the shell) and rows k, k + 1, k + 2 of groups 5 to 8.  It stages from
+// kGroupLo = 4 with kHalfShell set, which leaves out the one staged row that
+// only column 12 would read (row 0 of group 4), and keeps each candidate's
+// reach in a second plane beside its position (kReach).
 #pragma once
 
 #include "common.cuh"
@@ -58,34 +63,38 @@ struct RunIndex {
   int start[kGroups][kRunRows + 1];        // prefix of count inside a group
 };
 
-// Bytes of the candidate plane for a table of capacity cap.
-inline size_t run_stage_bytes(int cap) {
-  return sizeof(float4) * kStagedRows * static_cast<size_t>(cap);
+// Bytes of the candidate plane for a table of capacity cap, groups
+// group_lo..8 staged.
+inline size_t run_stage_bytes(int cap, int group_lo = 0) {
+  return sizeof(float4) * (kGroups - group_lo) * kRunRows *
+         static_cast<size_t>(cap);
 }
 
-// First candidate slot of group g in the candidate plane.
-__device__ __forceinline__ int group_base(int g, int cap) {
-  return g * kRunRows * cap;
+// First candidate slot of group g in a candidate plane that begins with
+// group group_lo.
+__device__ __forceinline__ int group_base(int g, int cap, int group_lo = 0) {
+  return (g - group_lo) * kRunRows * cap;
 }
 
 // Table row of staged row t = g * kRunRows + r (see the head of this file);
-// the empty dummy row num_cells below group_lo and beyond a short run.
+// the empty dummy row num_cells beyond a short run and, for the half shell,
+// for row 0 of group 4.
+template <bool kHalfShell>
 __device__ __forceinline__ int staged_row(const int* __restrict__ neighbors,
                                           int c0, int len, int num_cells,
-                                          int group_lo, int t) {
+                                          int t) {
   int g = t / kRunRows;
   int r = t % kRunRows;
-  if (g < group_lo || r >= len + 2) return num_cells;
+  if (r >= len + 2 || (kHalfShell && g == 4 && r == 0)) return num_cells;
   int k = min(max(r - 1, 0), len - 1);
   return neighbors[static_cast<long long>(c0 + k) * 27 + 3 * g + (r - k)];
 }
 
-// Staged rows a warp takes: t = warp, warp + kRunCells, ...
-constexpr int kRowsAWarp = (kStagedRows + kRunCells - 1) / kRunCells;
-
 // Stage the neighbourhood of the run [c0, c0 + len), 1 <= len <= kRunCells,
-// groups group_lo..8.  Every thread of a block of kWalkThreads threads must
-// call it; it ends with a __syncthreads().  cand holds run_stage_bytes(cap).
+// groups kGroupLo..8.  Every thread of a block of kWalkThreads threads must
+// call it; it ends with a __syncthreads().  cand holds
+// run_stage_bytes(cap, kGroupLo); with kReach, cand_reach holds a float for
+// each of its slots and receives reach[j] beside candidate j.
 //
 // Three rounds of global loads, each started for all of a warp's rows before
 // any is waited for: the row ids, the rows' table entries (a lane a slot),
@@ -93,37 +102,49 @@ constexpr int kRowsAWarp = (kStagedRows + kRunCells - 1) / kRunCells;
 // out three memory latencies on its own, 12 rows a warp one after another:
 // K9 at 1M particles on an H100 read 0.76 ms that way and 0.51 ms this way.
 // A capacity above 32 takes the plain loop over chunks of 32 slots instead.
+template <int kGroupLo, bool kHalfShell, bool kReach>
 __device__ __forceinline__ void stage_run(
-    const float* __restrict__ pos, const int* __restrict__ table,
-    const int* __restrict__ neighbors, int c0, int len, int n, int num_cells,
-    int cap, int group_lo, RunIndex& index, float4* __restrict__ cand) {
+    const float* __restrict__ pos, const float* __restrict__ reach,
+    const int* __restrict__ table, const int* __restrict__ neighbors, int c0,
+    int len, int n, int num_cells, int cap, RunIndex& index,
+    float4* __restrict__ cand, float* __restrict__ cand_reach) {
   const unsigned kFull = 0xffffffffu;
+  // Staged rows kFirst..kStagedRows - 1; warp w takes kFirst + w,
+  // kFirst + w + kRunCells, ...
+  constexpr int kFirst = kGroupLo * kRunRows;
+  constexpr int kRowsAWarp =
+      (kStagedRows - kFirst + kRunCells - 1) / kRunCells;
   int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;
   unsigned below = (1u << lane) - 1u;
   if (threadIdx.x < kStagedRows) {
     index.row[threadIdx.x] =
-        staged_row(neighbors, c0, len, num_cells, group_lo, threadIdx.x);
+        threadIdx.x < kFirst
+            ? num_cells
+            : staged_row<kHalfShell>(neighbors, c0, len, num_cells,
+                                     threadIdx.x);
   }
   __syncthreads();
   int j[kRowsAWarp];  // cap <= 32: the entry of slot `lane` of each row
+  float x[kRowsAWarp], y[kRowsAWarp], z[kRowsAWarp], rr[kRowsAWarp];
   if (cap <= 32) {
 #pragma unroll
     for (int u = 0; u < kRowsAWarp; ++u) {
-      int t = warp + u * kRunCells;
+      int t = kFirst + warp + u * kRunCells;
       j[u] = n;
       if (t < kStagedRows && lane < cap && index.row[t] != num_cells) {
-        j[u] = table[static_cast<long long>(index.row[t]) * cap + lane];
+        long long slot = static_cast<long long>(index.row[t]) * cap + lane;
+        j[u] = table[slot];
       }
     }
 #pragma unroll
     for (int u = 0; u < kRowsAWarp; ++u) {
-      int t = warp + u * kRunCells;
+      int t = kFirst + warp + u * kRunCells;
       unsigned listed = __ballot_sync(kFull, j[u] < n);
       if (t < kStagedRows && lane == 0) index.count[t] = __popc(listed);
     }
   } else {
-    for (int t = warp; t < kStagedRows; t += kRunCells) {
+    for (int t = kFirst + warp; t < kStagedRows; t += kRunCells) {
       int count = 0;
       if (index.row[t] != num_cells) {
         const int* row = table + static_cast<long long>(index.row[t]) * cap;
@@ -141,7 +162,7 @@ __device__ __forceinline__ void stage_run(
     int run = 0;
     for (int r = 0; r < kRunRows; ++r) {
       index.start[g][r] = run;
-      run += index.count[g * kRunRows + r];
+      run += g < kGroupLo ? 0 : index.count[g * kRunRows + r];
     }
     index.start[g][kRunRows] = run;
   }
@@ -149,40 +170,42 @@ __device__ __forceinline__ void stage_run(
   // Each listed particle's position, fetched once, packed behind the rows
   // before it in its group.
   if (cap <= 32) {
-    float x[kRowsAWarp], y[kRowsAWarp], z[kRowsAWarp];
 #pragma unroll
     for (int u = 0; u < kRowsAWarp; ++u) {
       if (j[u] < n) {
         x[u] = pos[3 * j[u]];
         y[u] = pos[3 * j[u] + 1];
         z[u] = pos[3 * j[u] + 2];
+        if (kReach) rr[u] = reach[j[u]];
       }
     }
 #pragma unroll
     for (int u = 0; u < kRowsAWarp; ++u) {
-      int t = min(warp + u * kRunCells, kStagedRows - 1);
+      int t = min(kFirst + warp + u * kRunCells, kStagedRows - 1);
       unsigned listed = __ballot_sync(kFull, j[u] < n);
       if (j[u] < n) {
-        int p = group_base(t / kRunRows, cap) +
+        int p = group_base(t / kRunRows, cap, kGroupLo) +
                 index.start[t / kRunRows][t % kRunRows] +
                 __popc(listed & below);
         cand[p] = make_float4(x[u], y[u], z[u], __int_as_float(j[u]));
+        if (kReach) cand_reach[p] = rr[u];
       }
     }
   } else {
-    for (int t = warp; t < kStagedRows; t += kRunCells) {
+    for (int t = kFirst + warp; t < kStagedRows; t += kRunCells) {
       if (index.count[t] == 0) continue;
-      const int* row = table + static_cast<long long>(index.row[t]) * cap;
-      int slot = group_base(t / kRunRows, cap) +
+      long long first = static_cast<long long>(index.row[t]) * cap;
+      int slot = group_base(t / kRunRows, cap, kGroupLo) +
                  index.start[t / kRunRows][t % kRunRows];
       for (int s0 = 0; s0 < cap; s0 += 32) {
         int s = s0 + lane;
-        int jj = s < cap ? row[s] : n;
+        int jj = s < cap ? table[first + s] : n;
         unsigned listed = __ballot_sync(kFull, jj < n);
         if (jj < n) {
-          cand[slot + __popc(listed & below)] = make_float4(
-              pos[3 * jj], pos[3 * jj + 1], pos[3 * jj + 2],
-              __int_as_float(jj));
+          int p = slot + __popc(listed & below);
+          cand[p] = make_float4(pos[3 * jj], pos[3 * jj + 1],
+                                pos[3 * jj + 2], __int_as_float(jj));
+          if (kReach) cand_reach[p] = reach[jj];
         }
         slot += __popc(listed);
       }

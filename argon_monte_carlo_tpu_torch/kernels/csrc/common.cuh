@@ -82,8 +82,9 @@ __device__ __forceinline__ int assign_cell(float x, float y, float z,
 void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
                       int* block_offsets, int* total, cudaStream_t stream);
 
-// Multi-pass stream compaction (compact.cu) for the kernels that compact on
-// the way, K3 and K4 (K6 itself is a single pass there): the ascending indices of the set entries of mask[0, len) go to
+// Multi-pass stream compaction (compact.cu) for a kernel that compacts on
+// the way, K3 (K6 itself is a single pass there; K4 scans its lanes' counts
+// instead): the ascending indices of the set entries of mask[0, len) go to
 // out[0, size), truncated to size and padded with fill; *total receives
 // the number of set entries.  Scratch: block_vals and block_offsets hold
 // blocks_for(len) ints each.

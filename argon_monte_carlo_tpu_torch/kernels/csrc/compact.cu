@@ -5,9 +5,8 @@
 // TPU: the ascending indices of a mask's set entries, truncated to size,
 // padded with fill.  The pairs engine compacts with it twice a step over
 // all particles (engine.py:398-419), the z-slab engine once a slab a step
-// (the free lanes of the merge); K3 (colliding entries) and K4 (appended
-// candidates) compact on the way inside their own launches with
-// compact_launch below.
+// (the free lanes of the merge); K3 (colliding entries) compacts on the way
+// inside its own launches with compact_launch below.
 //
 // K5 replaces argon_monte_carlo_tpu/ops/pairs.py rebuild_finish (:208-277):
 // the (N, top_k) rebuild candidates become the pair list (a, b), the
@@ -28,14 +27,21 @@
 // looks back over the earlier tiles' words (32 at a time) until it meets an
 // inclusive prefix, publishes its own inclusive prefix, and every thread
 // writes its indices at prefix + rank below size.  The block of the last
-// tile knows the grand total: it pads [min(total, size), size) with fill and
-// resets the ticket, so there is no fill launch and no memset.  A status
-// word carries the call's generation beside its flag and value, so words
-// left by earlier calls read as "not ready" and the scratch is never
-// cleared; it belongs to one stream (ops/compact.py keeps one a stream).
+// tile knows the grand total: it pads [min(total, size), size) with fill, so
+// there is no fill launch and no memset.
+//
+// The scratch (ticket, count of finished blocks, a status word a tile) is
+// all zero between calls, and the kernel itself leaves it so: a block that
+// is done with the status words adds one to the finished count, and the
+// block that makes it ntiles -- every other block has by then read and
+// written its last status word -- clears the words of this call, the ticket
+// and the count.  Nothing about a call is passed in from the host (no
+// generation number), so a launch recorded in a CUDA graph replays
+// correctly any number of times; a zero word reads as "not ready".  The
+// scratch belongs to one stream (ops/compact.py keeps one a stream).
 // Integer only: the same output in every run.
 //
-// Design, the multi-pass form (K5; compact_launch for K3 and K4;
+// Design, the multi-pass form (K5; compact_launch for K3;
 // mask_scan_launch for K12): per block, a count (__syncthreads_count for a
 // mask, a block scan for K5's per-particle entry counts); one block scans
 // the block totals (Hillis-Steele over 1024 threads, each owning a
@@ -187,25 +193,23 @@ __global__ void emit_finish_kernel(const int* __restrict__ totals, int m_cap,
 
 constexpr int kTileBytes = 16;  // mask bytes a thread, one vector load
 constexpr int kTile = amc::kThreads * kTileBytes;
-// Flags of a tile's status word.  The word is
-// (generation << 34) | (flag << 32) | value: one 64-bit store publishes all.
+// Flags of a tile's status word.  The word is (flag << 32) | value: one
+// 64-bit store publishes both; flag 0 (the cleared word) is "not ready".
 constexpr unsigned kAggregate = 1u;  // value = the tile's own total
 constexpr unsigned kInclusive = 2u;  // value = the total up to and with it
 
-__device__ __forceinline__ unsigned long long status_word(unsigned generation,
-                                                          unsigned flag,
+__device__ __forceinline__ unsigned long long status_word(unsigned flag,
                                                           int value) {
-  return (static_cast<unsigned long long>((generation << 2) | flag) << 32) |
+  return (static_cast<unsigned long long>(flag) << 32) |
          static_cast<unsigned>(value);
 }
 
 // The number of set entries in the tiles before `tile` (> 0).  All 32 lanes
 // of warp 0 call it.  Lane l reads the word of tile base - l and waits
-// until it carries this call's generation; the window moves back by 32
-// until it holds an inclusive prefix.
+// until it is published; the window moves back by 32 until it holds an
+// inclusive prefix.
 __device__ __forceinline__ int look_back(
-    const volatile unsigned long long* status, int tile,
-    unsigned generation) {
+    const volatile unsigned long long* status, int tile) {
   const unsigned kFull = 0xffffffffu;
   int lane = threadIdx.x;
   int prefix = 0;
@@ -218,8 +222,8 @@ __device__ __forceinline__ int look_back(
       unsigned long long word;
       do {
         word = status[t];
-      } while (static_cast<unsigned>(word >> 34) != generation);
-      flag = static_cast<unsigned>(word >> 32) & 3u;
+      } while ((word >> 32) == 0);
+      flag = static_cast<unsigned>(word >> 32);
       value = static_cast<int>(static_cast<unsigned>(word));
     }
     unsigned inclusive = __ballot_sync(kFull, flag == kInclusive);
@@ -231,16 +235,18 @@ __device__ __forceinline__ int look_back(
   }
 }
 
-// scratch[0] is the ticket counter (zero between calls), scratch[1 + t] the
-// status word of tile t.  kVector: mask is 16-byte aligned.
+// scratch[0] holds the ticket counter (low half) and the count of finished
+// blocks (high half), scratch[1 + t] the status word of tile t; all zero
+// between calls.  kVector: mask is 16-byte aligned.
 template <bool kVector>
 __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
     const uint8_t* __restrict__ mask, int len, int ntiles, int size, int fill,
-    unsigned generation, unsigned long long* __restrict__ scratch,
-    int* __restrict__ out) {
+    unsigned long long* __restrict__ scratch, int* __restrict__ out) {
   __shared__ int s_tile;
   __shared__ int s_prefix;
+  __shared__ bool s_last;
   unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  unsigned* finished = ticket + 1;
   volatile unsigned long long* status = scratch + 1;
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
   __syncthreads();
@@ -266,13 +272,18 @@ __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
     int prefix = 0;
     if (tile > 0) {
       if (threadIdx.x == 0) {
-        status[tile] = status_word(generation, kAggregate, tile_total);
+        status[tile] = status_word(kAggregate, tile_total);
       }
-      prefix = look_back(status, tile, generation);
+      prefix = look_back(status, tile);
     }
     if (threadIdx.x == 0) {
-      status[tile] = status_word(generation, kInclusive, prefix + tile_total);
+      status[tile] = status_word(kInclusive, prefix + tile_total);
       s_prefix = prefix;
+      // This block touches no status word from here on.  The fence orders
+      // its reads and its two stores before the count, so the block that
+      // sees the count reach ntiles may clear every word.
+      __threadfence();
+      s_last = atomicAdd(finished, 1u) == static_cast<unsigned>(ntiles - 1);
     }
   }
   __syncthreads();
@@ -288,7 +299,12 @@ __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
          k += amc::kThreads) {
       out[k] = fill;
     }
-    if (threadIdx.x == 0) *ticket = 0u;
+  }
+  if (s_last) {
+    // Leave the scratch as this call found it: all zero.
+    __threadfence();
+    for (int t = threadIdx.x; t < ntiles; t += amc::kThreads) status[t] = 0ull;
+    if (threadIdx.x == 0) scratch[0] = 0ull;
   }
 }
 
@@ -324,20 +340,20 @@ void compact_launch(const uint8_t* mask, int len, int size, int fill,
 }  // namespace amc
 
 // K6.  scratch holds 1 + ceil(len / 4096) 64-bit words, belongs to this
-// stream, was zero when it was allocated and is written by nothing else;
-// generation is in [1, 2^30) and larger than in any earlier call on this
-// scratch.  One launch.
+// stream, was zero when it was allocated and is written by nothing else
+// (the kernel zeroes what it wrote before it ends).  One launch, the same
+// arguments whenever the same tensors are compacted: safe to record in a
+// CUDA graph.
 AMC_EXPORT int amc_compact(const uint8_t* mask, int len, int size, int fill,
-                           int generation, int* out,
-                           unsigned long long* scratch, cudaStream_t stream) {
+                           int* out, unsigned long long* scratch,
+                           cudaStream_t stream) {
   int ntiles = max(amc::blocks_for(len, kTile), 1);
-  unsigned gen = static_cast<unsigned>(generation);
   if ((reinterpret_cast<uintptr_t>(mask) & 15u) == 0) {
     compact_single_pass_kernel<true><<<ntiles, amc::kThreads, 0, stream>>>(
-        mask, len, ntiles, size, fill, gen, scratch, out);
+        mask, len, ntiles, size, fill, scratch, out);
   } else {
     compact_single_pass_kernel<false><<<ntiles, amc::kThreads, 0, stream>>>(
-        mask, len, ntiles, size, fill, gen, scratch, out);
+        mask, len, ntiles, size, fill, scratch, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,8 +72,8 @@ __launch_bounds__(amc::kWalkThreads) __global__ void partner_walk_kernel(
   bool work = mine && table[static_cast<long long>(cell) * cap] < n;
   if (!__syncthreads_or(work)) return;
 
-  amc::stage_run(pos, table, neighbors, c0, len, n, num_cells, cap, 0, index,
-                 cand);
+  amc::stage_run<0, false, false>(pos, nullptr, table, neighbors, c0, len, n,
+                                  num_cells, cap, index, cand, nullptr);
   if (!work) return;
 
   // The cell's own particles: staged row warp + 1 of group 4 (dz = dy = 0).

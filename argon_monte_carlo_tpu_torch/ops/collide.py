@@ -45,10 +45,11 @@ from . import fp
 from . import measure as measure_ops
 
 _NO_PARTNER = 1 << 30
-# Cells of one run of K9's cell walk (cell_walk.cuh kRunCells).
+# Cells of one run of the cell walk of K9 and K1 (cell_walk.cuh kRunCells).
 RUN_CELLS = 8
-# The walk's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 4 bytes
-# a slot of capacity, of the 227 KB a block can have.
+# K9's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 4 bytes a slot
+# of capacity, K1's 5 * (RUN_CELLS + 2) * 20 + RUN_CELLS * 4 * top_k (top_k
+# up to 16), of the 227 KB a block can have.
 _MAX_WALK_CAPACITY = 128
 
 
@@ -228,6 +229,19 @@ def run_rows(neighbors: np.ndarray, run_start: np.ndarray,
         rows[has, :, k + 1] = grouped[c0[has] + k, :, 1]
     runs = np.arange(c0.shape[0])
     rows[runs, :, length + 1] = grouped[c0 + length - 1, :, 2]
+    return rows
+
+
+def half_shell_rows(neighbors: np.ndarray, run_start: np.ndarray,
+                    run_cells: int = RUN_CELLS) -> np.ndarray:
+    """(R, 5, run_cells + 2) the table rows K1's walk stages: groups 4 to 8
+    of ``run_rows``, without row 0 of group 4 (neighbour column 12, which
+    the half shell, columns 13-26, leaves out; the kernel stages the empty
+    dummy row there).  Cell k of the run finds columns 13 and 14 at rows
+    k + 1 and k + 2 of the first group, and columns 15-26 at rows k, k + 1,
+    k + 2 of the other four."""
+    rows = run_rows(neighbors, run_start, run_cells)[:, 4:].copy()
+    rows[:, 0, 0] = neighbors.shape[0]
     return rows
 
 
@@ -635,8 +649,10 @@ def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
                   table: torch.Tensor, pslot: torch.Tensor,
                   grid: DeviceGrid, top_k: int):
     """K1 (see ``rebuild_sweep_plain``); CUDA kernel for CUDA tensors.
-    ``table`` and ``pslot`` come from ``bin_and_table`` on this grid (its
-    rows are filled from the front, which the kernel relies on)."""
+    The kernel walks the table by cells (``grid.run_start``), as K9 does:
+    ``table`` and ``pslot`` must come from ``bin_and_table`` on this grid,
+    so that a particle with a slot is listed in its cell's row, rows are
+    ascending and filled from the front, and the dummy row is empty."""
     if kernels.use_plain(pos):
         return rebuild_sweep_plain(pos, reach, table, pslot, grid, top_k)
     dev = pos.device
@@ -645,6 +661,11 @@ def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
     rows = grid.num_cells + 1
     if not 1 <= top_k <= 16:
         raise ValueError(f"top_k={top_k}: the kernel keeps 1 to 16")
+    if cap > _MAX_WALK_CAPACITY:
+        raise ValueError(f"cell capacity {cap}: the kernel stages a run's "
+                         f"half shell in shared memory, which holds "
+                         f"capacities up to {_MAX_WALK_CAPACITY}")
+    runs = grid.run_start.shape[0] - 1
     f32, i32 = torch.float32, torch.int32
     kernels.check(pos, "pos", f32, (n, 3), dev)
     kernels.check(reach, "reach", f32, (n,), dev)
@@ -653,6 +674,7 @@ def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
     kernels.check(grid.neighbors, "grid.neighbors", i32,
                   (grid.num_cells, 27), dev)
     kernels.check(grid.active_rank, "grid.active_rank", i32, (rows,), dev)
+    kernels.check(grid.run_start, "grid.run_start", i32, (runs + 1,), dev)
     pos0 = torch.empty((rows, cap, 3), dtype=f32, device=dev)
     reach0 = torch.empty((rows, cap), dtype=f32, device=dev)
     cands = torch.empty((n, top_k), dtype=i32, device=dev)
@@ -660,8 +682,9 @@ def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
     p = kernels.ptr
     kernels.launch(
         "rebuild_sweep", dev, p(pos), p(reach), p(table), p(pslot),
-        p(grid.neighbors), p(grid.active_rank), n, grid.num_cells, cap,
-        top_k, p(pos0), p(reach0), p(cands), p(unswept),
+        p(grid.neighbors), p(grid.active_rank), p(grid.run_start), n,
+        grid.num_cells, cap, top_k, runs, RUN_CELLS, p(pos0), p(reach0),
+        p(cands), p(unswept),
     )
     return cands, unswept, pos0, reach0
 

@@ -5,16 +5,20 @@ Port of ``argon_monte_carlo_tpu.ops.compact.compact_indices``
 (``kernels/csrc/compact.cu``) for a CUDA mask and runs the plain version
 ``compact_indices_plain`` for a CPU one.  The pairs engine compacts its
 per-step dirty and staged particles with it, the z-slab engine a slab's
-free lanes; K3 and K4 compact on the way inside their own kernels.
+free lanes; K3 compacts on the way inside its own kernels.
 
 The kernel is one launch: a single-pass scan whose tiles hand their
 totals on through a small status array.  That array is scratch the
-wrapper keeps, one tensor for each (device, stream) that ever compacted,
-grown on demand and never cleared: every call passes a generation number
-larger than the last, and a status word of an earlier generation reads as
-"not written yet".  The scratch assumes that the calls sharing it run one
-after another, which holds on one stream; work on a second stream of the
-same device gets a scratch of its own, so it is safe too.
+wrapper keeps, one zeroed tensor for each (device, stream) that ever
+compacted, grown on demand; the kernel leaves it all zero when it ends, so
+the host passes nothing that changes from call to call and a launch
+recorded in a CUDA graph replays correctly.  A scratch that a longer mask
+outgrows is replaced but never freed (``_retired`` keeps it), so a graph
+that recorded its address goes on replaying into memory nobody else is
+given.  The scratch assumes that the
+calls sharing it run one after another, which holds on one stream; work on
+a second stream of the same device gets a scratch of its own, so it is
+safe too.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ from .. import kernels
 
 # Mask entries a block of the kernel takes (compact.cu kTile).
 TILE = 4096
-# A status word holds 30 bits of generation.
-_GENERATIONS = 1 << 30
-# (device index, stream handle) -> [scratch (int64), last generation].
+# (device index, stream handle) -> scratch (int64, zero between calls).
 _scratch: dict = {}
+# Scratches that a larger one replaced: kept for the life of the process,
+# because a captured launch may still hold their address.
+_retired: list = []
 
 
 def compact_indices_plain(mask: torch.Tensor, size: int,
@@ -43,22 +48,24 @@ def compact_indices_plain(mask: torch.Tensor, size: int,
     return out
 
 
-def _scratch_for(dev: torch.device, tiles: int):
-    """The (scratch, generation) of this call on ``dev``'s current stream:
-    1 + ``tiles`` zero-initialised 64-bit words (the ticket, a status word
-    a tile) and the next generation.  A larger mask, or a generation
-    counter about to wrap, takes a new zeroed tensor."""
+def _scratch_for(dev: torch.device, tiles: int) -> torch.Tensor:
+    """The scratch of a call on ``dev``'s current stream: at least
+    1 + ``tiles`` 64-bit words (ticket and finished count, a status word a
+    tile), zero when allocated and zero again after every call.  A mask
+    with more tiles than the scratch has words takes a new, larger zeroed
+    tensor; the old one is retired, not freed, since a captured launch may
+    replay into it (it is all zero between calls, so such a replay stays
+    right)."""
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
     key = (dev.index, stream)
-    entry = _scratch.get(key)
-    if (entry is None or entry[0].shape[0] < tiles + 1
-            or entry[1] + 1 >= _GENERATIONS):
-        entry = _scratch[key] = [
-            torch.zeros(max(2 * (tiles + 1), 1024), dtype=torch.int64,
-                        device=dev), 0]
-    entry[1] += 1
-    return entry
+    scratch = _scratch.get(key)
+    if scratch is None or scratch.shape[0] < tiles + 1:
+        if scratch is not None:
+            _retired.append(scratch)
+        scratch = _scratch[key] = torch.zeros(
+            max(2 * (tiles + 1), 1024), dtype=torch.int64, device=dev)
+    return scratch
 
 
 def compact_indices(mask: torch.Tensor, size: int,
@@ -67,15 +74,24 @@ def compact_indices(mask: torch.Tensor, size: int,
     launch, no allocation but the output.  Its scratch is kept for each
     stream of each device (see the module's docstring), so consecutive
     calls on a stream, of any lengths, and calls on different streams are
-    both right."""
+    both right.
+
+    Under a CUDA graph: the scratch is allocated with ``torch.zeros`` at the
+    first call on a stream, which a capture would record into the graph's
+    own memory pool.  Make one call on the capturing stream, with a mask at
+    least as long, before the capture begins; the captured launch then
+    reuses that scratch and replays correctly any number of times, also
+    after later calls on the stream, of any length, outside the graph: a
+    scratch is never freed, and a call that outgrows it takes a new one and
+    leaves the old one to the graph."""
     if kernels.use_plain(mask):
         return compact_indices_plain(mask, size, fill_value)
     dev = mask.device
     length = mask.shape[0]
     kernels.check(mask, "mask", torch.bool, (length,), dev)
     out = torch.empty(size, dtype=torch.int32, device=dev)
-    scratch, generation = _scratch_for(dev, -(-length // TILE))
+    scratch = _scratch_for(dev, -(-length // TILE))
     p = kernels.ptr
     kernels.launch("compact", dev, p(mask), length, size, fill_value,
-                   generation, p(out), p(scratch))
+                   p(out), p(scratch))
     return out

@@ -417,9 +417,14 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
 def research_dirty_plain(state: ParticleState, plist: PairList,
                          dirty_idx: torch.Tensor, bump: torch.Tensor,
                          grid: collide.DeviceGrid, pcfg: PairConfig,
-                         cr: float, dt: float):
+                         cr: float, dt: float, in_place: bool = False):
     """Plain version of K4.  Returns (plist, lost () bool, latent_per (E,)
     int32).
+
+    With ``in_place`` the list's ``reach0``, ``hot``, ``a`` and ``b`` are
+    updated where they are and returned in the new list: the same list as
+    the copying form gives, without four whole-plane copies, for a caller
+    that does not read the old list again.
 
     ``dirty_idx`` (E,) lists particles, n = padding.  First every
     speed-changed (``bump``) listed particle's stored reach grows in place
@@ -452,13 +457,13 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     # In-place reach bumps, all of them before any search.
     slot = plist.pslot0[safe].long()
     bump_i = valid & bump[safe] & (slot < grid.num_cells * cap)
-    reach0 = plist.reach0.clone()
+    reach0 = plist.reach0 if in_place else plist.reach0.clone()
     flat = reach0.view(-1)
     grown = flat[slot[bump_i]] + (reach_i[bump_i] - 0.5 * cr)
     flat[slot[bump_i]] = torch.clamp(grown, max=max_reach)
     newly = torch.zeros_like(valid)
     newly[bump_i] = grown > max_reach
-    hot = plist.hot.clone()
+    hot = plist.hot if in_place else plist.hot.clone()
     hot[safe[valid & (clipped_i | newly)]] = True
 
     # Search the 27 neighbour rows of the current cell.
@@ -492,7 +497,8 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     lane = torch.arange(pcfg.append_capacity, dtype=torch.int32, device=dev)
     write_pos = plist.cursor + lane
     in_cap = (write_pos < m_cap) & (lane < n_new)
-    a, b = plist.a.clone(), plist.b.clone()
+    a, b = ((plist.a, plist.b) if in_place
+            else (plist.a.clone(), plist.b.clone()))
     a[write_pos[in_cap].long()] = new_a[in_cap].to(torch.int32)
     b[write_pos[in_cap].long()] = new_b[in_cap].to(torch.int32)
     cap_dropped = torch.sum((lane < n_new) & ~in_cap, dtype=torch.int32)
@@ -507,14 +513,17 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
 def research_dirty(state: ParticleState, plist: PairList,
                    dirty_idx: torch.Tensor, bump: torch.Tensor,
                    grid: collide.DeviceGrid, pcfg: PairConfig, cr: float,
-                   dt: float):
-    """K4 (see ``research_dirty_plain``); CUDA kernels for CUDA tensors:
-    the bumps in one launch and the search in the next, so every bump
-    lands before any search reads ``reach0``."""
+                   dt: float, in_place: bool = False):
+    """K4 (see ``research_dirty_plain``); CUDA kernels for CUDA tensors,
+    three launches: the bumps, the search (a warp a dirty lane) and the
+    append, so every bump lands before any search reads ``reach0``.  The
+    kernels update ``reach0``, ``hot``, ``a`` and ``b`` where they are:
+    with ``in_place`` those are the list's own tensors (the step path:
+    nothing reads the old list again), otherwise copies of them."""
     pos = state.pos
     if kernels.use_plain(pos):
         return research_dirty_plain(state, plist, dirty_idx, bump, grid,
-                                    pcfg, cr, dt)
+                                    pcfg, cr, dt, in_place=in_place)
     dev = pos.device
     n = pos.shape[0]
     e = dirty_idx.shape[0]
@@ -543,19 +552,14 @@ def research_dirty(state: ParticleState, plist: PairList,
     ]
     for t, name, dt_, shape in checks:
         kernels.check(t, name, dt_, shape, dev)
-    # In-place targets of the kernels: fresh copies, so inputs stay intact.
-    reach0 = plist.reach0.clone()
-    hot = plist.hot.clone()
-    a, b = plist.a.clone(), plist.b.clone()
-    outs = torch.empty(2, dtype=i32, device=dev)  # cursor, overflow
+    reach0, hot, a, b = plist.reach0, plist.hot, plist.a, plist.b
+    if not in_place:
+        reach0, hot, a, b = reach0.clone(), hot.clone(), a.clone(), b.clone()
+    # One allocation: cursor, overflow, latent_per (e), then the scratch,
+    # a word a lane (e) and the lanes' lists (e * rk).
+    ints = torch.empty(2 + e * (2 + rk), dtype=i32, device=dev)
+    latent_per = ints[2:2 + e]
     lost = torch.empty((), dtype=b8, device=dev)
-    latent_per = torch.empty(e, dtype=i32, device=dev)
-    cands = torch.empty((e, rk), dtype=i32, device=dev)
-    found = torch.empty((e, rk), dtype=b8, device=dev)
-    sel = torch.empty(pcfg.append_capacity, dtype=i32, device=dev)
-    nblocks = -(-(e * rk) // 256)
-    scratch = torch.empty((2, nblocks), dtype=i32, device=dev)
-    small = torch.empty(4, dtype=i32, device=dev)  # total, 3 counters
     max_reach = 0.5 * grid.cell_size
     p = kernels.ptr
     kernels.launch(
@@ -566,10 +570,9 @@ def research_dirty(state: ParticleState, plist: PairList,
         grid.num_cells, cap, rk, pcfg.append_capacity, m_cap, 0.5 * cr,
         dt * pcfg.rebuild_interval, max_reach, max_reach - 0.5 * cr, dt,
         cr * cr, p(plist.cursor), p(plist.overflow), p(reach0), p(hot), p(a),
-        p(b), p(outs[0]), p(outs[1]), p(lost), p(latent_per), p(cands),
-        p(found), p(sel), p(small[0]), p(scratch[0]), p(scratch[1]),
-        p(small[1:]),
+        p(b), p(ints[0]), p(ints[1]), p(lost), p(latent_per),
+        p(ints[2 + 2 * e:]), p(ints[2 + e:]),
     )
     plist = dataclasses.replace(plist, a=a, b=b, reach0=reach0, hot=hot,
-                                cursor=outs[0], overflow=outs[1])
+                                cursor=ints[0], overflow=ints[1])
     return plist, lost, latent_per

@@ -46,6 +46,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import cell_capacity_for, cell_size_for
 from ..engine import Workload
 from ..ops import collide
@@ -289,8 +290,12 @@ class ShardedSimulation:
             raise NotImplementedError(
                 "ShardedSimulation runs the pore workloads on the cell "
                 "grid (broadphase='cells')")
+        # The devices as named, before any of them is touched, then the
+        # ones taken by default (the visible CUDA devices).
+        kernels.require_float32(eng.dtype, devices or [])
         self.dtype = eng.torch_dtype
         self.devices = make_devices(n_shards, devices)
+        kernels.require_float32(eng.dtype, self.devices)
         args = (eng, cfg.physics, cfg.num_molecules, workload.fluid_volume)
         self.host_grid = collide.grid_for_pore(
             cfg.geometry, cell_size_for(*args), cell_capacity_for(*args))

@@ -15,8 +15,12 @@ exits non-zero without a result line):
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
    overflow; the pairs engine's K6, K1, K5, K3, K4 and K7's compacted
-   entry, K6 also at lengths around its tile, on an unaligned view and
-   over 100 calls in a row; K8, the fused drift/walls/recapture pass,
+   entry, K6 also at lengths around its tile, on an unaligned view, over
+   100 calls in a row and as one launch recorded in a CUDA graph and
+   replayed; K1 also with overflowing cells, a cut active list and rows
+   that saturate top_k; K4 in its copying and in-place forms, also with a
+   small append budget, a cursor near the list's end and lists that fill;
+   K8, the fused drift/walls/recapture pass,
    over 16 steps of the pairs slice) and of the 24,627-particle cube (K11, also at
    ~200k), with the kernel's, the plain version's and, where one exists,
    the library call's time beside the kernel's bound; K12 (band and index
@@ -46,7 +50,8 @@ exits non-zero without a result line):
 9. where the time goes in each slice: untraced step time (CUDA events),
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
-   sharded sweep at 1, 2 and 4 slabs.
+   sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
+   ``torch.nonzero``.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
@@ -499,6 +504,7 @@ def check_compact(case, tag: str, reps: int):
           f"stream with lengths {min(c[2] for c in calls)}-"
           f"{max(c[2] for c in calls)}: exact {tag}")
     shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
+    check_compact_graph(u, shared, tag)
     mask = u < 3e-3
     # The library call: torch.nonzero gives the same ascending indices
     # (without the truncation and padding), and syncs to size its output.
@@ -511,43 +517,120 @@ def check_compact(case, tag: str, reps: int):
         maybe_timed(lambda: torch.nonzero(mask), reps))
 
 
+def check_compact_graph(u: torch.Tensor, size: int, tag: str) -> None:
+    """K6 recorded in a CUDA graph and replayed three times, the mask
+    changed between replays: every replay equals the plain version (the
+    kernel takes nothing from the host that changes from call to call, and
+    leaves its scratch zeroed).  One call on the capturing stream before
+    the capture allocates that stream's scratch, as the wrapper's docstring
+    asks, so the capture records the launch and the output alone.  Between
+    the first and the second replay a call on the same stream with more
+    tiles than that scratch has words makes the wrapper take a larger one:
+    the recorded one must stay alive, and the replays after it stay right."""
+    n = u.shape[0]
+    static = torch.zeros(n, dtype=torch.bool, device=u.device)
+    side = torch.cuda.Stream(u.device)
+    side.wait_stream(torch.cuda.current_stream(u.device))
+    with torch.cuda.stream(side):
+        compact.compact_indices(static, size, n)
+    side.synchronize()
+    scratches = len(compact._scratch)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["compact"]
+    with torch.cuda.graph(graph, stream=side):
+        out = compact.compact_indices(static, size, n)
+    require(len(compact._scratch) == scratches,
+            "K6: the capture allocated a scratch")
+    require(kernels.launch_counts["compact"] == before + 1,
+            "K6: the capture recorded other than one launch")
+    key = (u.device.index, side.cuda_stream)
+    recorded = compact._scratch[key]
+    counts = []
+    for density in (2e-3, 0.4, 0.02):
+        if len(counts) == 1:
+            longer = compact.TILE * (recorded.shape[0] + 3)
+            big = torch.zeros(longer, dtype=torch.bool, device=u.device)
+            big[::1_000_003] = True
+            with torch.cuda.stream(side):
+                got = compact.compact_indices(big, 64, longer)
+            side.synchronize()
+            exact("K6 compact (a longer call between replays)", got,
+                  compact.compact_indices_plain(big, 64, longer))
+            require(compact._scratch[key] is not recorded
+                    and any(t is recorded for t in compact._retired),
+                    "K6: the recorded scratch was not kept")
+            require(int(recorded.abs().sum()) == 0,
+                    "K6: the recorded scratch is not zero between calls")
+            del big, got
+            torch.cuda.empty_cache()
+        static.copy_(u < density)
+        graph.replay()
+        torch.cuda.synchronize()
+        exact(f"K6 compact (graph replay, density {density})", out,
+              compact.compact_indices_plain(static, size, n))
+        counts.append(int(static.sum()))
+    print(f"K6 compact: one captured launch replayed 3 times with {counts} "
+          f"entries set at size {size}, a call that outgrows the recorded "
+          f"scratch in between: exact each time {tag}")
+
+
 def check_rebuild_sweep(case, tag: str, reps: int):
-    """K1 at the pairs capacity and at capacity 8 (cells spill); exact."""
+    """K1, exactly, in four cases: at the pairs capacity (timed); at
+    capacity 8 (cells spill, so some particles have no slot); with every
+    third cell taken off the active list (its particles are unswept); and
+    with every reach at its largest, half a cell (most emitters have more
+    hits than top_k keeps)."""
     pcfg = case.pcfg
+    max_reach = 0.5 * case.grid.cell_size
     reach, clipped = pairs_ops.reach_radii(
-        case.state.vel, case.cr, case.dt, pcfg.rebuild_interval,
-        0.5 * case.grid.cell_size)
+        case.state.vel, case.cr, case.dt, pcfg.rebuild_interval, max_reach)
     pos = case.state.pos
+    cfg8 = dataclasses.replace(case.cfg, engine=dataclasses.replace(
+        case.cfg.engine, cell_capacity=8))
+    grid8 = build_grids(amt.make_workload(cfg8), case.dev)[1]
+    rank = case.grid.active_rank.clone()
+    rank[::3] = -1
+    cut = dataclasses.replace(case.grid, active_rank=rank)
     timing = None
-    for capacity in (None, 8):
-        grid = case.grid
-        if capacity is not None:
-            cfg8 = dataclasses.replace(case.cfg, engine=dataclasses.replace(
-                case.cfg.engine, cell_capacity=capacity))
-            grid = build_grids(amt.make_workload(cfg8), case.dev)[1]
+    for label, grid, rch in (
+            ("pairs capacity", case.grid, reach),
+            ("cells overflow", grid8, reach),
+            ("a third of the cells inactive", cut, reach),
+            ("reach of half a cell", case.grid,
+             torch.full_like(reach, max_reach))):
         _, table, pslot, overflow = collide.bin_and_table(pos, grid)
-        args = (pos, reach, table, pslot, grid, pcfg.top_k)
+        args = (pos, rch, table, pslot, grid, pcfg.top_k)
         got = collide.rebuild_sweep(*args)
         want = collide.rebuild_sweep_plain(*args)
         for name, a, b in zip(("cands", "unswept", "pos0", "reach0"), got,
                               want):
-            exact(f"K1 {name} (capacity {grid.capacity})", a, b)
+            exact(f"K1 {name} ({label})", a, b)
         cands = got[0]
-        print(f"K1 rebuild_sweep capacity={grid.capacity}: exact; "
-              f"{int((cands >= 0).sum())} candidates, "
-              f"{int((cands[:, -1] >= 0).sum())} full rows, "
+        full = int((cands[:, -1] >= 0).sum())
+        print(f"K1 rebuild_sweep capacity={grid.capacity}, {label}: exact; "
+              f"{int((cands >= 0).sum())} candidates, {full} full rows, "
               f"{int(got[1].sum())} unswept, {int(overflow)} over capacity "
               f"{tag}")
-        if capacity is None:
+        if label == "pairs capacity":
             timing = (maybe_timed(lambda: collide.rebuild_sweep(*args), reps),
                       maybe_timed(lambda: collide.rebuild_sweep_plain(*args),
                                   min(reps, 3)))
-            io = tensor_bytes(pos, reach, table, pslot, grid.neighbors,
+            io = tensor_bytes(pos, rch, table, pslot, grid.neighbors,
                               grid.active_rank, got)
             tests = neighbor_slots(table, pslot, grid, case.n, slice(13, 27))
-        else:
+        elif label == "cells overflow":
             require(int(overflow) > 0, "K1: capacity 8 did not spill")
-    return result(0.0, *timing, io, PAIR_TEST_OPS * tests)
+        elif label == "a third of the cells inactive":
+            require(int(got[1].sum()) > case.n // 4,
+                    "K1: the cut active list left few particles unswept")
+        else:
+            require(full > case.n // 4, "K1: few rows saturate top_k")
+    r = result(0.0, *timing, io, PAIR_TEST_OPS * tests)
+    if reps > 0:
+        print(f"K1 rebuild_sweep: {r['ms']!r} ms a call (the particle-"
+              f"ordered first version: 3.51 ms), bound {r['bound_ms']!r} ms "
+              f"({r['bound_by']}) {tag}")
+    return r
 
 
 def check_emit_pairs(case, tag: str, reps: int):
@@ -636,11 +719,19 @@ def check_test_and_resolve(case, plist, tag: str, reps: int):
                    PAIR_TEST_OPS * plist.a.shape[0] + 70 * n), after)
 
 
+K4_FIELDS = ("a", "b", "cursor", "hot", "reach0", "overflow")
+
+
 def check_research_dirty(case, plist, state, tag: str, reps: int):
-    """K4 on a dirty set of research_capacity particles drawn from the
-    Generator, with the table-dropped particles and 8 particles sped up to
-    40 km/s (their reach clips), half of all particles bumped; also at
-    append_capacity 64 (coverage lost)."""
+    """K4, exactly, in its copying and its in-place form (the latter on
+    clones of the list's four updated tensors), on a dirty set of
+    research_capacity lanes drawn from the Generator -- every 41st lane the
+    fill value, the table-dropped particles among the rest, 8 particles
+    sped up to 40 km/s (their reach clips), half of all particles bumped --
+    in four cases: as configured (timed); at append_capacity 64 (entries
+    beyond the append budget are dropped); with the cursor 50 entries short
+    of the list's end (entries beyond the list are dropped); and against
+    planes whose every stored reach is half a cell (lists fill)."""
     n, dev, pcfg, grid = case.n, case.dev, case.pcfg, case.grid
     dropped = torch.nonzero(
         plist.pslot0 >= grid.num_cells * grid.capacity).flatten()[:64]
@@ -653,46 +744,117 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
     dirty_idx = torch.full((pcfg.research_capacity,), n, dtype=torch.int32,
                            device=dev)
     dirty_idx[:pick.numel()] = pick.to(torch.int32)
+    dirty_idx[::41] = n
+    live = int((dirty_idx < n).sum())
     bump = torch.rand(n, generator=case.gen, device=dev) < 0.5
+    m_cap = plist.a.shape[0]
+    cases = (
+        ("as configured", pcfg, plist),
+        ("append_capacity 64", dataclasses.replace(pcfg, append_capacity=64),
+         plist),
+        ("cursor 50 short of the end", pcfg, dataclasses.replace(
+            plist, cursor=torch.full_like(plist.cursor, m_cap - 50))),
+        ("stored reach of half a cell", pcfg, dataclasses.replace(
+            plist, reach0=torch.full_like(plist.reach0,
+                                          0.5 * grid.cell_size))),
+    )
+
+    def own(pl):
+        """``pl`` with clones of the tensors the in-place form updates."""
+        return dataclasses.replace(pl, a=pl.a.clone(), b=pl.b.clone(),
+                                   hot=pl.hot.clone(),
+                                   reach0=pl.reach0.clone())
+
     timing = None
-    for append in (pcfg.append_capacity, 64):
-        p = dataclasses.replace(pcfg, append_capacity=append)
-        args = (moved, plist, dirty_idx, bump, grid, p, case.cr, case.dt)
-        got, glost, glat = pairs_ops.research_dirty(*args)
+    for label, p, pl in cases:
+        args = (moved, pl, dirty_idx, bump, grid, p, case.cr, case.dt)
         want, wlost, wlat = pairs_ops.research_dirty_plain(*args)
-        for f in ("a", "b", "cursor", "hot", "reach0", "overflow"):
-            exact(f"K4 {f} (append_capacity {append})", getattr(got, f),
-                  getattr(want, f))
-        exact("K4 lost", glost, wlost)
-        exact("K4 latent_per", glat, wlat)
-        print(f"K4 research_dirty append_capacity={append}: exact; "
-              f"{pick.numel()} dirty ({dropped.numel()} table-dropped), "
-              f"appended={int(got.cursor) - int(plist.cursor)} "
+        mine, kept = own(pl), own(pl)
+        forms = (("copying", pairs_ops.research_dirty(*args)),
+                 ("in place", pairs_ops.research_dirty(
+                     moved, mine, *args[2:], in_place=True)))
+        for form, (got, glost, glat) in forms:
+            for f in K4_FIELDS:
+                exact(f"K4 {f} ({label}, {form})", getattr(got, f),
+                      getattr(want, f))
+            exact(f"K4 lost ({label}, {form})", glost, wlost)
+            exact(f"K4 latent_per ({label}, {form})", glat, wlat)
+        for f in ("a", "b", "hot", "reach0"):
+            require(getattr(got, f).data_ptr() == getattr(mine, f).data_ptr(),
+                    f"K4 in place: {f} is a copy")
+            exact(f"K4 {f} of the list given to the copying form ({label})",
+                  getattr(pl, f), getattr(kept, f))
+        appended = int(got.cursor) - int(pl.cursor)
+        rows = torch.bincount(got.a[int(pl.cursor):int(got.cursor)].long(),
+                              minlength=1)
+        print(f"K4 research_dirty {label}: exact in both forms; {live} dirty "
+              f"of {dirty_idx.numel()} lanes ({dropped.numel()} "
+              f"table-dropped), appended={appended} "
               f"hot={int(got.hot.sum())} latent={int(glat.sum())} "
-              f"overflow={int(got.overflow)} lost={bool(glost)} {tag}")
-        if append == 64:
-            require(bool(glost), "K4: append_capacity 64 lost nothing")
+              f"overflow={int(got.overflow)} lost={bool(glost)} "
+              f"longest row={int(rows.max())} {tag}")
+        if label == "as configured":
+            require(appended > 0, "K4: the configured case found nothing")
+            scratch = own(pl)
+
+            def reset():
+                # reach0 is all a repeated in-place call changes (hot, a and
+                # b are written again with the same values).
+                scratch.reach0.copy_(pl.reach0)
+
+            def step_form():
+                reset()
+                pairs_ops.research_dirty(moved, scratch, *args[2:],
+                                         in_place=True)
+
+            # The step path's form, each call on the list as the rebuild
+            # left it: timed with the copy that restores reach0, less that
+            # copy timed alone in the same way.  The call is host code
+            # around microseconds of device work, so it moves with the
+            # host: the median of three such pairs.
+            def net():
+                both, alone = timed_ms(step_form, reps), timed_ms(reset, reps)
+                return both - alone, alone
+
+            nets = sorted(net() for _ in range(3 if reps else 0))
+            in_place_ms, reset_ms = nets[1] if nets else (None, None)
+            timing = (
+                in_place_ms,
+                maybe_timed(lambda: pairs_ops.research_dirty_plain(*args),
+                            min(reps, 5)))
+            copying_ms = sorted(
+                maybe_timed(lambda: pairs_ops.research_dirty(*args), reps)
+                for _ in range(3 if reps else 0))
+            appended0 = appended
+        elif label == "stored reach of half a cell":
+            require(int(rows.max()) == p.research_top_k and bool(glost),
+                    "K4: no list filled")
         else:
-            timing = (maybe_timed(lambda: pairs_ops.research_dirty(*args),
-                                  reps),
-                      maybe_timed(lambda: pairs_ops.research_dirty_plain(
-                          *args), min(reps, 5)))
-            appended = int(got.cursor) - int(plist.cursor)
-    # What this dirty set needs: the bump mask and the bumped particles'
-    # slots and reach0; each dirty particle's index, pos, vel and slot; the
-    # slot planes (pos0, idx0, reach0: 20 bytes a slot) of the union of the
-    # dirty particles' 27 neighbour rows, each row once; the appended
-    # entries and latent counts.
+            require(bool(glost), f"K4: {label} lost nothing")
+    # What this dirty set needs: for each dirty particle its index, pos,
+    # vel, slot and bump flag in and its latent count out, and for the
+    # bumped ones among them reach0 read and written; the slot planes
+    # (pos0, idx0, reach0: 20 bytes a slot) of the union of the dirty
+    # particles' 27 neighbour rows, each row once; the appended entries.
+    # No whole-plane copy is counted: the step path's form makes none.
     cap = grid.capacity
-    live = dirty_idx[dirty_idx < n].long()
-    slot = plist.pslot0[live]
+    live_idx = dirty_idx[dirty_idx < n].long()
+    slot = plist.pslot0[live_idx]
     cells = (slot[slot < grid.num_cells * cap] // cap).long()
     rows = grid.neighbors[cells].long()
     occ = (plist.idx0 < n).sum(dim=1)
-    bumped = int(bump.sum())
-    io = (n + 8 * bumped + live.numel() * (4 + 12 + 12 + 4 + 4)
-          + torch.unique(rows).numel() * cap * 20 + 8 * appended)
-    return result(0.0, *timing, io, PAIR_TEST_OPS * int(occ[rows].sum()))
+    bumped = int(bump[live_idx].sum())
+    io = (8 * bumped + live_idx.numel() * (4 + 12 + 12 + 4 + 1 + 4)
+          + torch.unique(rows).numel() * cap * 20 + 8 * appended0)
+    r = result(0.0, *timing, io, PAIR_TEST_OPS * int(occ[rows].sum()))
+    if reps > 0:
+        print(f"K4 research_dirty: {r['ms']!r} ms a call in place (the "
+              f"median of {[t for t, _ in nets]!r}, each net of the copy "
+              f"that restores reach0, {reset_ms!r} ms), {copying_ms!r} ms "
+              f"copying (the thread-a-lane first version, "
+              f"copying: 0.326-0.337 ms), bound {r['bound_ms']!r} ms "
+              f"({r['bound_by']}) {tag}")
+    return r
 
 
 def check_flush_compacted(case, meas, tag: str, reps: int):
@@ -1806,8 +1968,26 @@ def breakdown(tag: str, label: str, cfg, traced: int = 16,
     print(f"breakdown {label}: device ms a step by kernel: {top} {tag}")
 
 
+def time_compact(tag: str, reps: int = 200) -> None:
+    """K6's wrapper beside ``torch.nonzero`` at the pairs step's shared
+    compaction (one small launch, too short for the breakdown's list), so
+    that two checkouts read in one call compare on it too."""
+    dev = torch.device("cuda")
+    n = config().num_molecules
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    mask = torch.rand(n, generator=gen, device=dev) < 3e-3
+    shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
+    ms = [timed_ms(lambda: compact.compact_indices(mask, shared, n), reps)
+          for _ in range(3)]
+    lib = [timed_ms(lambda: torch.nonzero(mask), reps) for _ in range(3)]
+    print(f"breakdown K6: compact_indices {ms!r} ms a call, torch.nonzero "
+          f"{lib!r} ms (mean of {reps}, three times) at N={n} {tag}")
+
+
 def breakdowns(tag: str) -> None:
     """Phase 9 for every slice this checkout has."""
+    time_compact(tag)
     breakdown(tag, "sweep", config())
     breakdown(tag, "pairs", config(**PAIRS))
     if hasattr(amt, "CubeConfig"):

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Probe of the port's K9 (partner sweep, the cell-ordered walk) on one
-NVIDIA GPU: its time at the 1M-particle temperature pore for one run length
-of the walk, at cell capacities 32 (auto), 24 and 8, and on one z-slab's
-lanes with ``ids``, ``valid`` and ``cell_window``; each result is first held
-exactly against the plain version.
+"""Probe of the port's two kernels on the cell-ordered walk, K9 (partner
+sweep) and K1 (the pairs rebuild's sweep), on one NVIDIA GPU: the kernel's
+time at the 1M-particle temperature pore for one run length of the walk;
+each result is first held exactly against the plain version.
 
-Run from the repository root, one process a run length (the kernels are
-built with ``-DAMC_RUN_CELLS=<cells>``, into a library of their own):
+K9: at cell capacities 32 (auto), 24 and 8, and on one z-slab's lanes with
+``ids``, ``valid`` and ``cell_window``.  K1 (second argument ``k1``): at the
+pairs capacity 24 and at 8.
+
+Run from the repository root, one process a variant (the kernels are built
+with ``-DAMC_RUN_CELLS=<cells>``, into a library of their own):
 
     python3 scripts/torch_probe_partner_sweep.py 8
     python3 scripts/torch_probe_partner_sweep.py 4
     python3 scripts/torch_probe_partner_sweep.py 16
+    python3 scripts/torch_probe_partner_sweep.py 8 k1
 
 Prints the card's name and power limit first; times are the wrapper's,
 CUDA events, mean of 20 calls, three times over.
@@ -33,6 +37,31 @@ def timed(fn):
     return [cs.timed_ms(fn, 20) for _ in range(3)]
 
 
+def probe_rebuild_sweep(cells: int, tag: str) -> int:
+    """K1 at the pairs capacity and at 8, exact, then timed."""
+    kernels.library()
+    case = cs.pairs_case()
+    reach, _ = cs.pairs_ops.reach_radii(
+        case.state.vel, case.cr, case.dt, case.pcfg.rebuild_interval,
+        0.5 * case.grid.cell_size)
+    pos = case.state.pos
+    for cap in (None, 8):
+        grid = case.grid if cap is None else amt.engine.build_grids(
+            amt.make_workload(cs.config(cell_capacity=cap, **cs.PAIRS)),
+            case.dev)[1]
+        _, table, pslot, overflow = collide.bin_and_table(pos, grid)
+        args = (pos, reach, table, pslot, grid, case.pcfg.top_k)
+        for name, a, b in zip(("cands", "unswept", "pos0", "reach0"),
+                              collide.rebuild_sweep(*args),
+                              collide.rebuild_sweep_plain(*args)):
+            cs.exact(f"K1 {name} (capacity {grid.capacity})", a, b)
+        ms = timed(lambda: collide.rebuild_sweep(*args))
+        print(f"K1 run_cells={cells} capacity={grid.capacity}: exact, "
+              f"{int(overflow)} over capacity, "
+              f"{ms!r} ms at N={pos.shape[0]} {tag}")
+    return 0
+
+
 def main(argv) -> int:
     cells = int(argv[0]) if argv else collide.RUN_CELLS
     if not torch.cuda.is_available():
@@ -43,6 +72,8 @@ def main(argv) -> int:
     collide.cell_runs.__defaults__ = (cells,)
     tag = f"[{cs.card_line()}]"
     print(cs.card_line())
+    if argv[1:2] == ["k1"]:
+        return probe_rebuild_sweep(cells, tag)
     kernels.library()
     dev = torch.device("cuda")
     cfg = cs.config()

@@ -521,6 +521,37 @@ def test_cell_runs_and_staged_rows_equal_grid_neighbors(target):
     np.testing.assert_array_equal(tgrid.run_start.numpy(), starts)
 
 
+@pytest.mark.parametrize("target", [TARGET, 1_000_000],
+                         ids=["pore-4k", "pore-1M"])
+def test_half_shell_staged_rows_equal_grid_neighbors(target):
+    """K1's walk on the host: for every cell k of every run, rows k + 1 and
+    k + 2 of group 4 and rows k, k + 1, k + 2 of groups 5 to 8 are
+    ``Grid.neighbors[cell, 13:27]``, column for column; the one staged row
+    only column 12 would read is the dummy row."""
+    cfg = amc.temperature_pore_config().scaled_to(target)
+    eng = jcfg.EngineConfig()
+    n, vol = cfg.num_molecules, cfg.geometry.volume
+    host = jcollide.grid_for_pore(
+        cfg.geometry, jcfg.cell_size_for(eng, cfg.physics, n, vol),
+        jcfg.pairs_cell_capacity_for(eng, cfg.physics, n, vol))
+    cells = host.num_cells
+    starts = tcollide.cell_runs(host.nx, host.layer_base)
+    rows = tcollide.half_shell_rows(host.neighbors, starts)
+    assert rows.shape == (len(starts) - 1, 5, tcollide.RUN_CELLS + 2)
+    assert (rows[:, 0, 0] == cells).all()
+    cell = np.arange(cells)
+    run = np.searchsorted(starts, cell, side="right") - 1
+    k = cell - starts[run]
+    shell = np.concatenate(
+        [rows[run, 0, k + 1][:, None], rows[run, 0, k + 2][:, None]]
+        + [rows[run, h, k + dx][:, None]
+           for h in range(1, 5) for dx in range(3)], axis=1)
+    np.testing.assert_array_equal(shell, host.neighbors[:, 13:27])
+    # The own cell is the first row read of the first group.
+    np.testing.assert_array_equal(shell[:, 0], cell)
+    assert (shell == cells).any()              # edges reach the dummy row
+
+
 def _hard_case(name, cfg, host_grid, rng):
     """(pos, ids, valid, window, check) for one shape the cell walk finds
     hard; ``check(partner, pslot)`` asserts that the case is really there."""

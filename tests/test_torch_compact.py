@@ -4,8 +4,8 @@ single-pass kernel finds hard (one entry, just under a block of 256, one
 past a tile of 4,096, a million and three: a ragged last tile and a ragged
 last vector), with every, no and some entries set, at size 0 and sizes
 below and above the count; and the wrapper's scratch bookkeeping (one
-scratch a device and stream, a generation a call, a new zeroed scratch for
-a larger mask or a wrapped counter).
+zeroed scratch a device and stream, a new zeroed one for a larger mask,
+nothing passed that changes from call to call).
 
 Tolerance: exact (integers).
 """
@@ -56,30 +56,40 @@ def test_compact_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 def test_compact_scratch_generations(monkeypatch):
-    """Each call on one device and stream gets the same scratch and the
-    next generation; a mask with more tiles than the scratch has words, or
-    a generation counter at its end, gets a new zeroed scratch that starts
-    again at generation 1."""
+    """What the wrapper still decides on the host, now that the kernel
+    keeps its scratch zeroed by itself and no generation number is passed:
+    one zeroed scratch for each (device, stream), the same tensor call
+    after call whatever the mask's length, and a new, larger zeroed one
+    for a mask with more tiles than the scratch has words, the outgrown
+    one kept alive for a captured launch that may hold its address."""
     monkeypatch.setattr(tcompact, "_scratch", {})
+    monkeypatch.setattr(tcompact, "_retired", [])
     dev = torch.device("cpu")
-    first, gen = tcompact._scratch_for(dev, 245)
-    assert gen == 1 and first.dtype == torch.int64
+    first = tcompact._scratch_for(dev, 245)
+    assert first.dtype == torch.int64
     assert first.shape[0] >= 246 and int(first.abs().sum()) == 0
-    again, gen = tcompact._scratch_for(dev, 3)
-    assert again is first and gen == 2
-    # More tiles than words: a larger scratch, zeroed, generation 1.
+    assert tcompact._scratch_for(dev, 3) is first
+    assert tcompact._scratch_for(dev, first.shape[0] - 1) is first
+    assert tcompact._retired == []
+    # More tiles than words: a larger scratch, zeroed.
     first.fill_(-1)
-    larger, gen = tcompact._scratch_for(dev, first.shape[0] + 5)
-    assert larger is not first and gen == 1
+    larger = tcompact._scratch_for(dev, first.shape[0] + 5)
+    assert larger is not first
     assert larger.shape[0] >= first.shape[0] + 6
     assert int(larger.abs().sum()) == 0
-    # The counter never reaches the 30 bits a status word holds.
-    tcompact._scratch[(dev.index, 0)][1] = tcompact._GENERATIONS - 2
-    same, gen = tcompact._scratch_for(dev, 3)
-    assert same is larger and gen == tcompact._GENERATIONS - 1
-    fresh, gen = tcompact._scratch_for(dev, 3)
-    assert fresh is not larger and gen == 1
-    assert len(tcompact._scratch) == 1
+    assert len(tcompact._retired) == 1 and tcompact._retired[0] is first
+    assert tcompact._scratch_for(dev, 3) is larger
+    assert list(tcompact._scratch) == [(dev.index, 0)]
+    # Another stream of the device has a scratch of its own.
+    monkeypatch.setitem(tcompact._scratch, (dev.index, 7), first)
+    assert tcompact._scratch_for(dev, 3) is larger
+    assert len(tcompact._scratch) == 2
+    # Nothing in the call changes from one call to the next.
+    assert not hasattr(tcompact, "_GENERATIONS")
+    sig = tcompact.kernels._SIGNATURES["compact"]
+    src = (tcompact.kernels.CSRC / "compact.cu").read_text()
+    assert "generation" not in src.split("AMC_EXPORT int amc_compact(")[1]
+    assert len(sig) == 7
 
 
 def test_compact_tile_matches_the_kernel_source():

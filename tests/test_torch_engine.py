@@ -229,3 +229,29 @@ def test_port_run_invariants():
     again, measure2, _ = sim.run(num_steps=20)
     assert torch.equal(again.pos, state.pos)
     assert torch.equal(measure2.hist, measure.hist)
+
+
+@pytest.mark.parametrize("engine", ["single", "sharded", "sharded-mixed"])
+def test_float64_on_the_card_is_refused_at_construction(engine):
+    """The kernels take float32 only: float64 with a CUDA device raises a
+    ValueError in the constructor, before any device work (so it is raised
+    on a host without a card too); on the CPU float64 is the parity dtype
+    and constructs."""
+    cfg = amt.temperature_pore_config(
+        engine=amt.EngineConfig(dtype="float64")).scaled_to(4000)
+    wl = amt.make_workload(cfg)
+    build = {
+        "single": lambda dev: amt.Simulation(wl, device=dev),
+        "sharded": lambda dev: amt.ShardedSimulation(wl, n_shards=2,
+                                                     devices=[dev]),
+        # One CUDA device among the slabs' devices is enough.
+        "sharded-mixed": lambda dev: amt.ShardedSimulation(
+            wl, n_shards=2, devices=["cpu", dev]),
+    }[engine]
+    for dev in ("cuda", "cuda:0"):
+        with pytest.raises(ValueError, match="float64 is the CPU parity"):
+            build(dev)
+    build("cpu")
+    wl32 = amt.make_workload(amt.temperature_pore_config().scaled_to(4000))
+    assert amt.Simulation(wl32, device="cpu").cfg.engine.dtype == "float32"
+

@@ -190,8 +190,20 @@ def test_compact_kernel_on_a_second_stream(device):
             mask, out.shape[0], u.shape[0]))
 
 
+def test_compact_kernel_replays_in_a_cuda_graph(device):
+    """One captured launch, replayed three times with the mask changed in
+    between, after one call on the capturing stream allocated its scratch."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    u = torch.rand(300_000, generator=gen, device=device)
+    chip_smoke.check_compact_graph(u, 4096, "")
+
+
 def test_rebuild_sweep_kernel(pairs_case):
+    """K1 at the pairs capacity, with overflowing cells, with a cut active
+    list and with rows that saturate top_k."""
+    before = kernels.launch_counts["rebuild_sweep"]
     chip_smoke.check_rebuild_sweep(pairs_case, "", 0)
+    assert kernels.launch_counts["rebuild_sweep"] == before + 4
 
 
 def test_emit_pairs_kernel(pairs_case):
@@ -203,9 +215,14 @@ def test_test_and_resolve_kernel(pairs_case, plist):
 
 
 def test_research_dirty_kernel(pairs_case, plist):
+    """K4 in both forms: as configured, with a small append budget, with the
+    cursor near the list's end and with lists that fill."""
     _, (state, _, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
                                                          "", 0)
+    before = kernels.launch_counts["research_dirty"]
     chip_smoke.check_research_dirty(pairs_case, plist, state, "", 0)
+    # Four cases, each in the copying and the in-place form.
+    assert kernels.launch_counts["research_dirty"] == before + 8
 
 
 def test_flush_hist_compacted_kernel(pairs_case, plist):

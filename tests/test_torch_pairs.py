@@ -39,18 +39,23 @@ TARGET = 4000
 K = 8
 
 
-def setup(capacity=None, seed=1):
+def setup(capacity=None, seed=1, cut_active=False):
     """Pore config at TARGET, the pairs grid on both sides (active list
-    included), and a float64 state: clustered positions with strays,
-    Maxwell-like velocities, a few very fast particles.  The velocities
-    are whole m/s, so their squares and sums are exact and XLA's fused
-    sum of squares gives the port's speeds bitwise."""
+    included; with ``cut_active`` every third of its cells taken off it),
+    and a float64 state: clustered positions with strays, Maxwell-like
+    velocities, a few very fast particles.  The velocities are whole m/s,
+    so their squares and sums are exact and XLA's fused sum of squares
+    gives the port's speeds bitwise."""
     cfg = amc.temperature_pore_config().scaled_to(TARGET)
     n, vol = cfg.num_molecules, cfg.geometry.volume
     eng = jcfg.EngineConfig(cell_capacity=capacity)
     size = jcfg.cell_size_for(eng, cfg.physics, n, vol)
     cap = jcfg.pairs_cell_capacity_for(eng, cfg.physics, n, vol)
     host = jcollide.grid_for_pore(cfg.geometry, size, cap)
+    if cut_active:
+        keep = np.arange(host.active_cells.shape[0]) % 3 != 0
+        host = dataclasses.replace(host,
+                                   active_cells=host.active_cells[keep])
     jgrid = jcollide.DeviceGrid.from_grid(host, np.float64,
                                           packed_layers=True)
     tgrid = convert.grid_from_numpy(
@@ -142,26 +147,45 @@ def test_reach_radii_matches_reference(dtype):
     assert 0 < int(clip_t.sum()) < vel.shape[0]
 
 
-@pytest.mark.parametrize("capacity", [None, 4])
+# capacity, top_k, every reach at its largest (half a cell), active list cut
+SWEEP_CASES = {
+    None: (None, 3, False, False),
+    4: (4, 3, False, False),
+    "saturated": (None, 2, True, False),
+    "inactive-cells": (None, 3, False, True),
+    "overflowing-saturated": (3, 4, True, False),
+}
+
+
+@pytest.mark.parametrize("capacity", list(SWEEP_CASES))
 def test_rebuild_sweep_plain_matches_reference(capacity):
     """K1: cands and unswept against cell_candidate_search in reach mode,
     one-sided, half shell, on the active rows; a widened reach fills rows
-    at top_k=3, strays land in inactive cells, capacity 4 spills."""
-    cfg, jgrid, tgrid, arrays, _ = setup(capacity)
+    at top_k=3, strays land in inactive cells, capacity 4 spills.  The
+    corners the cell-ordered kernel leans on: most emitters with more hits
+    than top_k keeps (the kept ones are the lowest indices whatever the
+    order they were found in), a third of the active cells taken off the
+    list (their particles unswept, yet candidates of their neighbours),
+    and full cells with saturated rows together."""
+    capacity, top_k, saturate, cut = SWEEP_CASES[capacity]
+    cfg, jgrid, tgrid, arrays, _ = setup(capacity, cut_active=cut)
     n = arrays["pos"].shape[0]
     cr = cfg.physics.collision_range
     reach_j, _ = jpairs.reach_radii(jnp.asarray(arrays["vel"]), 8.0 * cr,
                                     cfg.dt, K, 0.5 * jgrid.cell_size)
+    if saturate:
+        reach_j = jnp.full_like(reach_j, 0.5 * jgrid.cell_size)
     reach = np.array(reach_j)
     cands_j, overflow_j, (pslot_j, mega_j, unswept_j) = \
         jcollide.cell_candidate_search(
-            jnp.asarray(arrays["pos"]), jgrid, reach=reach_j, top_k=3,
+            jnp.asarray(arrays["pos"]), jgrid, reach=reach_j, top_k=top_k,
             one_sided=True, half_shell=True, occupancy_skip=False)
 
     pos = torch.from_numpy(arrays["pos"])
     _, table, pslot, overflow = tcollide.bin_and_table_plain(pos, tgrid)
     cands, unswept, pos0, reach0 = tcollide.rebuild_sweep_plain(
-        pos, torch.from_numpy(reach), table, pslot, tgrid, 3, chunk=1000)
+        pos, torch.from_numpy(reach), table, pslot, tgrid, top_k,
+        chunk=1000)
 
     assert int(overflow) == int(overflow_j)
     np.testing.assert_array_equal(pslot.numpy(), np.asarray(pslot_j))
@@ -182,8 +206,24 @@ def test_rebuild_sweep_plain_matches_reference(capacity):
     np.testing.assert_array_equal(reach0.numpy()[real], planes[:, 4][real])
     assert unswept.any(), "no stray landed in an inactive cell"
     assert (got[:, -1] >= 0).sum() > 10, "no row filled"
-    if capacity == 4:
+    # Rows are ascending, -1 padded at the end only.
+    filled = np.where(got >= 0, got, np.iinfo(np.int32).max)
+    assert (np.diff(filled.astype(np.int64), axis=1) >= 0).all()
+    if capacity is not None:
         assert int(overflow) > 0
+    if saturate:
+        # Many emitters have more hits than top_k keeps, and the kept ones
+        # are the lowest of all their hits.
+        wide = tcollide.rebuild_sweep_plain(
+            pos, torch.from_numpy(reach), table, pslot, tgrid, top_k + 3,
+            chunk=1000)[0].numpy()
+        assert (wide[:, top_k] >= 0).sum() > 50
+        np.testing.assert_array_equal(got, wide[:, :top_k])
+    if cut:
+        # Unswept particles emit nothing but are still found by others.
+        assert unswept.sum() > n // 5
+        assert (got[unswept.numpy()] == -1).all()
+        assert np.isin(got[got >= 0], np.flatnonzero(unswept.numpy())).any()
 
 
 @pytest.mark.parametrize("capacity,pair_capacity", [(None, None), (4, 150)])
@@ -308,6 +348,70 @@ def test_research_dirty_plain_matches_reference(append_capacity):
     assert int(tnew.cursor) > int(tplist.cursor)
     assert not torch.equal(tnew.reach0, tplist.reach0)
     assert bool(lost_t) == (append_capacity is not None)
+
+
+@pytest.mark.parametrize("append_capacity", [None, 40])
+def test_research_dirty_plain_in_place_equals_copying(append_capacity):
+    """K4's two forms give one list: every PairList field, ``lost`` and
+    ``latent_per``; the copying form leaves the list it was given as it
+    was, the in-place form updates ``reach0``, ``hot``, ``a`` and ``b``
+    where they are.  And what the kernel's append leans on: a lane's found
+    entries are a prefix of its ascending row, so the row-major compaction
+    of the found mask is an exclusive scan over the lanes' counts -- lane
+    after lane in ``dirty_idx`` order, ascending within a lane, cut only by
+    the append budget."""
+    cfg, jgrid, tgrid, arrays, rng = setup(capacity=8)
+    n = arrays["pos"].shape[0]
+    cr, dt = cfg.physics.collision_range, cfg.dt
+    pcfg = pair_config()
+    if append_capacity is not None:
+        pcfg = dataclasses.replace(pcfg, append_capacity=append_capacity)
+    state, _ = convert.state_from_numpy(arrays, "cpu", torch.float64)
+    plist = tpairs.rebuild(state, tgrid, pcfg, cr, dt,
+                           tpairs.PairList.init(n, tgrid, pcfg,
+                                                torch.float64, "cpu"))
+    moved = dict(arrays)
+    moved["pos"] = arrays["pos"] + 3 * dt * arrays["vel"]
+    dirty = np.sort(rng.choice(n, 400, replace=False))
+    moved["vel"] = arrays["vel"].copy()
+    moved["vel"][dirty[::2]] += 120.0
+    bump = np.zeros(n, bool)
+    bump[dirty[::2]] = True
+    dirty_idx = np.full(pcfg.research_capacity, n, np.int32)
+    dirty_idx[:2 * dirty.size:2] = dirty    # fill-value lanes in between
+    mstate, _ = convert.state_from_numpy(moved, "cpu", torch.float64)
+    args = (mstate, plist, torch.from_numpy(dirty_idx),
+            torch.from_numpy(bump), tgrid, pcfg, cr, dt)
+
+    before = {f.name: getattr(plist, f.name).clone()
+              for f in dataclasses.fields(plist)}
+    want, lost_w, latent_w = tpairs.research_dirty_plain(*args)
+    for name, kept in before.items():
+        assert torch.equal(getattr(plist, name), kept), name
+    got, lost_g, latent_g = tpairs.research_dirty(*args, in_place=True)
+    for f in dataclasses.fields(plist):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), \
+            f.name
+    assert bool(lost_g) == bool(lost_w) == (append_capacity is not None)
+    assert torch.equal(latent_g, latent_w)
+    for name in ("reach0", "hot", "a", "b"):
+        assert getattr(got, name) is getattr(plist, name), name
+    assert not torch.equal(got.reach0, before["reach0"])
+
+    lo, hi = int(before["cursor"]), int(got.cursor)
+    new_a, new_b = got.a[lo:hi].numpy(), got.b[lo:hi].numpy()
+    assert hi > lo
+    lanes = dirty_idx[dirty_idx < n]
+    counts = np.array([(new_a == d).sum() for d in lanes])
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    assert offsets[-1] == hi - lo
+    assert counts.max() <= pcfg.research_top_k
+    for d, off, c in zip(lanes, offsets, counts):
+        assert (new_a[off:off + c] == d).all()
+        assert (np.diff(new_b[off:off + c]) > 0).all()
+        assert (new_b[off:off + c] != d).all()
+    if append_capacity is not None:
+        assert hi - lo == append_capacity
 
 
 @pytest.mark.parametrize("case", range(6))
