@@ -15,6 +15,8 @@ engine.py:310-472) is
     one shared compaction (K6) and the dirty sub-compaction (K6) ->
     research_dirty (K4) -> flush_hist_compacted (K7) -> counters
 
+(K3, K4 and K7's compacted entry update the step's own tensors in place)
+
 with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
 on the pre-drift positions at the start of every ``rebuild_interval``
 window.  A plain Python loop over steps replaces the reference's
@@ -273,10 +275,14 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
         state, measure, ledger, oob_walls, recap_w, speed_pre = (
             workload.advance(state, measure, uniforms))
 
-        # PARTICLE-PARTICLE COLLISIONS on the listed pairs.
+        # PARTICLE-PARTICLE COLLISIONS on the listed pairs, in place on
+        # the state and the staging.
         state, measure, pair_collisions, collided = (
             pairs_ops.test_and_resolve(state, measure, plist.a, plist.b, cr,
                                        pcfg.event_capacity))
+        # post_pairs returns new tensors where it moves a particle (every
+        # workload's does), so pos_pre still holds the positions before it;
+        # an in-place post_pairs would make recap_p all False.
         pos_pre = state.pos
         state, oob_pairs = workload.post_pairs(state)
         recap_p = torch.any(state.pos != pos_pre, dim=-1)
@@ -307,7 +313,7 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
         # the rest is the Simulation's carried list, replaced by the one
         # returned here).
         plist, research_lost, latent_per = pairs_ops.research_dirty(
-            state, plist, dirty_idx, bump, grid, pcfg, cr, dt, in_place=True)
+            state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
         force = research_lost | (research_dropped > 0)
         plist = dataclasses.replace(
             plist,
@@ -315,6 +321,7 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
             age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
         )
 
+        # In place; shared_idx is ascending, as the flush requires.
         measure = measure_ops.flush_hist_compacted(measure, shared_idx,
                                                    eng.num_bins, hist_hi)
         measure = dataclasses.replace(
@@ -349,6 +356,15 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     return step
 
 
+def _copy(obj):
+    """A dataclass of tensors with every tensor cloned (None stays)."""
+    if obj is None:
+        return None
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).clone()
+        for f in dataclasses.fields(obj)})
+
+
 class Simulation:
     """Host loop: init once, run epochs of steps on ``device``.
 
@@ -361,6 +377,11 @@ class Simulation:
     left in its window across epochs and runs: it rebuilds on the pre-drift
     positions when the window is used up, and drops the list when ``run``
     gets a state other than the one it last returned (engine.py:494-814).
+
+    The pairs step updates the state and the measurements in place (K3 and
+    K7's compacted entry), so ``run`` copies the state and measurements it
+    is handed once on entry and carries its own copies: it never writes a
+    tensor its caller passed in.
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -433,6 +454,7 @@ class Simulation:
             # another trajectory.
             self._plist = None
             self._window_left = 0
+        state, measure = _copy(state), _copy(measure)
         if draw is None:
             if generator is None:
                 raise ValueError("pass the generator that init() returned, "

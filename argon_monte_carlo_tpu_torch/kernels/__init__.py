@@ -49,11 +49,11 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P],
-    "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 12,
+    "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 7,
     "compact": [_P, _I, _I, _I, _P, _P, _P],
     "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
     "rebuild_sweep": [_P] * 7 + [_I] * 6 + [_P] * 5,
-    "test_and_resolve": [_P] * 8 + [_I, _I, _I, _F, _F] + [_P] * 16,
+    "test_and_resolve": [_P] * 10 + [_I, _I, _I, _F, _F] + [_P] * 6,
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F] + [_P] * 13,

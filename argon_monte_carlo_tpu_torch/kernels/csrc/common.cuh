@@ -74,22 +74,12 @@ __device__ __forceinline__ int assign_cell(float x, float y, float z,
   return layer_base[iz] + iy * m + ix;
 }
 
-// The count and scan passes of a multi-pass stream compaction (compact.cu),
-// shared by compact_launch and K12: block_vals[b] receives the number of set entries of mask in
-// block b (kThreads lanes a block), block_offsets[b] the number in the blocks
-// before it, *total the number in all.  block_vals and block_offsets hold
-// blocks_for(len) ints each.
+// The count and scan passes of a multi-pass stream compaction (compact.cu)
+// for K12: block_vals[b] receives the number of set entries of mask in
+// block b (kThreads lanes a block), block_offsets[b] the number in the
+// blocks before it, *total the number in all.  block_vals and block_offsets
+// hold blocks_for(len) ints each.
 void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
                       int* block_offsets, int* total, cudaStream_t stream);
-
-// Multi-pass stream compaction (compact.cu) for a kernel that compacts on
-// the way, K3 (K6 itself is a single pass there; K4 scans its lanes' counts
-// instead): the ascending indices of the set entries of mask[0, len) go to
-// out[0, size), truncated to size and padded with fill; *total receives
-// the number of set entries.  Scratch: block_vals and block_offsets hold
-// blocks_for(len) ints each.
-void compact_launch(const uint8_t* mask, int len, int size, int fill,
-                    int* out, int* total, int* block_vals,
-                    int* block_offsets, cudaStream_t stream);
 
 }  // namespace amc

@@ -6,7 +6,8 @@
 // padded with fill.  The pairs engine compacts with it twice a step over
 // all particles (engine.py:398-419), the z-slab engine once a slab a step
 // (the free lanes of the merge); K3 (colliding entries) compacts on the way
-// inside its own launches with compact_launch below.
+// inside its own first launch with the same single-pass scan
+// (lookback.cuh).
 //
 // K5 replaces argon_monte_carlo_tpu/ops/pairs.py rebuild_finish (:208-277):
 // the (N, top_k) rebuild candidates become the pair list (a, b), the
@@ -20,35 +21,26 @@
 // mask of 1M bytes is 0.3 us of traffic, so K6 is bound by its launches.
 //
 // Design, K6: one launch, a single pass (a chained scan with decoupled
-// look-back).  A block takes its tile from an atomic ticket, so tiles start
-// in ticket order and a tile only ever waits for tiles that already run.
+// look-back, lookback.cuh: tiles in ticket order, a status word a tile).
 // Each thread loads 16 mask bytes at once, counts them, and the block scans
-// the counts; the block publishes its tile's total in a status word, warp 0
-// looks back over the earlier tiles' words (32 at a time) until it meets an
-// inclusive prefix, publishes its own inclusive prefix, and every thread
+// the counts; warp 0 looks back for the tile's prefix, and every thread
 // writes its indices at prefix + rank below size.  The block of the last
 // tile knows the grand total: it pads [min(total, size), size) with fill, so
-// there is no fill launch and no memset.
-//
-// The scratch (ticket, count of finished blocks, a status word a tile) is
-// all zero between calls, and the kernel itself leaves it so: a block that
-// is done with the status words adds one to the finished count, and the
-// block that makes it ntiles -- every other block has by then read and
-// written its last status word -- clears the words of this call, the ticket
-// and the count.  Nothing about a call is passed in from the host (no
-// generation number), so a launch recorded in a CUDA graph replays
-// correctly any number of times; a zero word reads as "not ready".  The
+// there is no fill launch and no memset.  The scratch is the look-back's,
+// all zero between calls, and the kernel itself leaves it so; nothing about
+// a call is passed in from the host (no generation number), so a launch
+// recorded in a CUDA graph replays correctly any number of times.  The
 // scratch belongs to one stream (ops/compact.py keeps one a stream).
 // Integer only: the same output in every run.
 //
-// Design, the multi-pass form (K5; compact_launch for K3;
-// mask_scan_launch for K12): per block, a count (__syncthreads_count for a
-// mask, a block scan for K5's per-particle entry counts); one block scans
-// the block totals (Hillis-Steele over 1024 threads, each owning a
-// contiguous chunk, as K2 and K7 do) and totals up to three channels; per
-// block, each element writes at its block's offset plus its rank inside the
-// block.
+// Design, the multi-pass form (K5; mask_scan_launch for K12): per block, a
+// count (__syncthreads_count for a mask, a block scan for K5's per-particle
+// entry counts); one block scans the block totals (Hillis-Steele over 1024
+// threads, each owning a contiguous chunk, as K2 and K7 do) and totals up
+// to three channels; per block, each element writes at its block's offset
+// plus its rank inside the block.
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -99,18 +91,6 @@ __global__ void mask_count_kernel(const uint8_t* __restrict__ mask, int len,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   int count = __syncthreads_count(i < len && mask[i]);
   if (threadIdx.x == 0) block_vals[blockIdx.x] = count;
-}
-
-__global__ void mask_write_kernel(const uint8_t* __restrict__ mask, int len,
-                                  const int* __restrict__ block_offsets,
-                                  int size, int* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int total;
-  int rank = amc::block_exclusive_scan(i < len && mask[i] ? 1 : 0, &total);
-  if (i < len && mask[i]) {
-    rank += block_offsets[blockIdx.x];
-    if (rank < size) out[rank] = i;
-  }
 }
 
 // K5, pass 1: the per-particle flags, and per block the entry count, the
@@ -193,64 +173,14 @@ __global__ void emit_finish_kernel(const int* __restrict__ totals, int m_cap,
 
 constexpr int kTileBytes = 16;  // mask bytes a thread, one vector load
 constexpr int kTile = amc::kThreads * kTileBytes;
-// Flags of a tile's status word.  The word is (flag << 32) | value: one
-// 64-bit store publishes both; flag 0 (the cleared word) is "not ready".
-constexpr unsigned kAggregate = 1u;  // value = the tile's own total
-constexpr unsigned kInclusive = 2u;  // value = the total up to and with it
 
-__device__ __forceinline__ unsigned long long status_word(unsigned flag,
-                                                          int value) {
-  return (static_cast<unsigned long long>(flag) << 32) |
-         static_cast<unsigned>(value);
-}
-
-// The number of set entries in the tiles before `tile` (> 0).  All 32 lanes
-// of warp 0 call it.  Lane l reads the word of tile base - l and waits
-// until it is published; the window moves back by 32 until it holds an
-// inclusive prefix.
-__device__ __forceinline__ int look_back(
-    const volatile unsigned long long* status, int tile) {
-  const unsigned kFull = 0xffffffffu;
-  int lane = threadIdx.x;
-  int prefix = 0;
-  for (int base = tile - 1;; base -= 32) {
-    int t = base - lane;
-    // Before tile 0 there is nothing: an inclusive prefix of 0.
-    unsigned flag = kInclusive;
-    int value = 0;
-    if (t >= 0) {
-      unsigned long long word;
-      do {
-        word = status[t];
-      } while ((word >> 32) == 0);
-      flag = static_cast<unsigned>(word >> 32);
-      value = static_cast<int>(static_cast<unsigned>(word));
-    }
-    unsigned inclusive = __ballot_sync(kFull, flag == kInclusive);
-    int nearest = inclusive != 0 ? __ffs(inclusive) - 1 : 31;
-    int v = lane <= nearest ? value : 0;
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-    prefix += v;
-    if (inclusive != 0) return prefix;
-  }
-}
-
-// scratch[0] holds the ticket counter (low half) and the count of finished
-// blocks (high half), scratch[1 + t] the status word of tile t; all zero
-// between calls.  kVector: mask is 16-byte aligned.
+// scratch is the look-back's (lookback.cuh), all zero between calls.
+// kVector: mask is 16-byte aligned.
 template <bool kVector>
 __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
     const uint8_t* __restrict__ mask, int len, int ntiles, int size, int fill,
     unsigned long long* __restrict__ scratch, int* __restrict__ out) {
-  __shared__ int s_tile;
-  __shared__ int s_prefix;
-  __shared__ bool s_last;
-  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
-  unsigned* finished = ticket + 1;
-  volatile unsigned long long* status = scratch + 1;
-  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
-  __syncthreads();
-  int tile = s_tile;
+  int tile = amc::take_tile(scratch);
   long long first = static_cast<long long>(tile) * kTile +
                     threadIdx.x * kTileBytes;
   unsigned bits = 0;  // bit k: entry first + k is set
@@ -268,26 +198,8 @@ __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
   }
   int tile_total;
   int rank = amc::block_exclusive_scan(__popc(bits), &tile_total);
-  if (threadIdx.x < 32) {
-    int prefix = 0;
-    if (tile > 0) {
-      if (threadIdx.x == 0) {
-        status[tile] = status_word(kAggregate, tile_total);
-      }
-      prefix = look_back(status, tile);
-    }
-    if (threadIdx.x == 0) {
-      status[tile] = status_word(kInclusive, prefix + tile_total);
-      s_prefix = prefix;
-      // This block touches no status word from here on.  The fence orders
-      // its reads and its two stores before the count, so the block that
-      // sees the count reach ntiles may clear every word.
-      __threadfence();
-      s_last = atomicAdd(finished, 1u) == static_cast<unsigned>(ntiles - 1);
-    }
-  }
-  __syncthreads();
-  int prefix = s_prefix;
+  bool last;
+  int prefix = amc::tile_prefix(scratch, tile, tile_total, ntiles, &last);
   rank += prefix;
   while (bits != 0 && rank < size) {
     out[rank++] = static_cast<int>(first) + __ffs(bits) - 1;
@@ -300,12 +212,7 @@ __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
       out[k] = fill;
     }
   }
-  if (s_last) {
-    // Leave the scratch as this call found it: all zero.
-    __threadfence();
-    for (int t = threadIdx.x; t < ntiles; t += amc::kThreads) status[t] = 0ull;
-    if (threadIdx.x == 0) scratch[0] = 0ull;
-  }
+  if (last) amc::release_tiles(scratch, ntiles);
 }
 
 }  // namespace
@@ -321,20 +228,6 @@ void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
   }
   scan_blocks_kernel<<<1, kScanThreads, 0, stream>>>(
       block_vals, nblocks, 1, block_offsets, total);
-}
-
-void compact_launch(const uint8_t* mask, int len, int size, int fill,
-                    int* out, int* total, int* block_vals,
-                    int* block_offsets, cudaStream_t stream) {
-  int nblocks = blocks_for(len);
-  if (size > 0) {
-    fill_kernel<<<blocks_for(size), kThreads, 0, stream>>>(out, size, fill);
-  }
-  mask_scan_launch(mask, len, block_vals, block_offsets, total, stream);
-  if (nblocks > 0) {
-    mask_write_kernel<<<nblocks, kThreads, 0, stream>>>(
-        mask, len, block_offsets, size, out);
-  }
 }
 
 }  // namespace amc

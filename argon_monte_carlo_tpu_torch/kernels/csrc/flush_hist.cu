@@ -25,10 +25,29 @@
 //
 // amc_flush_hist_compacted is the pairs engine's entry, replacing
 // ops/measure.py flush_pending_compacted (:88-128): the events to bin come
-// from the engine's one shared per-step compaction (K6) instead of the
-// flush's own rank.  Steps 1, 2 and 4 are shared; step 3 bins the listed
-// indices whose staging is set, counts them, and the events not listed are
-// added to hist_drop_count.
+// from the engine's one shared per-step compaction (K6), event_idx,
+// ascending and padded with n; the staged events it does not list are
+// added to hist_drop_count.  It is one launch, in place, deterministic:
+//   1. a block takes a tile of 4096 particles.  A thread reads 16 mask
+//      bytes at once and the 16-byte value row of each of its staged
+//      particles, sums them in index order and counts them; the block
+//      tree-sums the threads' sums in a fixed order.  Two binary searches
+//      find the tile's range of event_idx; the block bins the listed
+//      particles that are staged into shared-memory integer bins, adds them
+//      to integer bins kept between calls, adds its events to path_count
+//      and its staged-but-unlisted ones to hist_drop_count (integer
+//      atomics), and clears its staged rows and mask bytes.  No block reads
+//      a row another block clears.
+//   2. the last block to finish (a ticket it resets, as in K6) adds the
+//      block sums to path_sum in a fixed order, adds float(count) to every
+//      bin of hist -- bitwise hist + counts.to(float32) -- and clears the
+//      integer bins.
+// Only the staged rows are cleared: the staging keeps a row whose mask is
+// clear at zero (record_completed, K8 and K3 write a row only where they
+// set its mask, and every flush clears what was staged).  The scratch (the
+// ticket, the integer bins, a block's sums) belongs to one stream; the
+// kernel leaves the ticket and the bins zero, and nothing about a call
+// comes from the host, so the launch replays correctly in a CUDA graph.
 #include "common.cuh"
 
 namespace {
@@ -63,8 +82,7 @@ __global__ void totals_kernel(const int* __restrict__ block_counts,
                               int* __restrict__ block_offsets,
                               float* __restrict__ path_sum,
                               int* __restrict__ path_count,
-                              int* __restrict__ hist_drop_count,
-                              int* __restrict__ events_out) {
+                              int* __restrict__ hist_drop_count) {
   __shared__ int isum[kScanThreads];
   __shared__ float fsum[4][kScanThreads];
   int t = threadIdx.x;
@@ -102,7 +120,6 @@ __global__ void totals_kernel(const int* __restrict__ block_counts,
     for (int k = 0; k < 4; ++k) path_sum[k] = path_sum[k] + fsum[k][0];
     *path_count += events;
     if (n > capacity) *hist_drop_count += max(events - capacity, 0);
-    if (events_out != nullptr) *events_out = events;
   }
 }
 
@@ -144,38 +161,171 @@ __global__ void bin_kernel(const float* __restrict__ vals,
   }
 }
 
-__global__ void bin_listed_kernel(const float* __restrict__ vals,
-                                  const uint8_t* __restrict__ mask, int n,
-                                  const int* __restrict__ event_idx, int e,
-                                  int num_bins, float bin_width,
-                                  int* __restrict__ bins,
-                                  int* __restrict__ binned) {
-  extern __shared__ int sh_bins[];
+// ---------------------------------------------------------------------------
+// The compacted entry
+// ---------------------------------------------------------------------------
+
+constexpr int kFlushBytes = 16;  // particles a thread, one 16-byte mask load
+constexpr int kFlushTile = amc::kThreads * kFlushBytes;
+
+// The first k in [0, e) with idx[k] >= value (e if none), idx ascending.
+// All 32 lanes of a warp call it: 32 probes a round, about four rounds for
+// the engine's 16,384 entries.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ idx,
+                                                int e, int value) {
+  int lane = threadIdx.x & 31;
+  int lo = 0, hi = e;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    int step = (hi - lo + 31) / 32;
+    int probe = lo + lane * step;
+    bool below = probe < hi && idx[probe] < value;
+    // The probes below value are a prefix, since idx ascends.
+    int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c == 0) return lo;
+    int next_hi = min(lo + c * step, hi);
+    lo = lo + (c - 1) * step + 1;
+    hi = next_hi;
+  }
+  return lo;
+}
+
+// Fixed-order tree sum of sh[k][0, kThreads) into sh[k][0]; every thread of
+// the block calls it.
+__device__ __forceinline__ void tree_sum4(float (*sh)[amc::kThreads]) {
   int t = threadIdx.x;
-  int k = blockIdx.x * blockDim.x + t;
-  int row = num_bins + 1;
-  for (int b = t; b < 4 * row; b += blockDim.x) sh_bins[b] = 0;
   __syncthreads();
-  int i = k < e ? event_idx[k] : n;
-  bool valid = i < n && mask[i];
-  if (valid) {
+  for (int s = amc::kThreads / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      for (int k = 0; k < 4; ++k) sh[k][t] = sh[k][t] + sh[k][t + s];
+    }
+    __syncthreads();
+  }
+}
+
+// ints: the ticket, then the 4 * (num_bins + 1) integer bins, all zero
+// between calls.  block_sums: 4 floats a block.  kVector: vals and mask are
+// 16-byte aligned.
+template <bool kVector>
+__launch_bounds__(amc::kThreads) __global__ void flush_compacted_kernel(
+    float* __restrict__ vals, uint8_t* __restrict__ mask, int n,
+    const int* __restrict__ event_idx, int e, int num_bins, float bin_width,
+    float* __restrict__ hist, float* __restrict__ path_sum,
+    int* __restrict__ path_count, int* __restrict__ hist_drop_count,
+    int* ints, float* block_sums) {
+  extern __shared__ int sh_bins[];
+  __shared__ float sh_sum[4][amc::kThreads];
+  __shared__ unsigned sh_bits[amc::kThreads];
+  __shared__ int s_range[2];
+  __shared__ int s_events, s_listed;
+  __shared__ bool s_last;
+  int t = threadIdx.x;
+  int row = num_bins + 1;
+  int total_bins = 4 * row;
+  unsigned* ticket = reinterpret_cast<unsigned*>(ints);
+  int* bins = ints + 1;
+  int lo = blockIdx.x * kFlushTile;
+  int hi = min(lo + kFlushTile, n);
+  for (int k = t; k < total_bins; k += amc::kThreads) sh_bins[k] = 0;
+  if (t < 64) {
+    int bound = warp_lower_bound(event_idx, e, t < 32 ? lo : hi);
+    if ((t & 31) == 0) s_range[t >> 5] = bound;
+  }
+  if (t == 0) s_events = s_listed = 0;
+
+  // This thread's 16 particles: the staged ones, their sum in index order.
+  int first = lo + t * kFlushBytes;
+  bool full = kVector && first + kFlushBytes <= n;
+  unsigned bits = 0;  // bit k: particle first + k is staged
+  if (full) {
+    uint4 v = *reinterpret_cast<const uint4*>(mask + first);
+    unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < kFlushBytes; ++k) {
+      if ((words[k >> 2] >> (8 * (k & 3))) & 0xffu) bits |= 1u << k;
+    }
+  } else {
+    for (int k = 0; k < kFlushBytes; ++k) {
+      if (first + k < n && mask[first + k]) bits |= 1u << k;
+    }
+  }
+  sh_bits[t] = bits;
+  float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (unsigned rest = bits; rest != 0; rest &= rest - 1) {
+    int i = first + __ffs(rest) - 1;
+    float4 v = kVector ? reinterpret_cast<const float4*>(vals)[i]
+                       : make_float4(vals[4 * i], vals[4 * i + 1],
+                                     vals[4 * i + 2], vals[4 * i + 3]);
+    f[0] = f[0] + v.x;
+    f[1] = f[1] + v.y;
+    f[2] = f[2] + v.z;
+    f[3] = f[3] + v.w;
+  }
+  for (int k = 0; k < 4; ++k) sh_sum[k][t] = f[k];
+  __syncthreads();
+  if (bits != 0) atomicAdd(&s_events, __popc(bits));
+
+  // Bin the listed particles of this tile that are staged.
+  int listed = 0;
+  for (int k = s_range[0] + t; k < s_range[1]; k += amc::kThreads) {
+    int i = event_idx[k];
+    int local = i - lo;
+    if (!((sh_bits[local / kFlushBytes] >> (local % kFlushBytes)) & 1u)) {
+      continue;
+    }
     for (int c = 0; c < 4; ++c) {
       int id = static_cast<int>(floorf(vals[4 * i + c] / bin_width));
       id = min(max(id, 0), num_bins);
       atomicAdd(&sh_bins[c * row + id], 1);
     }
+    ++listed;
   }
-  int count = __syncthreads_count(valid);
-  for (int b = t; b < 4 * row; b += blockDim.x) {
-    if (sh_bins[b] != 0) atomicAdd(&bins[b], sh_bins[b]);
-  }
-  if (t == 0 && count > 0) atomicAdd(binned, count);
-}
+  if (listed > 0) atomicAdd(&s_listed, listed);
+  tree_sum4(sh_sum);  // also orders the binning's reads before the clearing
 
-__global__ void drop_kernel(const int* __restrict__ events,
-                            const int* __restrict__ binned,
-                            int* __restrict__ hist_drop_count) {
-  *hist_drop_count += *events - *binned;
+  // Clear the staged rows: no other block reads them.
+  if (bits != 0) {
+    if (full) *reinterpret_cast<uint4*>(mask + first) = make_uint4(0, 0, 0, 0);
+    for (unsigned rest = bits; rest != 0; rest &= rest - 1) {
+      int i = first + __ffs(rest) - 1;
+      if (kVector) {
+        reinterpret_cast<float4*>(vals)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        for (int c = 0; c < 4; ++c) vals[4 * i + c] = 0.0f;
+      }
+      if (!full) mask[i] = 0;
+    }
+  }
+  for (int k = t; k < total_bins; k += amc::kThreads) {
+    if (sh_bins[k] != 0) atomicAdd(&bins[k], sh_bins[k]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    for (int k = 0; k < 4; ++k) block_sums[4 * blockIdx.x + k] = sh_sum[k][0];
+    if (s_events > 0) atomicAdd(path_count, s_events);
+    if (s_events > s_listed) atomicAdd(hist_drop_count, s_events - s_listed);
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // The last block: every other block's sums and bins are in.
+  __threadfence();
+  const volatile float* sums = block_sums;
+  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int blk = t; blk < gridDim.x; blk += amc::kThreads) {
+    for (int k = 0; k < 4; ++k) g[k] = g[k] + sums[4 * blk + k];
+  }
+  for (int k = 0; k < 4; ++k) sh_sum[k][t] = g[k];
+  tree_sum4(sh_sum);
+  if (t < 4) path_sum[t] = path_sum[t] + sh_sum[t][0];
+  volatile int* vbins = bins;
+  for (int k = t; k < total_bins; k += amc::kThreads) {
+    hist[k] = hist[k] + static_cast<float>(vbins[k]);
+    vbins[k] = 0;
+  }
+  if (t == 0) *ticket = 0u;
 }
 
 __global__ void add_hist_kernel(const int* __restrict__ bins, int total,
@@ -204,7 +354,7 @@ AMC_EXPORT int amc_flush_hist(
   }
   totals_kernel<<<1, kScanThreads, 0, stream>>>(
       block_counts, block_sums, nblocks, n, capacity, block_offsets, path_sum,
-      path_count, hist_drop_count, nullptr);
+      path_count, hist_drop_count);
   if (nblocks > 0) {
     bin_kernel<<<nblocks, amc::kThreads, sizeof(int) * total, stream>>>(
         vals, mask, n, block_offsets, capacity, num_bins, bin_width, bins,
@@ -215,37 +365,29 @@ AMC_EXPORT int amc_flush_hist(
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist, path_sum, path_count, hist_drop_count are updated in place (the
-// wrapper passes fresh copies).  event_idx (e,) lists particle indices,
-// n = padding.  Scratch: block_sums (nblocks*4 f32), block_counts,
-// block_offsets (nblocks i32), bins (4*(num_bins+1) i32), counts (2 i32:
-// events, binned).
+// In place: hist, path_sum, path_count, hist_drop_count, and the staged
+// rows of vals and mask (cleared).  event_idx (e,) lists particle indices,
+// ascending, then the padding n.  Scratch of this stream, kept by the
+// kernel: ints (1 + 4 * (num_bins + 1), zero between calls), block_sums
+// (4 floats a block of 4096 particles).
 AMC_EXPORT int amc_flush_hist_compacted(
-    const float* vals, const uint8_t* mask, int n, const int* event_idx,
-    int e, int num_bins, float bin_width, float* hist, float* path_sum,
-    int* path_count, int* hist_drop_count, float* block_sums,
-    int* block_counts, int* block_offsets, int* bins, int* counts,
-    float* vals_out, uint8_t* mask_out, cudaStream_t stream) {
-  int total = 4 * (num_bins + 1);
-  int nblocks = amc::blocks_for(n);
-  cudaMemsetAsync(bins, 0, sizeof(int) * total, stream);
-  cudaMemsetAsync(counts, 0, 2 * sizeof(int), stream);
-  if (nblocks > 0) {
-    partials_kernel<<<nblocks, amc::kThreads, 0, stream>>>(
-        vals, mask, n, block_sums, block_counts);
+    float* vals, uint8_t* mask, int n, const int* event_idx, int e,
+    int num_bins, float bin_width, float* hist, float* path_sum,
+    int* path_count, int* hist_drop_count, int* ints, float* block_sums,
+    cudaStream_t stream) {
+  int nblocks = max(amc::blocks_for(n, kFlushTile), 1);
+  int bytes = static_cast<int>(sizeof(int)) * 4 * (num_bins + 1);
+  bool vec = ((reinterpret_cast<uintptr_t>(vals) |
+               reinterpret_cast<uintptr_t>(mask)) & 15u) == 0;
+  auto kernel = vec ? flush_compacted_kernel<true>
+                    : flush_compacted_kernel<false>;
+  // Beside ~5 KB of static shared memory, bins above 32 KB need the opt-in.
+  if (bytes > 32 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
   }
-  totals_kernel<<<1, kScanThreads, 0, stream>>>(
-      block_counts, block_sums, nblocks, n, n, block_offsets, path_sum,
-      path_count, hist_drop_count, counts);
-  if (e > 0) {
-    bin_listed_kernel<<<amc::blocks_for(e), amc::kThreads,
-                        sizeof(int) * total, stream>>>(
-        vals, mask, n, event_idx, e, num_bins, bin_width, bins, counts + 1);
-  }
-  drop_kernel<<<1, 1, 0, stream>>>(counts, counts + 1, hist_drop_count);
-  cudaMemsetAsync(vals_out, 0, sizeof(float) * 4 * n, stream);
-  cudaMemsetAsync(mask_out, 0, n, stream);
-  add_hist_kernel<<<amc::blocks_for(total), amc::kThreads, 0, stream>>>(
-      bins, total, hist);
+  kernel<<<nblocks, amc::kThreads, bytes, stream>>>(
+      vals, mask, n, event_idx, e, num_bins, bin_width, hist, path_sum,
+      path_count, hist_drop_count, ints, block_sums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,83 +9,168 @@
 // of a packed (N+1, 6) source, a compaction, two scatter-mins and E-row
 // gathers and scatters.
 //
-// Bound: memory.  The test reads each of the ~430k entries' two rows of
-// position (24 bytes); everything after it touches only the few thousand
-// colliding entries and one pass over the particles.
+// Bound: memory.  The test reads each of the ~430k entries' a and b and the
+// positions of the listed particles; everything after it touches only the
+// few thousand colliding entries and the particles they resolve.  The
+// state, the staging and the counters are updated in place: no pass over
+// all particles and no whole-array copy.
 //
-// Design, in launch order:
-//   1. test: one thread per entry, colliding = a < n && d^2 < cr^2 with
-//      d^2 = (dx*dx + dy*dy) + dz*dz, dx = pos_b - pos_a.  The sentinel
-//      entry (a == b == n) is never tested, so no far dummy row is needed.
-//   2. K6 compaction of the colliding entries at event_capacity; the
-//      number beyond it is the caller's ev_dropped.
-//   3. choice: integer atomicMin over (n+1,) of each endpoint's partner
-//      (the reference's .at[].min scatters; an integer minimum is the same
-//      in any order).
-//   4. resolve: one thread per event; a mutual pair that approaches and
-//      overlaps is rewound, exchanges the impulse and replays
-//      (pairs.py:358-383, the same operation order).  The thread reads
-//      only the inputs and writes both particles into fresh output arrays.
-//      Duplicate and reversed entries (i, j) and (j, i) write bitwise
-//      identical values: every step of the formula is sign-symmetric, and
-//      the library is built with -fmad=false.
-//   5. one thread per particle: record_completed with the pre-collision
-//      velocity, end_paths with the residual along the new velocity, and
-//      the count of resolved particles (integer block count plus one
-//      atomicAdd a block); the caller halves it.
+// Design, three launches:
+//   1. test and compact: one thread takes four consecutive entries,
+//      colliding = a < n && b < n && d^2 < cr^2 with
+//      d^2 = (dx*dx + dy*dy) + dz*dz, dx = pos_b - pos_a (the sentinel
+//      entry a == b == n is never tested).  The ranks come from K6's
+//      single-pass scan (lookback.cuh); an entry of rank < event_capacity
+//      writes its endpoints into the event list and takes part in the
+//      choice: integer atomicMin of each endpoint's partner into choice (the
+//      reference's .at[].min scatters; an integer minimum is the same in any
+//      order).  The block of the last tile knows the number of colliding
+//      entries: it stores the number of events kept and adds the rest to
+//      overflow_count.  The same launch zeroes the (N,) collided mask.
+//   2. resolve: one thread an event.  A pair (lo, hi) is mutual when
+//      choice[hi] == lo and choice[lo] == hi; duplicate and reversed
+//      entries list it more than once, so the thread whose atomicCAS turns
+//      choice[lo] from hi into INT_BIG claims it, and only that thread
+//      reads and writes the two particles.  Every candidate would compute
+//      the same values (each step of the formula is sign-symmetric, and the
+//      library is built with -fmad=false), so the result does not depend on
+//      which one wins.  A claimed pair that approaches and overlaps is
+//      rewound, exchanges the impulse and replays (pairs.py:358-383, the
+//      same operation order); then for both particles record_completed
+//      with the pre-collision velocity it holds in registers and
+//      end_paths along the new velocity, and the pair is counted (an
+//      integer block count, one atomicAdd a block into n_collisions and
+//      collision_count).
+//   3. reset: choice back to INT_BIG at every event's endpoints, so the
+//      scratch is INT_BIG between calls and no N-sized fill is needed.
+// The scratches (look-back words, choice, event list) belong to one stream
+// and are kept so by the kernels themselves; nothing about a call comes
+// from the host, so the launches replay correctly in a CUDA graph.  No
+// float atomics.
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
-__global__ void test_entries_kernel(const float* __restrict__ pos,
-                                    const int* __restrict__ a,
-                                    const int* __restrict__ b, int m, int n,
-                                    float cr2,
-                                    uint8_t* __restrict__ colliding) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  int i = a[e];
-  int j = b[e];
-  bool hit = false;
-  if (i < n && j < n) {
-    float dx = pos[3 * j] - pos[3 * i];
-    float dy = pos[3 * j + 1] - pos[3 * i + 1];
-    float dz = pos[3 * j + 2] - pos[3 * i + 2];
-    float d2 = dx * dx + dy * dy;
-    d2 = d2 + dz * dz;
-    hit = d2 < cr2;
+constexpr int kEntries = 4;  // entries a thread of the test, one int4 load
+constexpr int kTile = amc::kThreads * kEntries;
+
+__device__ __forceinline__ bool collides(const float* __restrict__ pos,
+                                         int i, int j, int n, float cr2) {
+  if (i >= n || j >= n) return false;
+  float dx = pos[3 * j] - pos[3 * i];
+  float dy = pos[3 * j + 1] - pos[3 * i + 1];
+  float dz = pos[3 * j + 2] - pos[3 * i + 2];
+  float d2 = dx * dx + dy * dy;
+  d2 = d2 + dz * dz;
+  return d2 < cr2;
+}
+
+// kVector: a and b are 16-byte aligned.
+template <bool kVector>
+__launch_bounds__(amc::kThreads) __global__ void test_compact_kernel(
+    const float* __restrict__ pos, const int* __restrict__ a,
+    const int* __restrict__ b, int m, int n, float cr2, int e_cap,
+    int ntiles, unsigned long long* __restrict__ scan,
+    int* __restrict__ ev_a, int* __restrict__ ev_b, int* __restrict__ events,
+    int* choice, uint8_t* __restrict__ collided,
+    int* __restrict__ n_collisions, int* __restrict__ overflow_count) {
+  long long gid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                  threadIdx.x;
+  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long head = 0;
+  if ((reinterpret_cast<uintptr_t>(collided) & 15u) == 0) {
+    head = n / 16;
+    for (long long q = gid; q < head; q += stride) {
+      reinterpret_cast<uint4*>(collided)[q] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    head *= 16;
   }
-  colliding[e] = hit;
+  for (long long i = head + gid; i < n; i += stride) collided[i] = 0;
+
+  int tile = amc::take_tile(scan);
+  long long first = static_cast<long long>(tile) * kTile +
+                    threadIdx.x * kEntries;
+  int ia[kEntries], ib[kEntries];
+  if (kVector && first + kEntries <= m) {
+    int4 va = *reinterpret_cast<const int4*>(a + first);
+    int4 vb = *reinterpret_cast<const int4*>(b + first);
+    ia[0] = va.x, ia[1] = va.y, ia[2] = va.z, ia[3] = va.w;
+    ib[0] = vb.x, ib[1] = vb.y, ib[2] = vb.z, ib[3] = vb.w;
+  } else {
+    for (int k = 0; k < kEntries; ++k) {
+      bool in = first + k < m;
+      ia[k] = in ? a[first + k] : n;
+      ib[k] = in ? b[first + k] : n;
+    }
+  }
+  unsigned bits = 0;  // bit k: entry first + k collides
+#pragma unroll
+  for (int k = 0; k < kEntries; ++k) {
+    if (collides(pos, ia[k], ib[k], n, cr2)) bits |= 1u << k;
+  }
+  int tile_total;
+  int rank = amc::block_exclusive_scan(__popc(bits), &tile_total);
+  bool last;
+  int prefix = amc::tile_prefix(scan, tile, tile_total, ntiles, &last);
+  rank += prefix;
+#pragma unroll
+  for (int k = 0; k < kEntries; ++k) {
+    if (!((bits >> k) & 1u)) continue;
+    if (rank < e_cap) {
+      ev_a[rank] = ia[k];
+      ev_b[rank] = ib[k];
+      atomicMin(&choice[ia[k]], ib[k]);
+      atomicMin(&choice[ib[k]], ia[k]);
+    }
+    ++rank;
+  }
+  if (tile == ntiles - 1 && threadIdx.x == 0) {
+    // Every ticket is taken and every earlier tile is counted in prefix.
+    int total = prefix + tile_total;
+    *events = min(total, e_cap);
+    *overflow_count += max(total - e_cap, 0);
+    *n_collisions = 0;
+  }
+  if (last) amc::release_tiles(scan, ntiles);
 }
 
-__global__ void choice_kernel(const int* __restrict__ eidx, int e_cap, int m,
-                              const int* __restrict__ a,
-                              const int* __restrict__ b,
-                              int* __restrict__ choice) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= e_cap) return;
-  int e = eidx[k];
-  if (e >= m) return;
-  int i = a[e];
-  int j = b[e];
-  atomicMin(&choice[i], j);
-  atomicMin(&choice[j], i);
+// record_completed with the pre-collision velocity v, then end_paths along
+// the new velocity u (the reference's order of operations).
+__device__ __forceinline__ void end_path(
+    int i, float vx, float vy, float vz, float ux, float uy, float uz,
+    float t, float* __restrict__ paths, uint8_t* __restrict__ has_collided,
+    float* __restrict__ pend_vals, uint8_t* __restrict__ pend_mask,
+    uint8_t* __restrict__ collided) {
+  float* pth = paths + 4 * i;
+  float p0 = pth[0], p1 = pth[1], p2 = pth[2], p3 = pth[3];
+  if (has_collided[i]) {
+    float s2 = vx * vx + vy * vy;
+    s2 = s2 + vz * vz;
+    float* out = pend_vals + 4 * i;
+    out[0] = fabsf(p0 - sqrtf(s2) * t);
+    out[1] = fabsf(p1 - fabsf(vx) * t);
+    out[2] = fabsf(p2 - fabsf(vy) * t);
+    out[3] = fabsf(p3 - fabsf(vz) * t);
+    pend_mask[i] = 1;
+  }
+  float u2 = ux * ux + uy * uy;
+  u2 = u2 + uz * uz;
+  pth[0] = fabsf(sqrtf(u2) * t);
+  pth[1] = fabsf(fabsf(ux) * t);
+  pth[2] = fabsf(fabsf(uy) * t);
+  pth[3] = fabsf(fabsf(uz) * t);
+  has_collided[i] = 1;
+  collided[i] = 1;
 }
 
-__global__ void resolve_events_kernel(
-    const int* __restrict__ eidx, int e_cap, int m, const int* __restrict__ a,
-    const int* __restrict__ b, const int* __restrict__ choice,
-    const float* __restrict__ pos, const float* __restrict__ vel, float cr,
-    float cr2, float* __restrict__ pos_out, float* __restrict__ vel_out,
-    uint8_t* __restrict__ mask_n, float* __restrict__ t_n) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= e_cap) return;
-  int e = eidx[k];
-  if (e >= m) return;
-  int i = a[e];
-  int j = b[e];
-  if (choice[i] != j || choice[j] != i) return;
-
+// Rewind, exchange and replay the pair (i, j) in place when it approaches
+// and overlaps; returns whether it did.
+__device__ __forceinline__ bool resolve_pair(
+    int i, int j, float cr, float cr2, float* __restrict__ pos,
+    float* __restrict__ vel, float* __restrict__ paths,
+    uint8_t* __restrict__ has_collided, float* __restrict__ pend_vals,
+    uint8_t* __restrict__ pend_mask, uint8_t* __restrict__ collided) {
   float ax = pos[3 * i], ay = pos[3 * i + 1], az = pos[3 * i + 2];
   float avx = vel[3 * i], avy = vel[3 * i + 1], avz = vel[3 * i + 2];
   float bx = pos[3 * j], by = pos[3 * j + 1], bz = pos[3 * j + 2];
@@ -101,7 +186,7 @@ __global__ void resolve_events_kernel(
   cs = cs + dxz * dxz;
   float cc = cs - cr2;
   float disc = bb * bb - (4.0f * aa) * cc;
-  if (!((aa > 0.0f) && (disc >= 0.0f) && (cc < 0.0f))) return;
+  if (!((aa > 0.0f) && (disc >= 0.0f) && (cc < 0.0f))) return false;
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float den = 2.0f * aa;
   float t = fmaxf((-bb + sq) / den, (-bb - sq) / den);
@@ -114,107 +199,102 @@ __global__ void resolve_events_kernel(
   float nax = avx - ps * nx, nay = avy - ps * ny, naz = avz - ps * nz;
   float nbx = bvx + ps * nx, nby = bvy + ps * ny, nbz = bvz + ps * nz;
 
-  pos_out[3 * i] = qax + nax * t;
-  pos_out[3 * i + 1] = qay + nay * t;
-  pos_out[3 * i + 2] = qaz + naz * t;
-  vel_out[3 * i] = nax;
-  vel_out[3 * i + 1] = nay;
-  vel_out[3 * i + 2] = naz;
-  pos_out[3 * j] = qbx + nbx * t;
-  pos_out[3 * j + 1] = qby + nby * t;
-  pos_out[3 * j + 2] = qbz + nbz * t;
-  vel_out[3 * j] = nbx;
-  vel_out[3 * j + 1] = nby;
-  vel_out[3 * j + 2] = nbz;
-  mask_n[i] = 1;
-  mask_n[j] = 1;
-  t_n[i] = t;
-  t_n[j] = t;
+  pos[3 * i] = qax + nax * t;
+  pos[3 * i + 1] = qay + nay * t;
+  pos[3 * i + 2] = qaz + naz * t;
+  vel[3 * i] = nax;
+  vel[3 * i + 1] = nay;
+  vel[3 * i + 2] = naz;
+  pos[3 * j] = qbx + nbx * t;
+  pos[3 * j + 1] = qby + nby * t;
+  pos[3 * j + 2] = qbz + nbz * t;
+  vel[3 * j] = nbx;
+  vel[3 * j + 1] = nby;
+  vel[3 * j + 2] = nbz;
+  end_path(i, avx, avy, avz, nax, nay, naz, t, paths, has_collided,
+           pend_vals, pend_mask, collided);
+  end_path(j, bvx, bvy, bvz, nbx, nby, nbz, t, paths, has_collided,
+           pend_vals, pend_mask, collided);
+  return true;
 }
 
-__global__ void particle_pass_kernel(
-    const float* __restrict__ vel, const float* __restrict__ vel_out,
-    const float* __restrict__ paths, const uint8_t* __restrict__ has_collided,
-    const float* __restrict__ pend_vals, const uint8_t* __restrict__ pend_mask,
-    const uint8_t* __restrict__ mask_n, const float* __restrict__ t_n, int n,
-    float* __restrict__ paths_out, uint8_t* __restrict__ has_out,
-    float* __restrict__ pend_vals_out, uint8_t* __restrict__ pend_mask_out,
-    int* __restrict__ count) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool m = false;
-  if (i < n) {
-    m = mask_n[i] != 0;
-    float t = t_n[i];
-    const float* pth = paths + 4 * i;
-    // record_completed with the pre-collision velocity.
-    float vx = vel[3 * i], vy = vel[3 * i + 1], vz = vel[3 * i + 2];
-    float s2 = vx * vx + vy * vy;
-    s2 = s2 + vz * vz;
-    bool emit = m && has_collided[i];
-    float comp[4] = {fabsf(pth[0] - sqrtf(s2) * t), fabsf(pth[1] - fabsf(vx) * t),
-                     fabsf(pth[2] - fabsf(vy) * t), fabsf(pth[3] - fabsf(vz) * t)};
-    for (int k = 0; k < 4; ++k)
-      pend_vals_out[4 * i + k] = emit ? comp[k] : pend_vals[4 * i + k];
-    pend_mask_out[i] = pend_mask[i] | emit;
-    // end_paths(zero_residual=False) along the new velocity.
-    float ux = vel_out[3 * i], uy = vel_out[3 * i + 1], uz = vel_out[3 * i + 2];
-    float u2 = ux * ux + uy * uy;
-    u2 = u2 + uz * uz;
-    float res[4] = {fabsf(sqrtf(u2) * t), fabsf(fabsf(ux) * t),
-                    fabsf(fabsf(uy) * t), fabsf(fabsf(uz) * t)};
-    for (int k = 0; k < 4; ++k) paths_out[4 * i + k] = m ? res[k] : pth[k];
-    has_out[i] = has_collided[i] | m;
-  }
-  int block_count = __syncthreads_count(m);
-  if (threadIdx.x == 0 && block_count > 0) atomicAdd(count, block_count);
-}
-
-__global__ void fill_int_kernel(int* __restrict__ out, int size, int value) {
+__global__ void resolve_kernel(
+    const int* __restrict__ ev_a, const int* __restrict__ ev_b,
+    const int* __restrict__ events, int* choice, float cr, float cr2,
+    float* __restrict__ pos, float* __restrict__ vel,
+    float* __restrict__ paths, uint8_t* __restrict__ has_collided,
+    float* __restrict__ pend_vals, uint8_t* __restrict__ pend_mask,
+    uint8_t* __restrict__ collided, int* __restrict__ n_collisions,
+    int* __restrict__ collision_count) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < size) out[k] = value;
+  bool resolved = false;
+  if (k < *events) {
+    int i = ev_a[k];
+    int j = ev_b[k];
+    int lo = min(i, j);
+    int hi = max(i, j);
+    // choice[hi] == lo is never rewritten in this launch (only a pair's
+    // lower index is claimed, and hi's own pair would be (lo, hi)), so the
+    // claim on choice[lo] alone decides which candidate resolves the pair.
+    if (choice[hi] == lo && atomicCAS(&choice[lo], hi, amc::kIntBig) == hi) {
+      resolved = resolve_pair(i, j, cr, cr2, pos, vel, paths, has_collided,
+                              pend_vals, pend_mask, collided);
+    }
+  }
+  int count = __syncthreads_count(resolved);
+  if (threadIdx.x == 0 && count > 0) {
+    atomicAdd(n_collisions, count);
+    atomicAdd(collision_count, count);
+  }
+}
+
+__global__ void reset_choice_kernel(const int* __restrict__ ev_a,
+                                    const int* __restrict__ ev_b,
+                                    const int* __restrict__ events,
+                                    int* __restrict__ choice) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < *events) {
+    choice[ev_a[k]] = amc::kIntBig;
+    choice[ev_b[k]] = amc::kIntBig;
+  }
 }
 
 }  // namespace
 
-// Outputs: the six state/staging arrays (fresh), mask_n (n,), count (the
-// number of resolved particles), ev_total (the number of colliding
-// entries).  Scratch: colliding (m) u8, eidx (e_cap) i32, block_vals and
-// block_offsets (blocks_for(m) i32 each), choice (n + 1) i32, t_n (n) f32.
+// In place: pos, vel, paths, has_collided, pend_vals, pend_mask,
+// collision_count (+= resolved pairs) and overflow_count (+= colliding
+// entries beyond e_cap).  Outputs: collided (n,) and n_collisions (the
+// resolved pairs).  Scratch of this stream, kept by the kernels: scan
+// (1 + ceil(m / 1024) words, zero between calls), choice (n ints, INT_BIG
+// between calls), events (1 + 2 * e_cap ints: the number kept, then the
+// kept entries' a and b).
 AMC_EXPORT int amc_test_and_resolve(
-    const float* pos, const float* vel, const float* paths,
-    const uint8_t* has_collided, const float* pend_vals,
-    const uint8_t* pend_mask, const int* a, const int* b, int n, int m,
-    int e_cap, float cr, float cr2, float* pos_out, float* vel_out,
-    float* paths_out, uint8_t* has_out, float* pend_vals_out,
-    uint8_t* pend_mask_out, uint8_t* mask_n, int* count, int* ev_total,
-    uint8_t* colliding, int* eidx, int* block_vals, int* block_offsets,
-    int* choice, float* t_n, cudaStream_t stream) {
-  if (m > 0) {
-    test_entries_kernel<<<amc::blocks_for(m), amc::kThreads, 0, stream>>>(
-        pos, a, b, m, n, cr2, colliding);
+    float* pos, float* vel, float* paths, uint8_t* has_collided,
+    float* pend_vals, uint8_t* pend_mask, int* collision_count,
+    int* overflow_count, const int* a, const int* b, int n, int m, int e_cap,
+    float cr, float cr2, uint8_t* collided, int* n_collisions,
+    unsigned long long* scan, int* choice, int* events,
+    cudaStream_t stream) {
+  int ntiles = max(amc::blocks_for(m, kTile), 1);
+  int* ev_a = events + 1;
+  int* ev_b = ev_a + e_cap;
+  if (((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+       15u) == 0) {
+    test_compact_kernel<true><<<ntiles, amc::kThreads, 0, stream>>>(
+        pos, a, b, m, n, cr2, e_cap, ntiles, scan, ev_a, ev_b, events, choice,
+        collided, n_collisions, overflow_count);
+  } else {
+    test_compact_kernel<false><<<ntiles, amc::kThreads, 0, stream>>>(
+        pos, a, b, m, n, cr2, e_cap, ntiles, scan, ev_a, ev_b, events, choice,
+        collided, n_collisions, overflow_count);
   }
-  amc::compact_launch(colliding, m, e_cap, m, eidx, ev_total, block_vals,
-                      block_offsets, stream);
-  cudaMemcpyAsync(pos_out, pos, sizeof(float) * 3 * n,
-                  cudaMemcpyDeviceToDevice, stream);
-  cudaMemcpyAsync(vel_out, vel, sizeof(float) * 3 * n,
-                  cudaMemcpyDeviceToDevice, stream);
-  cudaMemsetAsync(mask_n, 0, n, stream);
-  cudaMemsetAsync(t_n, 0, sizeof(float) * n, stream);
-  cudaMemsetAsync(count, 0, sizeof(int), stream);
-  fill_int_kernel<<<amc::blocks_for(n + 1), amc::kThreads, 0, stream>>>(
-      choice, n + 1, amc::kIntBig);
   if (e_cap > 0) {
-    choice_kernel<<<amc::blocks_for(e_cap), amc::kThreads, 0, stream>>>(
-        eidx, e_cap, m, a, b, choice);
-    resolve_events_kernel<<<amc::blocks_for(e_cap), amc::kThreads, 0,
-                            stream>>>(eidx, e_cap, m, a, b, choice, pos, vel,
-                                      cr, cr2, pos_out, vel_out, mask_n, t_n);
-  }
-  if (n > 0) {
-    particle_pass_kernel<<<amc::blocks_for(n), amc::kThreads, 0, stream>>>(
-        vel, vel_out, paths, has_collided, pend_vals, pend_mask, mask_n, t_n,
-        n, paths_out, has_out, pend_vals_out, pend_mask_out, count);
+    int blocks = amc::blocks_for(e_cap);
+    resolve_kernel<<<blocks, amc::kThreads, 0, stream>>>(
+        ev_a, ev_b, events, choice, cr, cr2, pos, vel, paths, has_collided,
+        pend_vals, pend_mask, collided, n_collisions, collision_count);
+    reset_choice_kernel<<<blocks, amc::kThreads, 0, stream>>>(ev_a, ev_b,
+                                                             events, choice);
   }
   return static_cast<int>(cudaGetLastError());
 }

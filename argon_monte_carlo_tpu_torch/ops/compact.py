@@ -5,7 +5,8 @@ Port of ``argon_monte_carlo_tpu.ops.compact.compact_indices``
 (``kernels/csrc/compact.cu``) for a CUDA mask and runs the plain version
 ``compact_indices_plain`` for a CPU one.  The pairs engine compacts its
 per-step dirty and staged particles with it, the z-slab engine a slab's
-free lanes; K3 compacts on the way inside its own kernels.
+free lanes; K3 compacts on the way inside its own first launch, with the
+same single-pass scan.
 
 The kernel is one launch: a single-pass scan whose tiles hand their
 totals on through a small status array.  That array is scratch the
@@ -29,7 +30,8 @@ from .. import kernels
 
 # Mask entries a block of the kernel takes (compact.cu kTile).
 TILE = 4096
-# (device index, stream handle) -> scratch (int64, zero between calls).
+# (device index, stream handle) -> the look-back scratch of K6 and K3 (int64,
+# zero between calls).
 _scratch: dict = {}
 # Scratches that a larger one replaced: kept for the life of the process,
 # because a captured launch may still hold their address.
@@ -48,24 +50,34 @@ def compact_indices_plain(mask: torch.Tensor, size: int,
     return out
 
 
-def _scratch_for(dev: torch.device, tiles: int) -> torch.Tensor:
-    """The scratch of a call on ``dev``'s current stream: at least
-    1 + ``tiles`` 64-bit words (ticket and finished count, a status word a
-    tile), zero when allocated and zero again after every call.  A mask
-    with more tiles than the scratch has words takes a new, larger zeroed
+def stream_scratch(store: dict, dev: torch.device, size: int,
+                   dtype: torch.dtype, fill) -> torch.Tensor:
+    """The scratch in ``store`` of a call on ``dev``'s current stream: at
+    least ``size`` elements of ``dtype``, all ``fill`` when allocated, and
+    kept in the state the kernel documents between calls (the kernel
+    restores it).  A call that needs more elements takes a new, larger
     tensor; the old one is retired, not freed, since a captured launch may
-    replay into it (it is all zero between calls, so such a replay stays
-    right)."""
+    replay into it.  Shared by K6, K3 and K7's compacted entry."""
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
     key = (dev.index, stream)
-    scratch = _scratch.get(key)
-    if scratch is None or scratch.shape[0] < tiles + 1:
+    scratch = store.get(key)
+    if scratch is None or scratch.shape[0] < size:
         if scratch is not None:
             _retired.append(scratch)
-        scratch = _scratch[key] = torch.zeros(
-            max(2 * (tiles + 1), 1024), dtype=torch.int64, device=dev)
+        scratch = store[key] = torch.full((max(2 * size, 1024),), fill,
+                                          dtype=dtype, device=dev)
     return scratch
+
+
+def lookback_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
+    """The single-pass scan's scratch (``kernels/csrc/lookback.cuh``) of a
+    call on ``dev``'s current stream: at least 1 + ``tiles`` 64-bit words
+    (ticket and finished count, a status word a tile), zero when allocated
+    and zero again after every call of K6 or K3, which share it (see
+    ``stream_scratch``; a zero scratch that a captured launch still holds
+    stays right)."""
+    return stream_scratch(_scratch, dev, tiles + 1, torch.int64, 0)
 
 
 def compact_indices(mask: torch.Tensor, size: int,
@@ -90,7 +102,7 @@ def compact_indices(mask: torch.Tensor, size: int,
     length = mask.shape[0]
     kernels.check(mask, "mask", torch.bool, (length,), dev)
     out = torch.empty(size, dtype=torch.int32, device=dev)
-    scratch = _scratch_for(dev, -(-length // TILE))
+    scratch = lookback_scratch(dev, -(-length // TILE))
     p = kernels.ptr
     kernels.launch("compact", dev, p(mask), length, size, fill_value,
                    p(out), p(scratch))

@@ -22,7 +22,9 @@ rebuilds on the window schedule alone, as the reference's does.
 Each kernel wrapper (``emit_pairs`` K5, ``test_and_resolve`` K3,
 ``research_dirty`` K4) runs its plain PyTorch twin (``*_plain``, same
 signature and outputs) for CPU tensors and launches the CUDA kernel for
-CUDA tensors.
+CUDA tensors.  K3 and K4, and their twins, update the step's own tensors
+in place (the state and staging, the pair list) and return them: a
+caller that needs its inputs afterwards passes copies.
 """
 
 from __future__ import annotations
@@ -37,9 +39,16 @@ from ..state import Measurements, ParticleState
 from . import collide
 from . import fp
 from . import measure as measure_ops
-from .compact import compact_indices_plain
+from .compact import compact_indices_plain, lookback_scratch, stream_scratch
 
 INT_BIG = 1 << 30
+# Entries a block of K3's test takes (test_resolve.cu kTile).
+K3_TILE = 1024
+# K3's scratch besides the look-back words it shares with K6, one a (device
+# index, stream handle): the choice (int32, INT_BIG between calls) and the
+# kept events (their count, a and b).
+_K3_CHOICE: dict = {}
+_K3_EVENTS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,8 +286,10 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
                            a: torch.Tensor, b: torch.Tensor, cr: float,
                            event_capacity: int):
     """Plain version of K3.  Returns (state, measure, n_collisions (),
-    collided (N,) bool), with ``collision_count`` and ``overflow_count``
-    (colliding entries beyond ``event_capacity``) updated.
+    collided (N,) bool); ``state``'s four tensors and ``measure``'s
+    ``pending_vals``, ``pending_mask``, ``collision_count`` and
+    ``overflow_count`` (colliding entries beyond ``event_capacity``) are
+    updated in place and returned, as the kernel does.
 
     Every entry is tested at d^2 < cr^2 on the current positions (sentinel
     entries never collide); the colliding ones are compacted; each particle
@@ -343,26 +354,36 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
     t_n[ia] = t[ok]
     t_n[ib] = t[ok]
 
-    measure = measure_ops.record_completed(
+    staged = measure_ops.record_completed(
         measure, state.paths, state.has_collided, vel, t_n, mask_n)
-    pos_out, vel_out = pos.clone(), vel.clone()
-    pos_out[ia], pos_out[ib] = new_pos_a[ok], new_pos_b[ok]
+    vel_out = vel.clone()
     vel_out[ia], vel_out[ib] = new_vel_a[ok], new_vel_b[ok]
-    state = dataclasses.replace(state, pos=pos_out, vel=vel_out)
-    state = measure_ops.end_paths(state, mask_n, t_n, vel_out,
+    ended = measure_ops.end_paths(state, mask_n, t_n, vel_out,
                                   zero_residual=False)
     n_collisions = torch.sum(mask_n, dtype=torch.int32) // 2
-    measure = dataclasses.replace(
-        measure, collision_count=measure.collision_count + n_collisions,
-        overflow_count=measure.overflow_count + ev_dropped)
+    # In place, once everything is computed from the inputs.
+    pos[ia], pos[ib] = new_pos_a[ok], new_pos_b[ok]
+    vel.copy_(vel_out)
+    state.paths.copy_(ended.paths)
+    state.has_collided.copy_(ended.has_collided)
+    measure.pending_vals.copy_(staged.pending_vals)
+    measure.pending_mask.copy_(staged.pending_mask)
+    measure.collision_count.add_(n_collisions)
+    measure.overflow_count.add_(ev_dropped)
     return state, measure, n_collisions, mask_n
 
 
 def test_and_resolve(state: ParticleState, measure: Measurements,
                      a: torch.Tensor, b: torch.Tensor, cr: float,
                      event_capacity: int):
-    """K3 (see ``test_and_resolve_plain``); CUDA kernel for CUDA
-    tensors."""
+    """K3 (see ``test_and_resolve_plain``); CUDA kernels for CUDA tensors,
+    three launches in one call: the test with the compaction and the
+    choice, the resolve with the staging, and the reset of the choice
+    scratch.  In place like the twin; the only allocations are the
+    ``collided`` mask and ``n_collisions``.  The scratch is kept for each
+    stream of each device and restored by the kernels (the look-back
+    words are K6's, ``ops/compact.lookback_scratch``); as with K6, make
+    one call on a stream before recording one in a CUDA graph there."""
     pos = state.pos
     if kernels.use_plain(pos):
         return test_and_resolve_plain(state, measure, a, b, cr,
@@ -376,37 +397,24 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
         (state.has_collided, "has_collided", b8, (n,)),
         (measure.pending_vals, "pending_vals", f32, (n, 4)),
         (measure.pending_mask, "pending_mask", b8, (n,)),
+        (measure.collision_count, "collision_count", i32, ()),
+        (measure.overflow_count, "overflow_count", i32, ()),
+        (a, "a", i32, (m,)), (b, "b", i32, (m,)),
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
-    kernels.check(a, "a", i32, (m,), dev)
-    kernels.check(b, "b", i32, (m,), dev)
-    outs = [torch.empty_like(t) for t, *_ in inputs]
-    pos_o, vel_o, paths_o, has_o, pv_o, pm_o = outs
-    mask_n = torch.empty(n, dtype=b8, device=dev)
-    counts = torch.empty(2, dtype=i32, device=dev)  # resolved, colliding
-    colliding = torch.empty(m, dtype=b8, device=dev)
-    eidx = torch.empty(event_capacity, dtype=i32, device=dev)
-    nblocks = -(-m // 256)
-    scratch = torch.empty((2, nblocks), dtype=i32, device=dev)
-    choice = torch.empty(n + 1, dtype=i32, device=dev)
-    t_n = torch.empty(n, dtype=f32, device=dev)
+    collided = torch.empty(n, dtype=b8, device=dev)
+    n_collisions = torch.empty((), dtype=i32, device=dev)
+    scan = lookback_scratch(dev, -(-m // K3_TILE))
+    choice = stream_scratch(_K3_CHOICE, dev, n, i32, INT_BIG)
+    events = stream_scratch(_K3_EVENTS, dev, 1 + 2 * event_capacity, i32, 0)
     p = kernels.ptr
     kernels.launch(
-        "test_and_resolve", dev, *(p(t) for t, *_ in inputs), p(a), p(b), n,
-        m, event_capacity, cr, cr * cr, *(p(t) for t in outs), p(mask_n),
-        p(counts[0]), p(counts[1]), p(colliding), p(eidx), p(scratch[0]),
-        p(scratch[1]), p(choice), p(t_n),
+        "test_and_resolve", dev, *(p(t) for t, *_ in inputs), n, m,
+        event_capacity, cr, cr * cr, p(collided), p(n_collisions), p(scan),
+        p(choice), p(events),
     )
-    n_collisions = counts[0] // 2
-    ev_dropped = torch.clamp(counts[1] - event_capacity, min=0)
-    state = ParticleState(pos=pos_o, vel=vel_o, paths=paths_o,
-                          has_collided=has_o)
-    measure = dataclasses.replace(
-        measure, pending_vals=pv_o, pending_mask=pm_o,
-        collision_count=measure.collision_count + n_collisions,
-        overflow_count=measure.overflow_count + ev_dropped)
-    return state, measure, n_collisions, mask_n
+    return state, measure, n_collisions, collided
 
 
 # --------------------------------------------------------------------------
@@ -417,14 +425,14 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
 def research_dirty_plain(state: ParticleState, plist: PairList,
                          dirty_idx: torch.Tensor, bump: torch.Tensor,
                          grid: collide.DeviceGrid, pcfg: PairConfig,
-                         cr: float, dt: float, in_place: bool = False):
+                         cr: float, dt: float):
     """Plain version of K4.  Returns (plist, lost () bool, latent_per (E,)
     int32).
 
-    With ``in_place`` the list's ``reach0``, ``hot``, ``a`` and ``b`` are
-    updated where they are and returned in the new list: the same list as
-    the copying form gives, without four whole-plane copies, for a caller
-    that does not read the old list again.
+    The list's ``reach0``, ``hot``, ``a`` and ``b`` are updated in place
+    and returned in the new list (with a new ``cursor`` and ``overflow``),
+    as the kernels do: a caller that reads the old list again passes one
+    with copies of those four.
 
     ``dirty_idx`` (E,) lists particles, n = padding.  First every
     speed-changed (``bump``) listed particle's stored reach grows in place
@@ -457,13 +465,13 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     # In-place reach bumps, all of them before any search.
     slot = plist.pslot0[safe].long()
     bump_i = valid & bump[safe] & (slot < grid.num_cells * cap)
-    reach0 = plist.reach0 if in_place else plist.reach0.clone()
+    reach0 = plist.reach0
     flat = reach0.view(-1)
     grown = flat[slot[bump_i]] + (reach_i[bump_i] - 0.5 * cr)
     flat[slot[bump_i]] = torch.clamp(grown, max=max_reach)
     newly = torch.zeros_like(valid)
     newly[bump_i] = grown > max_reach
-    hot = plist.hot if in_place else plist.hot.clone()
+    hot = plist.hot
     hot[safe[valid & (clipped_i | newly)]] = True
 
     # Search the 27 neighbour rows of the current cell.
@@ -497,8 +505,7 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     lane = torch.arange(pcfg.append_capacity, dtype=torch.int32, device=dev)
     write_pos = plist.cursor + lane
     in_cap = (write_pos < m_cap) & (lane < n_new)
-    a, b = ((plist.a, plist.b) if in_place
-            else (plist.a.clone(), plist.b.clone()))
+    a, b = plist.a, plist.b
     a[write_pos[in_cap].long()] = new_a[in_cap].to(torch.int32)
     b[write_pos[in_cap].long()] = new_b[in_cap].to(torch.int32)
     cap_dropped = torch.sum((lane < n_new) & ~in_cap, dtype=torch.int32)
@@ -513,17 +520,16 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
 def research_dirty(state: ParticleState, plist: PairList,
                    dirty_idx: torch.Tensor, bump: torch.Tensor,
                    grid: collide.DeviceGrid, pcfg: PairConfig, cr: float,
-                   dt: float, in_place: bool = False):
+                   dt: float):
     """K4 (see ``research_dirty_plain``); CUDA kernels for CUDA tensors,
     three launches: the bumps, the search (a warp a dirty lane) and the
     append, so every bump lands before any search reads ``reach0``.  The
-    kernels update ``reach0``, ``hot``, ``a`` and ``b`` where they are:
-    with ``in_place`` those are the list's own tensors (the step path:
-    nothing reads the old list again), otherwise copies of them."""
+    kernels update the list's ``reach0``, ``hot``, ``a`` and ``b`` in
+    place, as the twin does."""
     pos = state.pos
     if kernels.use_plain(pos):
         return research_dirty_plain(state, plist, dirty_idx, bump, grid,
-                                    pcfg, cr, dt, in_place=in_place)
+                                    pcfg, cr, dt)
     dev = pos.device
     n = pos.shape[0]
     e = dirty_idx.shape[0]
@@ -553,8 +559,6 @@ def research_dirty(state: ParticleState, plist: PairList,
     for t, name, dt_, shape in checks:
         kernels.check(t, name, dt_, shape, dev)
     reach0, hot, a, b = plist.reach0, plist.hot, plist.a, plist.b
-    if not in_place:
-        reach0, hot, a, b = reach0.clone(), hot.clone(), a.clone(), b.clone()
     # One allocation: cursor, overflow, latent_per (e), then the scratch,
     # a word a lane (e) and the lanes' lists (e * rk).
     ints = torch.empty(2 + e * (2 + rk), dtype=i32, device=dev)

@@ -2,9 +2,12 @@
 
 Port of ``argon_monte_carlo_tpu.state``.  Struct-of-arrays layout:
 ``pos``/``vel`` are ``(N, 3)``, path accumulators ``(N, 4)`` in the axis
-order (total, x, y, z).  Every engine function returns new tensors and
-never writes into its inputs, as the JAX reference does: the step keeps the
-pre-drift positions (``prior``) by reference while the walls run.
+order (total, x, y, z).  The engine functions return new tensors and never
+write into their inputs, as the JAX reference does (the step keeps the
+pre-drift positions, ``prior``, by reference while the walls run), except
+the pairs step's kernels K3, K4 and K7's compacted entry, which update the
+step's own state, staging, counters and pair list in place;
+``Simulation.run`` therefore carries copies of what its caller hands it.
 
 Counters are 0-d int32 tensors on the state's device, so a run never has
 to read them back to the host inside an epoch.

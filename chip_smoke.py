@@ -18,9 +18,13 @@ exits non-zero without a result line):
    entry, K6 also at lengths around its tile, on an unaligned view, over
    100 calls in a row and as one launch recorded in a CUDA graph and
    replayed; K1 also with overflowing cells, a cut active list and rows
-   that saturate top_k; K4 in its copying and in-place forms, also with a
-   small append budget, a cursor near the list's end and lists that fill;
-   K8, the fused drift/walls/recapture pass,
+   that saturate top_k; K3, K4 and K7's compacted entry in place, each on
+   its own copy of the inputs and returning the tensors it was given: K4
+   also with a small append budget, a cursor near the list's end and
+   lists that fill, K3 also at event capacity 64 and with reversed and
+   repeated duplicate entries, K7c with some events unlisted and with all
+   listed, K3 and K7c also recorded in a CUDA graph and replayed three
+   times on changed inputs; K8, the fused drift/walls/recapture pass,
    over 16 steps of the pairs slice) and of the 24,627-particle cube (K11, also at
    ~200k), with the kernel's, the plain version's and, where one exists,
    the library call's time beside the kernel's bound; K12 (band and index
@@ -668,62 +672,231 @@ def check_emit_pairs(case, tag: str, reps: int):
     return result(0.0, *timing, io)
 
 
-def check_test_and_resolve(case, plist, tag: str, reps: int):
-    """K3 one drift after the rebuild, with paths, has_collided and staging
-    drawn from the Generator; also at event_capacity 64 (events dropped).
-    Returns (result, state and measurements after the kernel)."""
+def own(obj):
+    """``obj`` (a dataclass of tensors) with every tensor cloned: the
+    in-place kernels and their twins are each given their own."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).clone()
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def refill(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same field of ``dst``."""
+    for f in dataclasses.fields(src):
+        t = getattr(src, f.name)
+        if isinstance(t, torch.Tensor):
+            getattr(dst, f.name).copy_(t)
+
+
+def same_tensors(got, given, label: str) -> None:
+    """The in-place kernel returned the tensors it was given."""
+    for f in dataclasses.fields(given):
+        t = getattr(given, f.name)
+        if isinstance(t, torch.Tensor):
+            require(getattr(got, f.name).data_ptr() == t.data_ptr(),
+                    f"{label}: {f.name} is not the tensor given")
+
+
+def net_ms(call, reset, reps: int):
+    """An in-place call's time on a fresh copy of its inputs each rep: the
+    reset and the call timed together, less the reset timed alone in the
+    same way.  The call is host code around microseconds of device work,
+    so it moves with the host: the median of three such pairs, and the
+    reset's time beside it."""
+    def both():
+        reset()
+        call()
+
+    pairs = sorted((timed_ms(both, reps) - alone, alone)
+                   for alone in (timed_ms(reset, reps) for _ in range(3)))
+    return pairs[1][0], pairs[1][1], [t for t, _ in pairs]
+
+
+def k3_inputs(case):
+    """The state one drift after the rebuild with paths and has_collided,
+    and staging within its contract (a row whose mask is clear is zero),
+    drawn from the case's Generator."""
     n, dev = case.n, case.dev
     state = case.state
     u = torch.rand((n, 6), generator=case.gen, device=dev)
     state = dataclasses.replace(
         state, pos=state.pos + case.dt * state.vel, paths=u[:, :4] * 2e-7,
         has_collided=u[:, 4] < 0.6)
+    mask = u[:, 5] < 0.1
     meas = dataclasses.replace(
         Measurements.zeros(case.cfg.engine.num_bins, torch.float32, n, dev),
-        pending_vals=u[:, :4].flip(1) * 1e-6, pending_mask=u[:, 5] < 0.1)
-    err, timing, after = 0.0, None, None
-    for e_cap in (case.pcfg.event_capacity, 64):
-        args = (state, meas, plist.a, plist.b, case.cr, e_cap)
-        gs, gm, gc, gmask = pairs_ops.test_and_resolve(*args)
-        ws, wm, wc, wmask = pairs_ops.test_and_resolve_plain(*args)
-        exact("K3 n_collisions", gc, wc)
-        exact("K3 collided", gmask, wmask)
-        exact("K3 has_collided", gs.has_collided, ws.has_collided)
-        for f in ("pending_mask", "pending_vals", "collision_count",
-                  "overflow_count"):
-            exact(f"K3 {f} (event_capacity {e_cap})", getattr(gm, f),
-                  getattr(wm, f))
-        floats = [(gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)]
-        ulps = max(ulp_diff(a, b) for a, b in floats)
-        # Stated bound: 2 ulp (both round every operation once, IEEE).
-        require(ulps <= 2, f"K3: {ulps} ulp from plain")
-        err = max(err, max(max_abs(a, b) for a, b in floats))
-        print(f"K3 test_and_resolve event_capacity={e_cap}: {int(gc)} pairs, "
-              f"events dropped={int(gm.overflow_count)}; mask, count, "
-              f"staging and counters exact, state {ulps} ulp from plain "
-              f"(bound 2) {tag}")
-        if e_cap == 64:
+        pending_vals=torch.where(mask[:, None], u[:, :4].flip(1) * 1e-6,
+                                 0.0),
+        pending_mask=mask)
+    return state, meas
+
+
+def with_duplicates(plist, pos, cr: float):
+    """(a, b): the list with up to 300 colliding entries appended after its
+    cursor reversed, and the same entries once more as they are."""
+    n = pos.shape[0]
+    a, b = plist.a.clone(), plist.b.clone()
+    live = int(plist.cursor)
+    listed = (a[:live] < n) & (b[:live] < n)
+    d = pos[b[:live].clamp(max=n - 1).long()] - pos[a[:live].clamp(
+        max=n - 1).long()]
+    hit = torch.nonzero(listed & ((d * d).sum(1) < cr * cr)).flatten()
+    k = min(300, hit.numel(), (a.shape[0] - live) // 2)
+    require(k > 0, "K3: no colliding entry to duplicate")
+    hit = hit[:k]
+    a[live:live + k], b[live:live + k] = plist.b[hit], plist.a[hit]
+    a[live + k:live + 2 * k] = plist.a[hit]
+    b[live + k:live + 2 * k] = plist.b[hit]
+    return a, b, k
+
+
+def check_k3_case(label, state, meas, a, b, cr, e_cap):
+    """K3 and its twin, each on its own copy of the inputs: masks,
+    counts, staging and counters exact, state within 2 ulp, and the
+    kernel's state and measurements the tensors it was given.  Returns
+    (kernel outputs, max abs error, ulps)."""
+    gs, gm = own(state), own(meas)
+    got = pairs_ops.test_and_resolve(gs, gm, a, b, cr, e_cap)
+    want = pairs_ops.test_and_resolve_plain(own(state), own(meas), a, b, cr,
+                                            e_cap)
+    (ks, km, kc, kmask), (ws, wm, wc, wmask) = got, want
+    same_tensors(ks, gs, f"K3 ({label})")
+    same_tensors(km, gm, f"K3 ({label})")
+    exact(f"K3 n_collisions ({label})", kc, wc)
+    exact(f"K3 collided ({label})", kmask, wmask)
+    exact(f"K3 has_collided ({label})", ks.has_collided, ws.has_collided)
+    for f in ("pending_mask", "pending_vals", "collision_count",
+              "overflow_count"):
+        exact(f"K3 {f} ({label})", getattr(km, f), getattr(wm, f))
+    floats = [(ks.pos, ws.pos), (ks.vel, ws.vel), (ks.paths, ws.paths)]
+    ulps = max(ulp_diff(x, y) for x, y in floats)
+    # Stated bound: 2 ulp (both round every operation once, IEEE).
+    require(ulps <= 2, f"K3 ({label}): {ulps} ulp from plain")
+    return got, max(max_abs(x, y) for x, y in floats), ulps
+
+
+def check_test_and_resolve(case, plist, tag: str, reps: int):
+    """K3 one drift after the rebuild, with paths, has_collided and staging
+    drawn from the Generator: at the configured event_capacity, at 64
+    (events dropped) and with reversed and repeated duplicate entries
+    colliding (exactly one event may write a pair in place).  Returns
+    (result, state and measurements after the kernel)."""
+    state, meas = k3_inputs(case)
+    e_cap = case.pcfg.event_capacity
+    dup_a, dup_b, k = with_duplicates(plist, state.pos, case.cr)
+    err, after = 0.0, None
+    for label, a, b, cap in (
+            (f"event_capacity={e_cap}", plist.a, plist.b, e_cap),
+            ("event_capacity=64", plist.a, plist.b, 64),
+            (f"{k} colliding entries reversed and {k} repeated", dup_a,
+             dup_b, e_cap)):
+        (gs, gm, gc, gmask), e, ulps = check_k3_case(label, state, meas, a,
+                                                     b, case.cr, cap)
+        err = max(err, e)
+        print(f"K3 test_and_resolve {label}: {int(gc)} pairs, events "
+              f"dropped={int(gm.overflow_count)}; mask, count, staging and "
+              f"counters exact, state {ulps} ulp from plain (bound 2), in "
+              f"place {tag}")
+        if cap == 64:
             require(int(gm.overflow_count) > 0, "K3: no events dropped")
         else:
             require(int(gc) > 0, "K3: no pair resolved")
+        if label.startswith("event_capacity") and cap == e_cap:
             after = (gs, gm, gmask)
-            timing = (maybe_timed(lambda: pairs_ops.test_and_resolve(*args),
-                                  reps),
-                      maybe_timed(
-                          lambda: pairs_ops.test_and_resolve_plain(*args),
-                          min(reps, 5)))
-            io = tensor_bytes(state, meas.pending_vals, meas.pending_mask,
-                              plist.a, plist.b, gs, gm.pending_vals,
-                              gm.pending_mask, gmask)
-    return (result(err, *timing, io,
-                   PAIR_TEST_OPS * plist.a.shape[0] + 70 * n), after)
+            resolved = 2 * int(gc)
+    n = case.n
+    args = (plist.a, plist.b, case.cr, e_cap)
+    ts, tm = own(state), own(meas)
+
+    def reset():
+        refill(ts, state)
+        refill(tm, meas)
+
+    timing = None
+    if reps > 0:
+        ms, reset_ms, nets = net_ms(
+            lambda: pairs_ops.test_and_resolve(ts, tm, *args), reset, reps)
+        plain_ms = timed_ms(lambda: pairs_ops.test_and_resolve_plain(
+            own(state), own(meas), *args), min(reps, 5))
+        timing = (ms, plain_ms)
+        print(f"K3 test_and_resolve: {ms!r} ms a call in place (the median "
+              f"of {nets!r}, each net of the copy that restores the inputs, "
+              f"{reset_ms!r} ms; the copying first version: 0.162-0.341 "
+              f"ms) {tag}")
+    # What the in-place form needs: the entries' a and b, each listed
+    # particle's position once, the kept events' endpoints written and
+    # read, the resolved particles' pos, vel, paths, has_collided and
+    # staging read and written (42 bytes in, 59 out a particle), and the
+    # collided mask; the test's operations on the listed entries and ~35
+    # a resolved particle.
+    a_, b_ = plist.a, plist.b
+    listed = (a_ < n) & (b_ < n)
+    particles = torch.unique(torch.cat([a_[listed], b_[listed]])).numel()
+    d = state.pos[b_[listed].long()] - state.pos[a_[listed].long()]
+    events = min(int(((d * d).sum(1) < case.cr * case.cr).sum()), e_cap)
+    io = (8 * a_.shape[0] + 12 * particles + 16 * events
+          + 101 * resolved + n)
+    r = result(err, *(timing or (None, None)), io,
+               PAIR_TEST_OPS * int(listed.sum()) + 35 * resolved)
+    return r, after
+
+
+def check_test_and_resolve_graph(case, plist, tag: str) -> None:
+    """K3 recorded in a CUDA graph and replayed three times, the positions
+    moved by one more drift and the staging redrawn before each replay:
+    every replay equals the twin on the same inputs (the kernels take
+    nothing from the host that changes from call to call and restore their
+    scratch).  One call on the capturing stream first allocates that
+    stream's scratch."""
+    state, meas = k3_inputs(case)
+    e_cap = case.pcfg.event_capacity
+    ss, sm = own(state), own(meas)
+    side = torch.cuda.Stream(case.dev)
+    side.wait_stream(torch.cuda.current_stream(case.dev))
+    with torch.cuda.stream(side):
+        pairs_ops.test_and_resolve(own(state), own(meas), plist.a, plist.b,
+                                   case.cr, e_cap)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["test_and_resolve"]
+    with torch.cuda.graph(graph, stream=side):
+        out = pairs_ops.test_and_resolve(ss, sm, plist.a, plist.b, case.cr,
+                                         e_cap)
+    require(kernels.launch_counts["test_and_resolve"] == before + 1,
+            "K3: the capture recorded other than one launch")
+    pairs = []
+    for k in range(1, 4):
+        fresh, fresh_m = k3_inputs(case)
+        fresh = dataclasses.replace(
+            fresh, pos=fresh.pos + k * case.dt * fresh.vel)
+        refill(ss, fresh)
+        refill(sm, fresh_m)
+        graph.replay()
+        torch.cuda.synchronize()
+        ws, wm, wc, wmask = pairs_ops.test_and_resolve_plain(
+            own(fresh), own(fresh_m), plist.a, plist.b, case.cr, e_cap)
+        exact("K3 n_collisions (graph replay)", out[2], wc)
+        exact("K3 collided (graph replay)", out[3], wmask)
+        for f in ("pending_mask", "pending_vals", "collision_count",
+                  "overflow_count"):
+            exact(f"K3 {f} (graph replay)", getattr(sm, f), getattr(wm, f))
+        exact("K3 has_collided (graph replay)", ss.has_collided,
+              ws.has_collided)
+        ulps = max(ulp_diff(getattr(ss, f), getattr(ws, f))
+                   for f in ("pos", "vel", "paths"))
+        require(ulps <= 2, f"K3 (graph replay): {ulps} ulp from plain")
+        pairs.append(int(wc))
+    print(f"K3 test_and_resolve: one captured call replayed 3 times on "
+          f"positions moved by 1-3 more drifts, {pairs} pairs: exact each "
+          f"time, state within 2 ulp {tag}")
 
 
 K4_FIELDS = ("a", "b", "cursor", "hot", "reach0", "overflow")
 
 
 def check_research_dirty(case, plist, state, tag: str, reps: int):
-    """K4, exactly, in its copying and its in-place form (the latter on
+    """K4, exactly, in place (the kernel and the twin each on its own
     clones of the list's four updated tensors), on a dirty set of
     research_capacity lanes drawn from the Generator -- every 41st lane the
     fill value, the table-dropped particles among the rest, 8 particles
@@ -759,35 +932,30 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
                                           0.5 * grid.cell_size))),
     )
 
-    def own(pl):
-        """``pl`` with clones of the tensors the in-place form updates."""
+    def own_list(pl):
+        """``pl`` with clones of the tensors K4 updates in place."""
         return dataclasses.replace(pl, a=pl.a.clone(), b=pl.b.clone(),
                                    hot=pl.hot.clone(),
                                    reach0=pl.reach0.clone())
 
     timing = None
     for label, p, pl in cases:
-        args = (moved, pl, dirty_idx, bump, grid, p, case.cr, case.dt)
-        want, wlost, wlat = pairs_ops.research_dirty_plain(*args)
-        mine, kept = own(pl), own(pl)
-        forms = (("copying", pairs_ops.research_dirty(*args)),
-                 ("in place", pairs_ops.research_dirty(
-                     moved, mine, *args[2:], in_place=True)))
-        for form, (got, glost, glat) in forms:
-            for f in K4_FIELDS:
-                exact(f"K4 {f} ({label}, {form})", getattr(got, f),
-                      getattr(want, f))
-            exact(f"K4 lost ({label}, {form})", glost, wlost)
-            exact(f"K4 latent_per ({label}, {form})", glat, wlat)
+        args = (dirty_idx, bump, grid, p, case.cr, case.dt)
+        want, wlost, wlat = pairs_ops.research_dirty_plain(
+            moved, own_list(pl), *args)
+        mine = own_list(pl)
+        got, glost, glat = pairs_ops.research_dirty(moved, mine, *args)
+        for f in K4_FIELDS:
+            exact(f"K4 {f} ({label})", getattr(got, f), getattr(want, f))
+        exact(f"K4 lost ({label})", glost, wlost)
+        exact(f"K4 latent_per ({label})", glat, wlat)
         for f in ("a", "b", "hot", "reach0"):
             require(getattr(got, f).data_ptr() == getattr(mine, f).data_ptr(),
                     f"K4 in place: {f} is a copy")
-            exact(f"K4 {f} of the list given to the copying form ({label})",
-                  getattr(pl, f), getattr(kept, f))
         appended = int(got.cursor) - int(pl.cursor)
         rows = torch.bincount(got.a[int(pl.cursor):int(got.cursor)].long(),
                               minlength=1)
-        print(f"K4 research_dirty {label}: exact in both forms; {live} dirty "
+        print(f"K4 research_dirty {label}: exact in place; {live} dirty "
               f"of {dirty_idx.numel()} lanes ({dropped.numel()} "
               f"table-dropped), appended={appended} "
               f"hot={int(got.hot.sum())} latent={int(glat.sum())} "
@@ -795,36 +963,22 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
               f"longest row={int(rows.max())} {tag}")
         if label == "as configured":
             require(appended > 0, "K4: the configured case found nothing")
-            scratch = own(pl)
+            scratch = own_list(pl)
 
             def reset():
                 # reach0 is all a repeated in-place call changes (hot, a and
                 # b are written again with the same values).
                 scratch.reach0.copy_(pl.reach0)
 
-            def step_form():
-                reset()
-                pairs_ops.research_dirty(moved, scratch, *args[2:],
-                                         in_place=True)
-
-            # The step path's form, each call on the list as the rebuild
-            # left it: timed with the copy that restores reach0, less that
-            # copy timed alone in the same way.  The call is host code
-            # around microseconds of device work, so it moves with the
-            # host: the median of three such pairs.
-            def net():
-                both, alone = timed_ms(step_form, reps), timed_ms(reset, reps)
-                return both - alone, alone
-
-            nets = sorted(net() for _ in range(3 if reps else 0))
-            in_place_ms, reset_ms = nets[1] if nets else (None, None)
-            timing = (
-                in_place_ms,
-                maybe_timed(lambda: pairs_ops.research_dirty_plain(*args),
-                            min(reps, 5)))
-            copying_ms = sorted(
-                maybe_timed(lambda: pairs_ops.research_dirty(*args), reps)
-                for _ in range(3 if reps else 0))
+            # Each call on the list as the rebuild left it.
+            timing = (None, None)
+            if reps > 0:
+                in_place_ms, reset_ms, nets = net_ms(
+                    lambda: pairs_ops.research_dirty(moved, scratch, *args),
+                    reset, reps)
+                timing = (in_place_ms, timed_ms(
+                    lambda: pairs_ops.research_dirty_plain(
+                        moved, own_list(pl), *args), min(reps, 5)))
             appended0 = appended
         elif label == "stored reach of half a cell":
             require(int(rows.max()) == p.research_top_k and bool(glost),
@@ -849,12 +1003,28 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
     r = result(0.0, *timing, io, PAIR_TEST_OPS * int(occ[rows].sum()))
     if reps > 0:
         print(f"K4 research_dirty: {r['ms']!r} ms a call in place (the "
-              f"median of {[t for t, _ in nets]!r}, each net of the copy "
-              f"that restores reach0, {reset_ms!r} ms), {copying_ms!r} ms "
-              f"copying (the thread-a-lane first version, "
+              f"median of {nets!r}, each net of the copy that restores "
+              f"reach0, {reset_ms!r} ms; the thread-a-lane first version, "
               f"copying: 0.326-0.337 ms), bound {r['bound_ms']!r} ms "
               f"({r['bound_by']}) {tag}")
     return r
+
+
+def check_k7c_case(label, meas, idx, nb, hi):
+    """K7's compacted entry and its twin, each on its own copy of the
+    measurements: hist, counts and the cleared staging exact, path_sum
+    within 1e-6 relative, the kernel's measurements the tensors it was
+    given.  Returns (kernel output, path_sum's relative error)."""
+    mine = own(meas)
+    got = measure_ops.flush_hist_compacted(mine, idx, nb, hi)
+    want = measure_ops.flush_hist_compacted_plain(own(meas), idx, nb, hi)
+    same_tensors(got, mine, f"K7c ({label})")
+    for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
+              "pending_vals"):
+        exact(f"K7c {f} ({label})", getattr(got, f), getattr(want, f))
+    rel = path_sum_rel(got, want)
+    require(rel <= 1e-6, f"K7c path_sum ({label}): rel {rel}")
+    return got, want, rel
 
 
 def check_flush_compacted(case, meas, tag: str, reps: int):
@@ -865,34 +1035,86 @@ def check_flush_compacted(case, meas, tag: str, reps: int):
     nb, hi = case.cfg.engine.num_bins, case.cfg.engine.hist_range[1]
     shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
     count = int(meas.pending_mask.sum())
-    err, timing = 0.0, None
+    require(not bool(meas.pending_vals[~meas.pending_mask].any()),
+            "K7c: an unstaged row of K3's staging is not zero")
+    err, timing = 0.0, (None, None)
     for size in (shared, count + 100):
         idx = compact.compact_indices(meas.pending_mask, size, n)
-        a = measure_ops.flush_hist_compacted(meas, idx, nb, hi)
-        b = measure_ops.flush_hist_compacted_plain(meas, idx, nb, hi)
-        for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
-                  "pending_vals"):
-            exact(f"K7c {f} (event_idx size {size})", getattr(a, f),
-                  getattr(b, f))
-        rel = path_sum_rel(a, b)
-        require(rel <= 1e-6, f"K7c path_sum: rel {rel}")
-        err = max(err, max_abs(a.path_sum, b.path_sum))
+        got, want, rel = check_k7c_case(f"event_idx size {size}", meas, idx,
+                                        nb, hi)
+        err = max(err, max_abs(got.path_sum, want.path_sum))
         print(f"K7c flush_hist_compacted event_idx size={size}: hist and "
               f"counts exact, events={count}, "
-              f"dropped={int(a.hist_drop_count)}, path_sum rel err {rel!r} "
-              f"(bound 1e-6) {tag}")
+              f"dropped={int(got.hist_drop_count)}, path_sum rel err "
+              f"{rel!r} (bound 1e-6), in place {tag}")
         if size < count:
-            require(int(a.hist_drop_count) > 0, "K7c: no event left out")
-        else:
-            timing = (maybe_timed(lambda: measure_ops.flush_hist_compacted(
-                          meas, idx, nb, hi), reps),
-                      maybe_timed(
-                          lambda: measure_ops.flush_hist_compacted_plain(
-                              meas, idx, nb, hi), min(reps, 5)))
-            io = tensor_bytes(meas.pending_vals, meas.pending_mask, idx,
-                              meas.hist, meas.path_sum, a.pending_vals,
-                              a.pending_mask, a.hist, a.path_sum)
-    return result(err, *timing, io, 4 * n)
+            require(int(got.hist_drop_count) > 0, "K7c: no event left out")
+        elif reps > 0:
+            mine = own(meas)
+            ms, reset_ms, nets = net_ms(
+                lambda: measure_ops.flush_hist_compacted(mine, idx, nb, hi),
+                lambda: refill(mine, meas), reps)
+            timing = (ms, timed_ms(
+                lambda: measure_ops.flush_hist_compacted_plain(
+                    own(meas), idx, nb, hi), min(reps, 5)))
+            print(f"K7c flush_hist_compacted: {ms!r} ms a call in place "
+                  f"(the median of {nets!r}, each net of the copy that "
+                  f"restores the measurements, {reset_ms!r} ms; the "
+                  f"copying first version: 0.126-0.225 ms) {tag}")
+    # What the flush needs: the mask read, the staged rows read and
+    # cleared with their mask bytes, event_idx, hist and path_sum read and
+    # written; four additions a staged event.
+    io = (n + 33 * count + 4 * shared
+          + 2 * (meas.hist.numel() * 4 + 16))
+    return result(err, *timing, io, 4 * count)
+
+
+def check_flush_compacted_graph(case, meas, tag: str) -> None:
+    """K7's compacted entry recorded in a CUDA graph and replayed three
+    times, the staging redrawn and event_idx recompacted before each
+    replay: every replay equals the twin on the same inputs.  One call on
+    the capturing stream first allocates that stream's scratch."""
+    n, dev = case.n, case.dev
+    nb, hi = case.cfg.engine.num_bins, case.cfg.engine.hist_range[1]
+    shared = max(measure_ops.FLUSH_CAPACITY, n // 64)
+    static = own(meas)
+    idx = compact.compact_indices(meas.pending_mask, shared, n)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        measure_ops.flush_hist_compacted(own(meas), idx, nb, hi)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["flush_hist_compacted"]
+    with torch.cuda.graph(graph, stream=side):
+        measure_ops.flush_hist_compacted(static, idx, nb, hi)
+    require(kernels.launch_counts["flush_hist_compacted"] == before + 1,
+            "K7c: the capture recorded other than one launch")
+    counts = []
+    for density in (0.02, 0.1, 0.3):
+        u = torch.rand((n, 5), generator=case.gen, device=dev)
+        mask = u[:, 4] < density
+        fresh = dataclasses.replace(
+            meas, pending_mask=mask,
+            pending_vals=torch.where(mask[:, None], u[:, :4] * 1.2e-6, 0.0),
+            hist=meas.hist + float(len(counts)),
+            path_count=meas.path_count + 7)
+        refill(static, fresh)
+        idx.copy_(compact.compact_indices(mask, shared, n))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = measure_ops.flush_hist_compacted_plain(own(fresh), idx, nb,
+                                                      hi)
+        for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
+                  "pending_vals"):
+            exact(f"K7c {f} (graph replay)", getattr(static, f),
+                  getattr(want, f))
+        rel = path_sum_rel(static, want)
+        require(rel <= 1e-6, f"K7c path_sum (graph replay): rel {rel}")
+        counts.append(int(mask.sum()))
+    print(f"K7c flush_hist_compacted: one captured launch replayed 3 times "
+          f"with {counts} events staged at event_idx size {shared}: exact "
+          f"each time {tag}")
 
 
 def check_pairs_kernels(tag: str, particles: int = PARTICLES,
@@ -909,10 +1131,12 @@ def check_pairs_kernels(tag: str, particles: int = PARTICLES,
                                 case.dev))
     results["test_and_resolve"], (state, meas, _) = check_test_and_resolve(
         case, plist, tag, reps)
+    check_test_and_resolve_graph(case, plist, tag)
     results["research_dirty"] = check_research_dirty(case, plist, state, tag,
                                                      reps)
     results["flush_hist_compacted"] = check_flush_compacted(case, meas, tag,
                                                             reps)
+    check_flush_compacted_graph(case, meas, tag)
     if reps > 0:
         print_times(results, case.n, tag)
     return results
@@ -1942,6 +2166,8 @@ def breakdown(tag: str, label: str, cfg, traced: int = 16,
     device_ms = device_us / 1e3 / traced
     top = ", ".join(f"{k} {v / 1e3 / traced:.3f}"
                     for k, v in by_name.most_common(8))
+    port = ", ".join(f"{k} {v / 1e3 / traced:.4f}"
+                     for k, v in by_name.most_common() if k in ours)
 
     torch.cuda.synchronize()
     prof_host = cProfile.Profile()
@@ -1966,6 +2192,8 @@ def breakdown(tag: str, label: str, cfg, traced: int = 16,
           f"{stage['advance']!r} ms, plain wall pass {stage['wall_pass']!r} "
           f"ms {tag}")
     print(f"breakdown {label}: device ms a step by kernel: {top} {tag}")
+    print(f"breakdown {label}: device ms a step by port kernel: {port} "
+          f"{tag}")
 
 
 def time_compact(tag: str, reps: int = 200) -> None:

@@ -17,6 +17,8 @@ import torch
 
 from argon_monte_carlo_tpu.ops.compact import compact_indices as jcompact
 from argon_monte_carlo_tpu_torch.ops import compact as tcompact
+from argon_monte_carlo_tpu_torch.ops import measure as tmeasure
+from argon_monte_carlo_tpu_torch.ops import pairs as tpairs
 
 LENGTHS = (1, 255, 4_097, 1_000_003)
 FILLS = {"all-set": 1.0, "none-set": 0.0, "some-set": 0.3}
@@ -65,24 +67,24 @@ def test_compact_scratch_generations(monkeypatch):
     monkeypatch.setattr(tcompact, "_scratch", {})
     monkeypatch.setattr(tcompact, "_retired", [])
     dev = torch.device("cpu")
-    first = tcompact._scratch_for(dev, 245)
+    first = tcompact.lookback_scratch(dev, 245)
     assert first.dtype == torch.int64
     assert first.shape[0] >= 246 and int(first.abs().sum()) == 0
-    assert tcompact._scratch_for(dev, 3) is first
-    assert tcompact._scratch_for(dev, first.shape[0] - 1) is first
+    assert tcompact.lookback_scratch(dev, 3) is first
+    assert tcompact.lookback_scratch(dev, first.shape[0] - 1) is first
     assert tcompact._retired == []
     # More tiles than words: a larger scratch, zeroed.
     first.fill_(-1)
-    larger = tcompact._scratch_for(dev, first.shape[0] + 5)
+    larger = tcompact.lookback_scratch(dev, first.shape[0] + 5)
     assert larger is not first
     assert larger.shape[0] >= first.shape[0] + 6
     assert int(larger.abs().sum()) == 0
     assert len(tcompact._retired) == 1 and tcompact._retired[0] is first
-    assert tcompact._scratch_for(dev, 3) is larger
+    assert tcompact.lookback_scratch(dev, 3) is larger
     assert list(tcompact._scratch) == [(dev.index, 0)]
     # Another stream of the device has a scratch of its own.
     monkeypatch.setitem(tcompact._scratch, (dev.index, 7), first)
-    assert tcompact._scratch_for(dev, 3) is larger
+    assert tcompact.lookback_scratch(dev, 3) is larger
     assert len(tcompact._scratch) == 2
     # Nothing in the call changes from one call to the next.
     assert not hasattr(tcompact, "_GENERATIONS")
@@ -100,3 +102,24 @@ def test_compact_tile_matches_the_kernel_source():
     common = (tcompact.kernels.CSRC / "common.cuh").read_text()
     assert "constexpr int kThreads = 256;" in common
     assert tcompact.TILE == 256 * 16
+
+
+@pytest.mark.parametrize("source,lines,constant", [
+    ("test_resolve.cu", ("constexpr int kEntries = 4;",
+                         "constexpr int kTile = amc::kThreads * kEntries;"),
+     "K3_TILE"),
+    ("flush_hist.cu", ("constexpr int kFlushBytes = 16;",
+                       "constexpr int kFlushTile = amc::kThreads * "
+                       "kFlushBytes;"),
+     "FLUSH_TILE"),
+])
+def test_kept_scratch_is_sized_by_the_kernels_tiles(source, lines, constant):
+    """K3 and K7's compacted entry keep per-tile scratch (look-back words,
+    block sums) sized by their wrappers from the kernels' tiles."""
+    src = (tcompact.kernels.CSRC / source).read_text()
+    for line in lines:
+        assert line in src
+    per_thread = int(lines[0].split("= ")[1].rstrip(";"))
+    module = tpairs if constant == "K3_TILE" else tmeasure
+    value = getattr(module, constant)
+    assert value == 256 * per_thread

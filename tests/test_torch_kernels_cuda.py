@@ -211,24 +211,39 @@ def test_emit_pairs_kernel(pairs_case):
 
 
 def test_test_and_resolve_kernel(pairs_case, plist):
+    """K3 in place, at the configured event_capacity, at 64 and with
+    reversed and repeated duplicate entries colliding."""
+    before = kernels.launch_counts["test_and_resolve"]
     chip_smoke.check_test_and_resolve(pairs_case, plist, "", 0)
+    assert kernels.launch_counts["test_and_resolve"] == before + 3
+
+
+def test_test_and_resolve_kernel_replays_in_a_cuda_graph(pairs_case, plist):
+    chip_smoke.check_test_and_resolve_graph(pairs_case, plist, "")
 
 
 def test_research_dirty_kernel(pairs_case, plist):
-    """K4 in both forms: as configured, with a small append budget, with the
+    """K4 in place: as configured, with a small append budget, with the
     cursor near the list's end and with lists that fill."""
     _, (state, _, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
                                                          "", 0)
     before = kernels.launch_counts["research_dirty"]
     chip_smoke.check_research_dirty(pairs_case, plist, state, "", 0)
-    # Four cases, each in the copying and the in-place form.
-    assert kernels.launch_counts["research_dirty"] == before + 8
+    # Four cases, one launch each.
+    assert kernels.launch_counts["research_dirty"] == before + 4
 
 
 def test_flush_hist_compacted_kernel(pairs_case, plist):
     _, (_, meas, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
                                                         "", 0)
     chip_smoke.check_flush_compacted(pairs_case, meas, "", 0)
+
+
+def test_flush_hist_compacted_kernel_replays_in_a_cuda_graph(pairs_case,
+                                                             plist):
+    _, (_, meas, _) = chip_smoke.check_test_and_resolve(pairs_case, plist,
+                                                        "", 0)
+    chip_smoke.check_flush_compacted_graph(pairs_case, meas, "")
 
 
 def test_pairs_engine_on_card_matches_cpu(device):

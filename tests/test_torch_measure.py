@@ -129,6 +129,7 @@ def test_flush_hist_compacted_plain_matches_reference(dtype):
     listed (they count as drops), padded with n."""
     np_dtype, t_dtype = DTYPES[dtype]
     vals, mask, hist, path_sum = staged(np_dtype, seed=11)
+    vals[~mask] = 0.0   # the staging's contract: unstaged rows are zero
     dirty = np.random.default_rng(12).uniform(size=N) < 0.1
     listed = np.nonzero(mask | dirty)[0][:700]
     event_idx = np.full(800, N, np.int32)
@@ -143,11 +144,13 @@ def test_flush_hist_compacted_plain_matches_reference(dtype):
     jm = jmeasure.flush_pending_compacted(jm, jnp.asarray(event_idx),
                                           NUM_BINS, HIST_HI)
 
+    # The in-place twin is fed clones.
     tm = dataclasses.replace(
         TMeasurements.zeros(NUM_BINS, t_dtype, num_particles=N),
-        pending_vals=torch.from_numpy(vals),
-        pending_mask=torch.from_numpy(mask), hist=torch.from_numpy(hist),
-        path_sum=torch.from_numpy(path_sum),
+        pending_vals=torch.from_numpy(vals).clone(),
+        pending_mask=torch.from_numpy(mask).clone(),
+        hist=torch.from_numpy(hist).clone(),
+        path_sum=torch.from_numpy(path_sum).clone(),
         path_count=torch.tensor(7, dtype=torch.int32),
         hist_drop_count=torch.tensor(3, dtype=torch.int32),
     )
@@ -162,3 +165,70 @@ def test_flush_hist_compacted_plain_matches_reference(dtype):
     np.testing.assert_allclose(tm.path_sum.numpy(), np.asarray(jm.path_sum),
                                rtol=rtol)
     assert not tm.pending_mask.any() and not tm.pending_vals.any()
+
+
+def compacted_case(seed):
+    """float32 staging within its contract (unstaged rows zero) and the
+    engine's kind of event_idx: the staged and some other particles,
+    ascending, truncated, padded with N."""
+    vals, mask, hist, path_sum = staged(np.float32, seed=seed)
+    vals[~mask] = 0.0
+    dirty = np.random.default_rng(seed + 1).uniform(size=N) < 0.1
+    listed = np.nonzero(mask | dirty)[0][:700]
+    event_idx = np.full(800, N, np.int32)
+    event_idx[:listed.size] = listed
+    tm = dataclasses.replace(
+        TMeasurements.zeros(NUM_BINS, torch.float32, num_particles=N),
+        pending_vals=torch.from_numpy(vals),
+        pending_mask=torch.from_numpy(mask), hist=torch.from_numpy(hist),
+        path_sum=torch.from_numpy(path_sum),
+        path_count=torch.tensor(7, dtype=torch.int32),
+        hist_drop_count=torch.tensor(3, dtype=torch.int32),
+    )
+    return tm, torch.from_numpy(event_idx)
+
+
+def test_flush_hist_compacted_plain_updates_in_place():
+    """The twin folds into the measurements' own tensors and returns them:
+    hist, path_sum, path_count and hist_drop_count updated, the staging
+    cleared where it stands, and equal to a flush of clones."""
+    tm, event_idx = compacted_case(seed=21)
+    copy = dataclasses.replace(tm, **{f.name: getattr(tm, f.name).clone()
+                                      for f in dataclasses.fields(tm)})
+    given = {f.name: getattr(tm, f.name) for f in dataclasses.fields(tm)}
+    events = int(tm.pending_mask.sum())
+    out = tmeasure.flush_hist_compacted_plain(tm, event_idx, NUM_BINS,
+                                              HIST_HI)
+    for name, t in given.items():
+        assert getattr(out, name) is t, name
+    assert int(tm.path_count) == 7 + events > 7
+    assert not tm.pending_mask.any() and not tm.pending_vals.any()
+    again = tmeasure.flush_hist_compacted_plain(copy, event_idx, NUM_BINS,
+                                                HIST_HI)
+    for f in dataclasses.fields(tm):
+        assert torch.equal(getattr(again, f.name), getattr(out, f.name))
+
+
+@pytest.mark.parametrize("fault", ["unsorted", "repeated", "negative",
+                                   "beyond n", "padding first"])
+def test_flush_hist_compacted_plain_refuses_unsorted_event_idx(fault):
+    """event_idx must ascend -- strictly increasing indices below n, then
+    only the padding n -- as the kernel's binary searches need; the twin
+    raises on anything else and leaves the measurements untouched."""
+    tm, event_idx = compacted_case(seed=23)
+    bad = event_idx.clone()
+    if fault == "unsorted":
+        bad[[3, 4]] = bad[[4, 3]]
+    elif fault == "repeated":
+        bad[5] = bad[4]
+    elif fault == "negative":
+        bad[0] = -1
+    elif fault == "beyond n":
+        bad[-1] = N + 1
+    else:
+        bad = torch.cat([bad[-1:], bad[:-1]])
+    before = tm.pending_vals.clone()
+    with pytest.raises(ValueError, match="ascend"):
+        tmeasure.flush_hist_compacted_plain(tm, bad, NUM_BINS, HIST_HI)
+    assert torch.equal(tm.pending_vals, before)
+    tmeasure.check_event_idx(event_idx, N)

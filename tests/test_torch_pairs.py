@@ -250,10 +250,11 @@ def test_rebuild_matches_reference(capacity, pair_capacity):
         assert int(got.overflow) > 0
 
 
-@pytest.mark.parametrize("event_capacity", [8192, 16])
-def test_test_and_resolve_plain_matches_reference(event_capacity):
-    """K3 on a rebuilt list with reversed duplicates appended: collided
-    mask, count, staging and counters exact, state within 1e-12."""
+def k3_case(event_capacity, repeated=False):
+    """K3's inputs on a rebuilt list with 300 reversed duplicates appended
+    (and, with ``repeated``, 300 repeated ones after them), run through the
+    JAX reference.  Returns (reference outputs, the port's inputs: state,
+    measurements, a, b, cr)."""
     cfg, jgrid, tgrid, arrays, rng = setup()
     n = arrays["pos"].shape[0]
     cr = cfg.physics.collision_range
@@ -261,25 +262,37 @@ def test_test_and_resolve_plain_matches_reference(event_capacity):
     a, b = np.array(jplist.a), np.array(jplist.b)
     live = int(jplist.cursor)
     a[live:live + 300], b[live:live + 300] = b[:300], a[:300]
+    if repeated:
+        a[live + 300:live + 600], b[live + 300:live + 600] = a[:300], b[:300]
     jplist.a, jplist.b = jnp.asarray(a), jnp.asarray(b)
-    pending_vals = rng.uniform(0, 1e-6, (n, 4))
     pending_mask = rng.uniform(size=n) < 0.1
+    # Within the staging's contract: a row whose mask is clear is zero.
+    pending_vals = np.where(pending_mask[:, None],
+                            rng.uniform(0, 1e-6, (n, 4)), 0.0)
 
     jmeas = JMeasurements.zeros(200, np.float64, num_particles=n)
     jmeas.pending_vals = jnp.asarray(pending_vals)
     jmeas.pending_mask = jnp.asarray(pending_mask)
-    jstate, jmeas, ncol_j, mask_j = jpairs.test_and_resolve(
-        jax_state(arrays), jmeas, jplist, cr, 200, 1e-6, event_capacity)
+    want = jpairs.test_and_resolve(jax_state(arrays), jmeas, jplist, cr, 200,
+                                   1e-6, event_capacity)
 
     tstate, _ = convert.state_from_numpy(arrays, "cpu", torch.float64)
+    tstate = dataclasses.replace(tstate, **{
+        f.name: getattr(tstate, f.name).clone()
+        for f in dataclasses.fields(tstate)})
     tmeas = dataclasses.replace(
         TMeasurements.zeros(200, torch.float64, num_particles=n),
-        pending_vals=torch.from_numpy(pending_vals),
-        pending_mask=torch.from_numpy(pending_mask))
-    tstate, tmeas, ncol_t, mask_t = tpairs.test_and_resolve_plain(
-        tstate, tmeas, torch.from_numpy(a), torch.from_numpy(b), cr,
-        event_capacity)
+        pending_vals=torch.from_numpy(pending_vals).clone(),
+        pending_mask=torch.from_numpy(pending_mask).clone())
+    return want, (tstate, tmeas, torch.from_numpy(a), torch.from_numpy(b),
+                  cr)
 
+
+def assert_k3_matches(got, want):
+    """K3's outputs against the reference's: collided mask, count, staging
+    and counters exact, state within 1e-12."""
+    tstate, tmeas, ncol_t, mask_t = got
+    jstate, jmeas, ncol_j, mask_j = want
     assert int(ncol_t) == int(ncol_j) > 0
     np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
     for f in ("collision_count", "overflow_count"):
@@ -290,14 +303,60 @@ def test_test_and_resolve_plain_matches_reference(event_capacity):
                                np.asarray(jmeas.pending_vals), rtol=1e-12,
                                atol=1e-18)
     for f in ("pos", "vel", "paths"):
-        want = np.asarray(getattr(jstate, f))
-        np.testing.assert_allclose(getattr(tstate, f).numpy(), want,
+        ref = np.asarray(getattr(jstate, f))
+        np.testing.assert_allclose(getattr(tstate, f).numpy(), ref,
                                    rtol=1e-12,
-                                   atol=1e-12 * np.abs(want).max())
+                                   atol=1e-12 * np.abs(ref).max())
     np.testing.assert_array_equal(tstate.has_collided.numpy(),
                                   np.asarray(jstate.has_collided))
+
+
+@pytest.mark.parametrize("event_capacity", [8192, 16])
+def test_test_and_resolve_plain_matches_reference(event_capacity):
+    """K3 on a rebuilt list with reversed duplicates appended, the in-place
+    twin fed clones: collided mask, count, staging and counters exact,
+    state within 1e-12."""
+    want, (tstate, tmeas, a, b, cr) = k3_case(event_capacity)
+    got = tpairs.test_and_resolve_plain(
+        dataclasses.replace(tstate, **{
+            f.name: getattr(tstate, f.name).clone()
+            for f in dataclasses.fields(tstate)}),
+        dataclasses.replace(tmeas, **{
+            f.name: getattr(tmeas, f.name).clone()
+            for f in dataclasses.fields(tmeas)}),
+        a, b, cr, event_capacity)
+    assert_k3_matches(got, want)
     if event_capacity == 16:
-        assert int(tmeas.overflow_count) > 0
+        assert int(got[1].overflow_count) > 0
+
+
+@pytest.mark.parametrize("event_capacity", [8192, 16])
+def test_test_and_resolve_plain_updates_in_place(event_capacity):
+    """K3's twin writes the state, the staging and the two counters into
+    the tensors it is given and returns those tensors, with both reversed
+    and repeated duplicate entries colliding (the case where the kernel
+    lets exactly one event write a pair); the result is the reference's."""
+    want, (tstate, tmeas, a, b, cr) = k3_case(event_capacity, repeated=True)
+    n = tstate.pos.shape[0]
+    pos = tstate.pos
+    listed = (a < n) & (b < n)
+    d = pos[b[listed].long()] - pos[a[listed].long()]
+    hits = torch.stack([a[listed], b[listed]], 1)[
+        (d * d).sum(1) < cr * cr]
+    pairs = [tuple(sorted(h.tolist())) for h in hits]
+    assert len(pairs) - len(set(pairs)) >= 2   # reversed and repeated
+    given_state = {f.name: getattr(tstate, f.name)
+                   for f in dataclasses.fields(tstate)}
+    given_meas = {f.name: getattr(tmeas, f.name)
+                  for f in dataclasses.fields(tmeas)}
+    got = tpairs.test_and_resolve_plain(tstate, tmeas, a, b, cr,
+                                        event_capacity)
+    for name, t in given_state.items():
+        assert getattr(got[0], name) is t, name
+    for name, t in given_meas.items():
+        assert getattr(got[1], name) is t, name
+    assert_k3_matches(got, want)
+    assert int(tmeas.collision_count) == int(got[2]) > 0
 
 
 @pytest.mark.parametrize("append_capacity", [None, 40])
@@ -337,6 +396,7 @@ def test_research_dirty_plain_matches_reference(append_capacity):
         jgrid, to_jax_pcfg(pcfg), cr, dt)
 
     tstate, _ = convert.state_from_numpy(moved, "cpu", torch.float64)
+    reach0_before = tplist.reach0.clone()   # the twin updates it in place
     tnew, lost_t, latent_t = tpairs.research_dirty_plain(
         tstate, tplist, torch.from_numpy(dirty_idx), torch.from_numpy(bump),
         tgrid, pcfg, cr, dt)
@@ -346,16 +406,16 @@ def test_research_dirty_plain_matches_reference(append_capacity):
     np.testing.assert_array_equal(latent_t.numpy(), np.asarray(latent_j))
     assert int(latent_t.sum()) > 0
     assert int(tnew.cursor) > int(tplist.cursor)
-    assert not torch.equal(tnew.reach0, tplist.reach0)
+    assert not torch.equal(tnew.reach0, reach0_before)
     assert bool(lost_t) == (append_capacity is not None)
 
 
 @pytest.mark.parametrize("append_capacity", [None, 40])
 def test_research_dirty_plain_in_place_equals_copying(append_capacity):
-    """K4's two forms give one list: every PairList field, ``lost`` and
-    ``latent_per``; the copying form leaves the list it was given as it
-    was, the in-place form updates ``reach0``, ``hot``, ``a`` and ``b``
-    where they are.  And what the kernel's append leans on: a lane's found
+    """K4 in place equals the reference's copying form: every PairList
+    field, ``lost`` and ``latent_per`` as the JAX op gives them, with the
+    list's ``reach0``, ``hot``, ``a`` and ``b`` updated where they are and
+    returned.  And what the kernel's append leans on: a lane's found
     entries are a prefix of its ascending row, so the row-major compaction
     of the found mask is an exclusive scan over the lanes' counts -- lane
     after lane in ``dirty_idx`` order, ascending within a lane, cut only by
@@ -366,10 +426,8 @@ def test_research_dirty_plain_in_place_equals_copying(append_capacity):
     pcfg = pair_config()
     if append_capacity is not None:
         pcfg = dataclasses.replace(pcfg, append_capacity=append_capacity)
-    state, _ = convert.state_from_numpy(arrays, "cpu", torch.float64)
-    plist = tpairs.rebuild(state, tgrid, pcfg, cr, dt,
-                           tpairs.PairList.init(n, tgrid, pcfg,
-                                                torch.float64, "cpu"))
+    jplist = jax_rebuild(cfg, jgrid, arrays, pcfg)
+    plist = port_pairlist(jplist, tgrid.capacity)
     moved = dict(arrays)
     moved["pos"] = arrays["pos"] + 3 * dt * arrays["vel"]
     dirty = np.sort(rng.choice(n, 400, replace=False))
@@ -379,21 +437,20 @@ def test_research_dirty_plain_in_place_equals_copying(append_capacity):
     bump[dirty[::2]] = True
     dirty_idx = np.full(pcfg.research_capacity, n, np.int32)
     dirty_idx[:2 * dirty.size:2] = dirty    # fill-value lanes in between
-    mstate, _ = convert.state_from_numpy(moved, "cpu", torch.float64)
-    args = (mstate, plist, torch.from_numpy(dirty_idx),
-            torch.from_numpy(bump), tgrid, pcfg, cr, dt)
+    jnew, lost_w, latent_w = jpairs.research_dirty(
+        jax_state(moved), jplist, jnp.asarray(dirty_idx), jnp.asarray(bump),
+        jgrid, to_jax_pcfg(pcfg), cr, dt)
+    want = port_pairlist(jnew, tgrid.capacity)
 
+    mstate, _ = convert.state_from_numpy(moved, "cpu", torch.float64)
     before = {f.name: getattr(plist, f.name).clone()
               for f in dataclasses.fields(plist)}
-    want, lost_w, latent_w = tpairs.research_dirty_plain(*args)
-    for name, kept in before.items():
-        assert torch.equal(getattr(plist, name), kept), name
-    got, lost_g, latent_g = tpairs.research_dirty(*args, in_place=True)
-    for f in dataclasses.fields(plist):
-        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), \
-            f.name
+    got, lost_g, latent_g = tpairs.research_dirty(
+        mstate, plist, torch.from_numpy(dirty_idx), torch.from_numpy(bump),
+        tgrid, pcfg, cr, dt)
+    assert_pairlists_equal(got, want, n)
     assert bool(lost_g) == bool(lost_w) == (append_capacity is not None)
-    assert torch.equal(latent_g, latent_w)
+    np.testing.assert_array_equal(latent_g.numpy(), np.asarray(latent_w))
     for name in ("reach0", "hot", "a", "b"):
         assert getattr(got, name) is getattr(plist, name), name
     assert not torch.equal(got.reach0, before["reach0"])
