@@ -42,8 +42,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Argument types of each exported amc_<name>, the stream last
 # (tests/test_torch_pairs.py holds them against the C declarations).
 _SIGNATURES = {
-    "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I]
+                     + [_P] * 9,
     "partner_sweep": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
     "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -59,8 +59,10 @@ _SIGNATURES = {
                          _F] + [_P] * 13,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 12,
     "allpairs_partner": [_P, _I, _F, _P, _P],
-    "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 6,
-    "pack_indices": [_P, _I, _I] + [_P] * 7,
+    "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 4,
+    "pack_indices": [_P, _I, _I] + [_P] * 5,
+    "pack_band_pair": [_P, _P, _I, _P, _P, _I, _I, _I]
+                      + [_P, _P, _I, _I, _I] * 5 + [_P] * 5,
 }
 
 

@@ -74,12 +74,4 @@ __device__ __forceinline__ int assign_cell(float x, float y, float z,
   return layer_base[iz] + iy * m + ix;
 }
 
-// The count and scan passes of a multi-pass stream compaction (compact.cu)
-// for K12: block_vals[b] receives the number of set entries of mask in
-// block b (kThreads lanes a block), block_offsets[b] the number in the
-// blocks before it, *total the number in all.  block_vals and block_offsets
-// hold blocks_for(len) ints each.
-void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
-                      int* block_offsets, int* total, cudaStream_t stream);
-
 }  // namespace amc

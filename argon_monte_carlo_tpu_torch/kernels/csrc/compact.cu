@@ -33,12 +33,11 @@
 // scratch belongs to one stream (ops/compact.py keeps one a stream).
 // Integer only: the same output in every run.
 //
-// Design, the multi-pass form (K5; mask_scan_launch for K12): per block, a
-// count (__syncthreads_count for a mask, a block scan for K5's per-particle
-// entry counts); one block scans the block totals (Hillis-Steele over 1024
-// threads, each owning a contiguous chunk, as K2 and K7 do) and totals up
-// to three channels; per block, each element writes at its block's offset
-// plus its rank inside the block.
+// Design, the multi-pass form (K5): per block, a block scan of the
+// per-particle entry counts; one block scans the block totals
+// (Hillis-Steele over 1024 threads, each owning a contiguous chunk, as K7
+// does) and totals up to three channels; per block, each element writes at
+// its block's offset plus its rank inside the block.
 #include "common.cuh"
 #include "lookback.cuh"
 
@@ -84,13 +83,6 @@ __global__ void scan_blocks_kernel(const int* __restrict__ block_vals,
 __global__ void fill_kernel(int* __restrict__ out, int size, int value) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k < size) out[k] = value;
-}
-
-__global__ void mask_count_kernel(const uint8_t* __restrict__ mask, int len,
-                                  int* __restrict__ block_vals) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int count = __syncthreads_count(i < len && mask[i]);
-  if (threadIdx.x == 0) block_vals[blockIdx.x] = count;
 }
 
 // K5, pass 1: the per-particle flags, and per block the entry count, the
@@ -216,21 +208,6 @@ __launch_bounds__(amc::kThreads) __global__ void compact_single_pass_kernel(
 }
 
 }  // namespace
-
-namespace amc {
-
-void mask_scan_launch(const uint8_t* mask, int len, int* block_vals,
-                      int* block_offsets, int* total, cudaStream_t stream) {
-  int nblocks = blocks_for(len);
-  if (nblocks > 0) {
-    mask_count_kernel<<<nblocks, kThreads, 0, stream>>>(mask, len,
-                                                         block_vals);
-  }
-  scan_blocks_kernel<<<1, kScanThreads, 0, stream>>>(
-      block_vals, nblocks, 1, block_offsets, total);
-}
-
-}  // namespace amc
 
 // K6.  scratch holds 1 + ceil(len / 4096) 64-bit words, belongs to this
 // stream, was zero when it was allocated and is written by nothing else

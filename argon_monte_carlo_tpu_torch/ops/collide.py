@@ -41,7 +41,7 @@ import torch
 
 from .. import kernels
 from ..state import Measurements, ParticleState
-from . import fp
+from . import compact, fp
 from . import measure as measure_ops
 
 _NO_PARTNER = 1 << 30
@@ -363,9 +363,29 @@ def bin_and_table_plain(pos: torch.Tensor, grid: DeviceGrid,
     return cell_id, table.view(num_cells + 1, cap), pslot, overflow
 
 
+# The largest cell capacity K2's kernel takes (bin_and_table.cu kMaxCap),
+# and the cell counts a block of its scan takes (kScanTile).
+K2_MAX_CAPACITY = 128
+K2_SCAN_TILE = 1024
+# (device index, stream handle) -> K2's scratch: counts, zero between
+# calls (the kernel leaves it so); offsets and seg, no invariant.
+_k2_counts: dict = {}
+_k2_work: dict = {}
+
+
+def _round4(k: int) -> int:
+    return -(-k // 4) * 4
+
+
 def bin_and_table(pos: torch.Tensor, grid: DeviceGrid,
                   valid: torch.Tensor | None = None):
-    """K2 (see ``bin_and_table_plain``); CUDA kernel for CUDA tensors."""
+    """K2 (see ``bin_and_table_plain``); CUDA kernel for CUDA tensors: a
+    counting sort in four launches (bin, a single-pass scan, scatter, a
+    warp-cooperative table fill), allocating nothing but its four outputs.
+    Its scratch is kept for each device and stream and grown on demand
+    (``compact.stream_scratch``), so calls on a stream and a launch
+    recorded in a CUDA graph (after one call on the capturing stream) are
+    both right."""
     if kernels.use_plain(pos):
         return bin_and_table_plain(pos, grid, valid)
     dev = pos.device
@@ -380,21 +400,29 @@ def bin_and_table(pos: torch.Tensor, grid: DeviceGrid,
                   (grid.nz,), dev)
     kernels.check(grid.half_extent, "grid.half_extent", torch.float32,
                   (grid.nz,), dev)
+    if not 1 <= cap <= K2_MAX_CAPACITY:
+        raise ValueError(f"cell capacity {cap}: the kernel takes 1 to "
+                         f"{K2_MAX_CAPACITY}")
 
     def i32(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
-    cell_id, pslot, seg = i32(n), i32(n), i32(n)
-    counts, offsets, cursor = i32(num_cells), i32(num_cells), i32(num_cells)
+    cell_id, pslot = i32(n), i32(n)
     table = i32(num_cells + 1, cap)
     overflow = i32()
+    counts = compact.stream_scratch(_k2_counts, dev, num_cells, torch.int32,
+                                    0)
+    # offsets (num_cells + 1) then seg (n), each on a 16-byte boundary.
+    seg_at = _round4(num_cells + 1)
+    work = compact.stream_scratch(_k2_work, dev, seg_at + n, torch.int32, 0)
+    scan = compact.lookback_scratch(dev, -(-num_cells // K2_SCAN_TILE))
     p = kernels.ptr
     kernels.launch(
         "bin_and_table", dev, p(pos), kernels.optional_ptr(valid), n,
         p(grid.nx), p(grid.layer_base),
         p(grid.half_extent), grid.nz, grid.z_lo, grid.cell_size, num_cells,
-        cap, p(cell_id), p(counts), p(offsets), p(cursor), p(seg), p(table),
-        p(pslot), p(overflow),
+        cap, p(cell_id), p(table), p(pslot), p(overflow), p(counts),
+        p(work), p(work[seg_at:]), p(scan),
     )
     return cell_id, table, pslot, overflow
 

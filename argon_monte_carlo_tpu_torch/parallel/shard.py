@@ -52,7 +52,7 @@ from ..engine import Workload
 from ..ops import collide
 from ..ops import measure as measure_ops
 from ..ops.compact import compact_indices
-from ..ops.pack import SENTINEL, pack_band
+from ..ops.pack import SENTINEL, pack_band_pair
 from ..state import Measurements, ParticleState, StepMetrics
 from .mesh import make_devices
 
@@ -216,7 +216,6 @@ class SlabConstants:
     no_migrants: tuple
     ghost_paths: torch.Tensor  # (2 * hcap, 4) zeros
     ghost_false: torch.Tensor  # (2 * hcap,) False
-    nobody: torch.Tensor      # (cap,) False
 
 
 def _empty_band(names, capacity: int, dtype, device):
@@ -332,8 +331,6 @@ class ShardedSimulation:
                                         device=dev),
                 ghost_false=torch.zeros(2 * hcap, dtype=torch.bool,
                                         device=dev),
-                nobody=torch.zeros(plan.shard_capacity, dtype=torch.bool,
-                                   device=dev),
             ))
         return out
 
@@ -430,11 +427,12 @@ class ShardedSimulation:
             st, meas, ledger, oob_walls, _, _ = parked(
                 c, st, valid,
                 lambda x: workload.advance(x, measure[s], uniforms_of(s)))
-            z = st.pos[:, 2]
-            band = {"pos": st.pos, "vel": st.vel, "gid": gid}
-            up, up_flag, d1 = pack_band(band, valid & (z > c.up_edge), hcap)
-            down, down_flag, d2 = pack_band(band, valid & (z < c.down_edge),
-                                            hcap)
+            # Both bands in one call: valid & (z > up_edge) up, valid &
+            # (z < down_edge) down, packed on every slab (the reference
+            # counts an edge slab's truncation too).
+            (up, up_flag, d1), (down, down_flag, d2) = pack_band_pair(
+                {"pos": st.pos, "vel": st.vel, "gid": gid}, valid, hcap,
+                c.up_edge, c.down_edge)
             work.append(dict(st=st, valid=valid, gid=gid, meas=meas,
                              ledger=ledger, oob_walls=oob_walls,
                              up=(up, up_flag), down=(down, down_flag),
@@ -479,15 +477,15 @@ class ShardedSimulation:
             meas = measure_ops.flush_hist(meas, eng.num_bins, hist_hi,
                                           capacity=cap + 2 * hcap)
 
-            z = st.pos[:, 2]
-            go_up = (valid & (z >= c.z_hi) if s < n_shards - 1
-                     else c.nobody)
-            go_down = valid & (z < c.z_lo) if s > 0 else c.nobody
+            # The migrants, both directions in one call: valid & (z >=
+            # z_hi) up, valid & (z < z_lo) down, none across an outer
+            # face; the call also returns the lanes that stay.
             payload = {"pos": st.pos, "vel": st.vel, "paths": st.paths,
                        "hc": st.has_collided, "gid": gid}
-            up, up_flag, d3 = pack_band(payload, go_up, mcap)
-            down, down_flag, d4 = pack_band(payload, go_down, mcap)
-            valid = valid & ~(go_up | go_down)
+            (up, up_flag, d3), (down, down_flag, d4), valid = pack_band_pair(
+                payload, valid, mcap,
+                c.z_hi if s < n_shards - 1 else None,
+                c.z_lo if s > 0 else None, up_inclusive=True, rest=True)
             lanes = valid[:, None]
             st = dataclasses.replace(
                 st, pos=torch.where(lanes, st.pos, c.far),

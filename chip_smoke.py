@@ -10,7 +10,10 @@ exits non-zero without a result line):
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build the CUDA kernels from ``argon_monte_carlo_tpu_torch/kernels``
-   (one ``nvcc`` process a source, all started together);
+   (one ``nvcc`` process a source, all started together); then the ledger
+   gate: the main path (pairs, K=8) at the reference scale, 557,649
+   molecules for 250 steps, its per-step ledger against the JAX package's
+   in ``parity_momentum_energy.csv`` by the reference's z-test;
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
@@ -27,10 +30,13 @@ exits non-zero without a result line):
    times on changed inputs; K8, the fused drift/walls/recapture pass,
    over 16 steps of the pairs slice) and of the 24,627-particle cube (K11, also at
    ~200k), with the kernel's, the plain version's and, where one exists,
-   the library call's time beside the kernel's bound; K12 (band and index
-   packing) at the band sizes of the 1M pore cut in 4 z-slabs, with room
-   and truncated, and K2, K9 and K10 with their z-slab arguments on one
-   slab's local and ghost lanes;
+   the library call's time beside the kernel's bound; K2 also with a cell
+   of more than 100 particles, with all in one cell, over calls in a row
+   and as one call recorded in a CUDA graph and replayed on moved
+   positions; K12 (band and index packing, and both directions of an
+   exchange in one launch) at the band sizes of the 1M pore cut in 4
+   z-slabs, with room, truncated, empty and graph-replayed, and K2, K9 and
+   K10 with their z-slab arguments on one slab's local and ghost lanes;
 3. the sweep slice, the pairs slice, the cube and the 4-slab sharded sweep
    on the card against the same slices on the CPU (the plain versions,
    which the CPU tests hold to the JAX package) at a small size, from one
@@ -55,7 +61,7 @@ exits non-zero without a result line):
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
    sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
-   ``torch.nonzero``.
+   ``torch.nonzero``; K2 and K12 timed alone.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
@@ -68,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import csv
 import dataclasses
 import json
 import math
@@ -77,8 +84,10 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 import argon_monte_carlo_tpu_torch as amt
@@ -142,10 +151,10 @@ CUBE_KERNELS = {
         source="argon_monte_carlo_tpu_torch/kernels/csrc/allpairs.cu",
         replaces="argon_monte_carlo_tpu/ops/collide.py:1001"),
 }
-# The z-slab engine packs its halo bands and migrants with K12, four
-# launches a slab a step.
+# The z-slab engine packs its halo bands and its migrants with K12's
+# two-direction entry, two launches a slab a step.
 SHARD_KERNELS = {
-    "pack_band": dict(
+    "pack_band_pair": dict(
         source="argon_monte_carlo_tpu_torch/kernels/csrc/pack.cu",
         replaces="argon_monte_carlo_tpu/parallel/shard.py:210"),
 }
@@ -323,6 +332,7 @@ def check_kernels(tag: str) -> dict:
             k2_ms = timed_ms(lambda: collide.bin_and_table(state.pos, g), 20)
             k2_plain_ms = timed_ms(
                 lambda: collide.bin_and_table_plain(state.pos, g), 5)
+    check_bin_and_table_hard(state, [g for g, _ in binned], cfg.dt, tag)
     # ~9 float32 operations a particle: 3 subtractions, 3 divisions, 3
     # floors.
     results["bin_and_table"] = result(
@@ -426,6 +436,98 @@ def check_kernels(tag: str) -> dict:
     )
     print_times(results, n, tag)
     return results
+
+
+def check_k2(label: str, pos, grid, valid=None):
+    """K2 on ``pos`` exactly equal to its plain version; returns the
+    kernel's outputs."""
+    got = collide.bin_and_table(pos, grid, valid=valid)
+    want = collide.bin_and_table_plain(pos, grid, valid=valid)
+    for name, a, b in zip(("cell_id", "table", "pslot", "overflow"), got,
+                          want):
+        exact(f"K2 {name} ({label}, capacity {grid.capacity})", a, b)
+    return got
+
+
+def longest_segment(cell_id, grid) -> int:
+    real = cell_id[cell_id < grid.num_cells].long()
+    return int(torch.bincount(real, minlength=grid.num_cells).max())
+
+
+def check_bin_and_table_hard(state, grids, dt: float, tag: str) -> None:
+    """K2 exactly against its plain version where its table fill takes the
+    long-segment path and where its kept scratch must carry over from call
+    to call: 150 particles spread over the index range moved into one
+    particle's cell (a segment of more than 100); 20,000 particles all in
+    one cell; two calls in a row on different positions, then the first
+    again, with the counts left zero between calls; one call recorded in a
+    CUDA graph and replayed three times on positions moved by one, two and
+    three more drifts (one call on the capturing stream first, as the
+    wrapper asks).  At every capacity in ``grids``."""
+    pos = state.pos
+    n = pos.shape[0]
+    crowd = pos.clone()
+    spread = torch.arange(150, device=pos.device) * (n // 150) + 1
+    crowd[spread] = pos[0]
+    one_cell = pos[:20_000].clone()
+    one_cell[:] = pos[0]
+    moved = pos + dt * state.vel
+    for g in grids:
+        got = check_k2("150 more in one cell", crowd, g)
+        longest = longest_segment(got[0], g)
+        require(longest > 100, "K2: no segment of more than 100")
+        got = check_k2("all in one cell", one_cell, g)
+        require(longest_segment(got[0], g) == one_cell.shape[0],
+                "K2: the one-cell case spans cells")
+        first = check_k2("first of two calls", pos, g)
+        check_k2("second of two calls", moved, g)
+        again = collide.bin_and_table(pos, g)
+        for a, b in zip(first, again):
+            exact("K2 (the first positions again)", a, b)
+        torch.cuda.synchronize()
+        key = (pos.device.index, torch.cuda.current_stream().cuda_stream)
+        require(int(collide._k2_counts[key].abs().sum()) == 0,
+                "K2: the counts are not zero between calls")
+        print(f"K2 bin_and_table capacity={g.capacity}: exact with a cell of "
+              f"{longest} particles, with {one_cell.shape[0]} in one cell, "
+              f"and over two calls in a row on different positions (counts "
+              f"zero between calls) {tag}")
+    check_bin_and_table_graph(pos, state.vel, dt, grids[0], tag)
+
+
+def check_bin_and_table_graph(pos, vel, dt: float, grid, tag: str) -> None:
+    """K2 recorded in a CUDA graph, replayed three times on moved
+    positions: each replay equals the plain version."""
+    static = pos.clone()
+    side = torch.cuda.Stream(pos.device)
+    side.wait_stream(torch.cuda.current_stream(pos.device))
+    with torch.cuda.stream(side):
+        collide.bin_and_table(static, grid)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["bin_and_table"]
+    scratches = (len(collide._k2_counts), len(collide._k2_work),
+                 len(compact._scratch))
+    with torch.cuda.graph(graph, stream=side):
+        out = collide.bin_and_table(static, grid)
+    require((len(collide._k2_counts), len(collide._k2_work),
+             len(compact._scratch)) == scratches,
+            "K2: the capture allocated a scratch")
+    require(kernels.launch_counts["bin_and_table"] == before + 1,
+            "K2: the capture recorded other than one call")
+    overflow = []
+    for k in (1, 2, 3):
+        static.copy_(pos + (k * dt) * vel)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = collide.bin_and_table_plain(static, grid)
+        for name, a, b in zip(("cell_id", "table", "pslot", "overflow"), out,
+                              want):
+            exact(f"K2 {name} (graph replay {k})", a, b)
+        overflow.append(int(out[3]))
+    print(f"K2 bin_and_table: one captured call replayed 3 times on "
+          f"positions moved by 1-3 more drifts: exact each time (overflow "
+          f"{overflow}) {tag}")
 
 
 # --------------------------------------------------------------------------
@@ -1363,6 +1465,81 @@ def run_slice(tag: str, names, **engine):
 
 
 # --------------------------------------------------------------------------
+# The ledger gate: the main path's per-step ledger against the JAX
+# package's own 250-step ledger at the reference scale
+# --------------------------------------------------------------------------
+
+# The JAX package's ledger (scripts/parity_run.py: temperature_pore_config()
+# at its 557,649 molecules, float32, seed 17, 250 steps); columns Momentum,
+# EnergyCold, EnergyHot, one row a step.
+LEDGER_CSV = "parity_momentum_energy.csv"
+LEDGER_STEPS = 250
+LEDGER_COLUMNS = (("Momentum", "momentum_z"), ("EnergyCold", "energy_cold"),
+                  ("EnergyHot", "energy_hot"))
+# The z-test of scripts/parity_run.py:69-79: |mean difference| under 4
+# combined standard errors, and a ratio of standard deviations in 0.5-2.
+LEDGER_Z = 4.0
+LEDGER_STD_RATIO = (0.5, 2.0)
+
+
+def read_ledger_csv(path) -> dict:
+    """The reference ledger's columns as float64 numpy arrays."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return {col: np.array([float(r[col]) for r in rows])
+            for col, _ in LEDGER_COLUMNS}
+
+
+def ledger_z_test(ref, ours) -> tuple:
+    """(z, std ratio, passed) of one ledger column against the reference's
+    (scripts/parity_run.py:69-79; population standard deviations)."""
+    r = np.asarray(ref, np.float64)
+    o = np.asarray(ours, np.float64)[: len(r)]
+    se = np.sqrt(r.std() ** 2 / len(r) + o.std() ** 2 / len(o))
+    z = abs(o.mean() - r.mean()) / se if se > 0 else math.inf
+    ratio = o.std() / r.std()
+    lo, hi = LEDGER_STD_RATIO
+    return float(z), float(ratio), bool(z < LEDGER_Z and lo < ratio < hi)
+
+
+def check_ledger_gate(tag: str) -> None:
+    """The main path at the reference scale (temperature_pore_config() at
+    its default 557,649 molecules, float32, cells, pairs with K=8, a
+    histogram flush every step, seed 17) for 250 steps on the card; its
+    momentum_z, energy_cold and energy_hot rows against the JAX package's
+    ledger in parity_momentum_energy.csv by the reference's z-test.  The
+    two runs draw from different generators, so they agree statistically,
+    not step by step."""
+    ref = read_ledger_csv(Path(__file__).resolve().parent / LEDGER_CSV)
+    cfg = amt.temperature_pore_config(engine=amt.EngineConfig(
+        dtype="float32", broadphase="cells", hist_flush_interval=1, **PAIRS))
+    require(cfg.seed == SEED, f"ledger gate: config seed {cfg.seed}")
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    t0 = time.perf_counter()
+    state, meas, metrics = sim.run(num_steps=LEDGER_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = state.num_particles
+    parts, failed = [], []
+    for col, field in LEDGER_COLUMNS:
+        ours = getattr(metrics, field).double().cpu().numpy()
+        require(len(ours) == LEDGER_STEPS and len(ref[col]) == LEDGER_STEPS,
+                f"ledger gate: {len(ours)} steps against {len(ref[col])}")
+        z, ratio, ok = ledger_z_test(ref[col], ours)
+        parts.append(f"{col} z={z!r} std ratio={ratio!r}")
+        if not ok:
+            failed.append(col)
+    print(f"ledger gate: {'; '.join(parts)} (bounds z < {LEDGER_Z}, std "
+          f"ratio in {LEDGER_STD_RATIO[0]}-{LEDGER_STD_RATIO[1]}) {tag}")
+    print(f"ledger gate: N={n} steps={LEDGER_STEPS} seed={cfg.seed} pairs "
+          f"K={sim.pcfg.rebuild_interval}, "
+          f"collisions={int(meas.collision_count)} "
+          f"err={int(meas.err_count)} overflow={int(meas.overflow_count)}, "
+          f"{seconds!r} s against {LEDGER_CSV} {tag}")
+    require(not failed, f"ledger gate: {failed} outside the z-test's bounds")
+
+
+# --------------------------------------------------------------------------
 # K8: the fused drift/walls/recapture pass, and K11: the all-pairs search
 # --------------------------------------------------------------------------
 
@@ -1693,59 +1870,190 @@ def slab_case(particles: int = PARTICLES):
         window=(c.cell_start, plan.cell_window))
 
 
+def exact_pack(label: str, got, want) -> None:
+    """One (buf, flag, dropped) or (idx, flag, dropped) of K12 bitwise
+    equal to its plain version's."""
+    got_buf, want_buf = got[0], want[0]
+    if isinstance(got_buf, dict):
+        require(set(got_buf) == set(want_buf), f"K12 {label}: fields")
+        for name in got_buf:
+            exact(f"K12 {label} {name}", got_buf[name], want_buf[name])
+    else:
+        exact(f"K12 {label} idx", got_buf, want_buf)
+    exact(f"K12 {label} flag", got[1], want[1])
+    exact(f"K12 {label} dropped", got[2], want[2])
+
+
+def exact_pair(label: str, got, want) -> None:
+    """K12's two-direction entry bitwise equal to its plain version."""
+    exact_pack(f"{label} up", got[0], want[0])
+    exact_pack(f"{label} down", got[1], want[1])
+    if len(want) > 2:
+        exact(f"K12 {label} the lanes that stay", got[2], want[2])
+
+
+def pack_cases(case):
+    """(label, fields, capacity, up edge, down edge, up_inclusive) of the
+    two exchanges of a step: the halo bands and the migrants (an interior
+    slab, so both sides have a neighbour)."""
+    c, plan = case.c, case.plan
+    return (("halo bands", case.band, plan.halo_capacity, c.up_edge,
+             c.down_edge, False),
+            ("migrants", case.payload, plan.migration_capacity, c.z_hi,
+             c.z_lo, True))
+
+
 def check_pack(case, tag: str, reps: int) -> dict:
-    """K12 against its plain versions at the slab's real sizes: the halo
+    """K12's three entries against their plain versions at the slab's real
+    sizes, bitwise (buffers, flags, dropped, index form, the lanes that
+    stay).  The mask entries (``pack_band``, ``pack_indices``) on the halo
     band (pos, vel, gid into halo_capacity slots) and the migrants (five
-    fields into migration_capacity slots), each with room and with a
-    capacity of half the count (the highest lanes dropped), and the index
-    form on the same masks: buffers bitwise, flags and dropped exact.
-    Timed on the halo band; the library column is torch.nonzero plus one
-    index_select a field."""
-    plan = case.plan
-    for label, fields, mask, capacity in (
-            ("halo band", case.band, case.halo_up, plan.halo_capacity),
-            ("migrants", case.payload, case.go_up, plan.migration_capacity)):
+    fields into migration_capacity slots): with room, with a capacity of
+    half the count (the highest lanes dropped), with no lane set, and at
+    capacity 0.  The two-direction entry (``pack_band_pair``, the step's)
+    on both exchanges: with room, truncated, with no lane selected, and
+    without a neighbour on either side.  Then each entry recorded in a
+    CUDA graph and replayed (``check_pack_graph``).  Timed on the halo
+    bands; the library column is the masks, ``torch.nonzero`` and one
+    ``index_select`` a field, for both directions."""
+    nothing = torch.zeros_like(case.valid)
+    for label, fields, mask in (("halo band", case.band, case.halo_up),
+                                ("migrants", case.payload, case.go_up)):
+        capacity = (case.plan.halo_capacity if label == "halo band"
+                    else case.plan.migration_capacity)
         count = int(mask.sum())
         require(0 < count <= capacity,
                 f"K12 {label}: {count} lanes for {capacity} slots")
-        for cap in (capacity, max(count // 2, 1)):
-            got = pack.pack_band(fields, mask, cap)
-            want = pack.pack_band_plain(fields, mask, cap)
-            for name in fields:
-                exact(f"K12 {label} {name} (capacity {cap})", got[0][name],
-                      want[0][name])
-            got_i = pack.pack_indices(mask, cap)
-            want_i = pack.pack_indices_plain(mask, cap)
-            for name, a, b in (("flag", got[1], want[1]),
-                               ("dropped", got[2], want[2]),
-                               ("idx", got_i[0], want_i[0]),
-                               ("idx flag", got_i[1], want_i[1]),
-                               ("idx dropped", got_i[2], want_i[2])):
-                exact(f"K12 {label} {name} (capacity {cap})", a, b)
-            require(int(got[2]) == max(count - cap, 0),
-                    f"K12 {label}: dropped {int(got[2])} of {count} at "
-                    f"capacity {cap}")
-            print(f"K12 pack_band {label}: {count} of {mask.shape[0]} lanes "
-                  f"into {cap} slots, {len(fields)} fields: buffers bitwise, "
-                  f"flag, dropped={int(got[2])} and the index form exact "
-                  f"{tag}")
-    fields, mask, cap = case.band, case.halo_up, plan.halo_capacity
-    count = int(mask.sum())
+        for variant, cap, m in (("with room", capacity, mask),
+                                ("truncated", max(count // 2, 1), mask),
+                                ("no lane set", capacity, nothing),
+                                ("capacity 0", 0, mask)):
+            got = pack.pack_band(fields, m, cap)
+            exact_pack(f"{label} {variant}", got,
+                       pack.pack_band_plain(fields, m, cap))
+            exact_pack(f"{label} {variant} index form",
+                       pack.pack_indices(m, cap),
+                       pack.pack_indices_plain(m, cap))
+            require(int(got[2]) == max(int(m.sum()) - cap, 0),
+                    f"K12 {label} {variant}: dropped {int(got[2])}")
+            print(f"K12 pack_band {label} {variant}: {int(m.sum())} of "
+                  f"{m.shape[0]} lanes into {cap} slots, {len(fields)} "
+                  f"fields: buffers bitwise, flag, dropped={int(got[2])} and "
+                  f"the index form exact {tag}")
+    for label, fields, cap, up, down, inclusive in pack_cases(case):
+        both = pack.pack_band_pair_plain(fields, case.valid, cap, up, down,
+                                         inclusive)
+        counts = [int(side[1].sum()) + int(side[2]) for side in both]
+        require(max(counts) > 0, f"K12 pair {label}: counts {counts}")
+        for variant, k, valid, u, d in (
+                ("with room", cap, case.valid, up, down),
+                ("truncated", max(max(counts) // 2, 1), case.valid, up,
+                 down),
+                ("no lane selected", cap, nothing, up, down),
+                ("no neighbour above", cap, case.valid, None, down),
+                ("no neighbour below", cap, case.valid, up, None)):
+            args = (fields, valid, k, u, d, inclusive)
+            got = pack.pack_band_pair(*args, rest=True)
+            exact_pair(f"pair {label} {variant}", got,
+                       pack.pack_band_pair_plain(*args, rest=True))
+            print(f"K12 pack_band_pair {label} {variant}: up "
+                  f"{int(got[0][1].sum())} (dropped {int(got[0][2])}), down "
+                  f"{int(got[1][1].sum())} (dropped {int(got[1][2])}) of "
+                  f"{int(valid.sum())} valid lanes into 2 x {k} slots, "
+                  f"{len(fields)} fields, one launch: buffers, flags, "
+                  f"dropped and the lanes that stay bitwise {tag}")
+    check_pack_graph(case, tag)
+
+    c = case.c
+    fields, valid, cap = case.band, case.valid, case.plan.halo_capacity
+    pos = fields["pos"]
+    n = valid.shape[0]
     row_bytes = sum(a[0].numel() * a.element_size() for a in fields.values())
 
     def library():
-        idx = torch.nonzero(mask).flatten()[:cap]
-        return [torch.index_select(a, 0, idx) for a in fields.values()]
+        z = pos[:, 2]
+        out = []
+        for m in (valid & (z > c.up_edge), valid & (z < c.down_edge)):
+            idx = torch.nonzero(m).flatten()[:cap]
+            out.append([torch.index_select(a, 0, idx)
+                        for a in fields.values()])
+        return out
 
-    # The mask once, the kept rows read, every slot and its flag written.
-    io = mask.shape[0] + count * row_bytes + cap * (row_bytes + 1) + 4
-    out = {"pack_band": result(
-        0.0, maybe_timed(lambda: pack.pack_band(fields, mask, cap), reps),
-        maybe_timed(lambda: pack.pack_band_plain(fields, mask, cap), reps),
+    up, down = pack.pack_band_pair_plain(fields, valid, cap, c.up_edge,
+                                         c.down_edge)
+    kept = int(up[1].sum()) + int(down[1].sum())
+    # valid once, z of the valid lanes, the kept rows read, every slot and
+    # flag of both sides written, dropped.
+    io = (n + 4 * int(valid.sum()) + kept * row_bytes
+          + 2 * cap * (row_bytes + 1) + 8)
+    pair_args = (fields, valid, cap, c.up_edge, c.down_edge)
+    out = {"pack_band_pair": result(
+        0.0, maybe_timed(lambda: pack.pack_band_pair(*pair_args), reps),
+        maybe_timed(lambda: pack.pack_band_pair_plain(*pair_args), reps),
         io, 0.0, maybe_timed(library, reps))}
     if reps > 0:
-        print_times(out, mask.shape[0], tag)
+        print_times(out, n, f"(both halo bands, one call) {tag}")
+        mask = case.halo_up
+        one = {"pack_band": result(
+            0.0, timed_ms(lambda: pack.pack_band(fields, mask, cap), reps),
+            timed_ms(lambda: pack.pack_band_plain(fields, mask, cap), reps),
+            n + int(mask.sum()) * row_bytes + cap * (row_bytes + 1) + 4, 0.0,
+            timed_ms(lambda: [torch.index_select(a, 0, torch.nonzero(
+                mask).flatten()[:cap]) for a in fields.values()], reps))}
+        print_times(one, n, f"(the up band from its mask) {tag}")
     return out
+
+
+def check_pack_graph(case, tag: str) -> None:
+    """K12's three entries recorded in one CUDA graph and replayed three
+    times on the slab's positions moved by one, two and three more drifts
+    (the masks follow the positions): every replay bitwise equal to the
+    plain versions.  One call of each on the capturing stream first, as
+    for K6."""
+    dt = case.sim.cfg.dt
+    c = case.c
+    st = case.st
+    static = {"pos": st.pos.clone(), "vel": st.vel.clone(),
+              "gid": case.gid.clone()}
+    valid = case.valid.clone()
+    mask = torch.zeros_like(valid)
+    cap = case.plan.halo_capacity
+
+    def calls():
+        return (pack.pack_band(static, mask, cap),
+                pack.pack_indices(mask, cap),
+                pack.pack_band_pair(static, valid, cap, c.up_edge,
+                                    c.down_edge, rest=True))
+
+    side = torch.cuda.Stream(valid.device)
+    side.wait_stream(torch.cuda.current_stream(valid.device))
+    with torch.cuda.stream(side):
+        calls()
+    side.synchronize()
+    scratches = len(compact._scratch)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = calls()
+    require(len(compact._scratch) == scratches,
+            "K12: the capture allocated a scratch")
+    counts = []
+    for k in (1, 2, 3):
+        static["pos"].copy_(torch.where(valid[:, None],
+                                        st.pos + (k * dt) * st.vel, st.pos))
+        mask.copy_(valid & (static["pos"][:, 2] > c.up_edge))
+        graph.replay()
+        torch.cuda.synchronize()
+        exact_pack(f"pack_band (graph replay {k})", out[0],
+                   pack.pack_band_plain(static, mask, cap))
+        exact_pack(f"pack_indices (graph replay {k})", out[1],
+                   pack.pack_indices_plain(mask, cap))
+        exact_pair(f"pack_band_pair (graph replay {k})", out[2],
+                   pack.pack_band_pair_plain(static, valid, cap, c.up_edge,
+                                             c.down_edge, rest=True))
+        counts.append((int(out[2][0][1].sum()), int(out[2][1][1].sum())))
+    print(f"K12 pack_band, pack_indices and pack_band_pair: one capture "
+          f"replayed 3 times on positions moved by 1-3 more drifts (halo "
+          f"lanes up, down: {counts}): bitwise each time {tag}")
 
 
 def check_slab_kernels(case, tag: str, reps: int) -> None:
@@ -1999,9 +2307,9 @@ def run_sharded_slice(tag: str, sweep_pairs: int) -> dict:
     require(drop == 0 and bool(
         (tot.hist.sum(dim=1) == int(tot.path_count)).all()),
         "sharded slice: histogram rows do not sum to path_count")
-    expected = {"pack_band": 4, "pore_advance": 1, "bin_and_table": 1,
-                "partner_sweep": 1, "resolve_pairs": 1, "flush_hist": 1,
-                "compact": 1}
+    expected = {"pack_band_pair": 2, "pack_band": 0, "pore_advance": 1,
+                "bin_and_table": 1, "partner_sweep": 1, "resolve_pairs": 1,
+                "flush_hist": 1, "compact": 1}
     for name, per_step in expected.items():
         require(counts.get(name, 0) == per_step * SLABS * STEPS,
                 f"sharded slice: {name} launched {counts.get(name, 0)} "
@@ -2213,9 +2521,62 @@ def time_compact(tag: str, reps: int = 200) -> None:
           f"{lib!r} ms (mean of {reps}, three times) at N={n} {tag}")
 
 
+def time_k2_k12(tag: str, reps: int = 20) -> None:
+    """K2 at 1M and on one slab's local and ghost lanes, and K12 on that
+    slab's two halo bands, each three times (CUDA events, mean of
+    ``reps``), K12 beside the library calls for the same work (the masks,
+    ``torch.nonzero`` and one ``index_select`` a field, both directions):
+    so that two checkouts read in one call compare on them.  K12 is the
+    two-direction entry where the checkout has it, else two one-direction
+    calls on masks built as that checkout's step builds them."""
+    dev = torch.device("cuda")
+    cfg = config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = init_ops.init_pore(cfg, gen, dev)
+    pos = state.pos + cfg.dt * state.vel
+    _, grid = build_grids(amt.make_workload(cfg), dev)
+    k2 = [timed_ms(lambda: collide.bin_and_table(pos, grid), reps)
+          for _ in range(3)]
+    case = slab_case()
+    c, fields, valid = case.c, case.band, case.valid
+    cap = case.plan.halo_capacity
+    k2_slab = [timed_ms(lambda: collide.bin_and_table(
+        case.pos, c.grid, valid=case.lanes), reps) for _ in range(3)]
+    if hasattr(pack, "pack_band_pair"):
+        form = "pack_band_pair (both bands, one call)"
+
+        def k12():
+            pack.pack_band_pair(fields, valid, cap, c.up_edge, c.down_edge)
+    else:
+        form = "two pack_band calls on their masks"
+
+        def k12():
+            z = fields["pos"][:, 2]
+            pack.pack_band(fields, valid & (z > c.up_edge), cap)
+            pack.pack_band(fields, valid & (z < c.down_edge), cap)
+
+    def library():
+        z = fields["pos"][:, 2]
+        for m in (valid & (z > c.up_edge), valid & (z < c.down_edge)):
+            idx = torch.nonzero(m).flatten()[:cap]
+            for a in fields.values():
+                torch.index_select(a, 0, idx)
+
+    k12_ms = [timed_ms(k12, reps) for _ in range(3)]
+    lib_ms = [timed_ms(library, reps) for _ in range(3)]
+    print(f"breakdown K2: bin_and_table {k2!r} ms at N={pos.shape[0]}, "
+          f"{k2_slab!r} ms on {case.pos.shape[0]} slab lanes (mean of "
+          f"{reps}, three times) {tag}")
+    print(f"breakdown K12: {form} {k12_ms!r} ms, library {lib_ms!r} ms "
+          f"(mean of {reps}, three times) on {valid.shape[0]} slab lanes "
+          f"{tag}")
+
+
 def breakdowns(tag: str) -> None:
     """Phase 9 for every slice this checkout has."""
     time_compact(tag)
+    time_k2_k12(tag)
     breakdown(tag, "sweep", config())
     breakdown(tag, "pairs", config(**PAIRS))
     if hasattr(amt, "CubeConfig"):
@@ -2255,7 +2616,7 @@ def main(argv) -> int:
     if args.breakdown:
         breakdowns(tag)
         return 0
-
+    check_ledger_gate(tag)
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))

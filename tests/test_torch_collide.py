@@ -472,6 +472,49 @@ def test_table_rows_are_ascending_and_sentinel_terminated(capacity,
         np.testing.assert_array_equal(table[c], members[:cap])
 
 
+@pytest.mark.parametrize("with_valid", [False, True],
+                         ids=["all-lanes", "valid"])
+@pytest.mark.parametrize("capacity", [None, 8])
+@pytest.mark.parametrize("shape", ["clump-40", "clump-150", "one-cell"])
+def test_bin_and_table_plain_long_segments(shape, capacity, with_valid):
+    """Segments longer than a warp, where K2's table fill takes its
+    long-segment path: a cell holding over 32 and over 100 particles, and
+    every particle in one cell, at the auto capacity and at 8, with and
+    without ``valid``; equal to the reference's assign_cells +
+    build_cell_table, the crowded cell keeping its lowest indices."""
+    cfg, host_grid = pore_setup(capacity)
+    jgrid, tgrid = grids(host_grid, np.float32, torch.float32)
+    rng = np.random.default_rng(13)
+    if shape == "one-cell":
+        pos = np.repeat(clustered_positions(cfg, rng)[:1], 3000, axis=0)
+    else:
+        pos = crowded_positions(cfg, rng, clump=int(shape.split("-")[1]))
+    pos = pos.astype(np.float32)
+    n = pos.shape[0]
+    valid = rng.uniform(size=n) > 0.1 if with_valid else None
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tvalid = None if valid is None else torch.from_numpy(valid)
+
+    cid_j = jcollide.assign_cells(jnp.asarray(pos), jgrid, jvalid)
+    table_j, overflow_j, pslot_j = jcollide.build_cell_table(cid_j, jgrid)
+    cid, table, pslot, overflow = tcollide.bin_and_table_plain(
+        torch.from_numpy(pos), tgrid, valid=tvalid)
+    np.testing.assert_array_equal(cid.numpy(), np.asarray(cid_j))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(table_j))
+    np.testing.assert_array_equal(overflow.numpy(), np.asarray(overflow_j))
+    live = np.ones(n, bool) if valid is None else valid
+    np.testing.assert_array_equal(pslot.numpy()[live],
+                                  np.asarray(pslot_j)[live])
+    cells = cid.numpy()[live]
+    counts = np.bincount(cells[cells < tgrid.num_cells])
+    assert counts.max() > {"clump-40": 32, "clump-150": 100}.get(shape, 2000)
+    crowded = np.argmax(counts)
+    members = np.flatnonzero((cid.numpy() == crowded) & live)
+    np.testing.assert_array_equal(table.numpy()[crowded],
+                                  members[:tgrid.capacity])
+    assert int(overflow) == np.maximum(counts - tgrid.capacity, 0).sum()
+
+
 @pytest.mark.parametrize("target", [TARGET, 1_000_000],
                          ids=["pore-4k", "pore-1M"])
 def test_cell_runs_and_staged_rows_equal_grid_neighbors(target):

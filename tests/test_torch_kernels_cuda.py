@@ -10,7 +10,8 @@ Tolerances: integer outputs and staging exact; K10's and K3's state within
 2 ulp (both sides round every operation once, IEEE; measured 0); K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
-why); K11 exact; K12's buffers bitwise, its flags and counts exact.  The
+why); K11 exact; K12's buffers bitwise, its flags and counts exact; K2
+exact, also on its long-segment path and when replayed in a CUDA graph.  The
 pairs engine's kernels, K8, K11, K12 and the z-slab arguments of K2, K9 and
 K10 run ``chip_smoke.py``'s own checks, untimed: the pore at 200k
 particles (cut in 4 z-slabs for K12 and the sharded sweep), the cube at its
@@ -138,6 +139,23 @@ def test_flush_hist_kernel(device, capacity):
                                atol=0)
     if capacity == 1024:
         assert int(got.hist_drop_count) > 0
+
+
+@pytest.mark.parametrize("capacity", [None, 8])
+def test_bin_and_table_kernel_long_segments_and_calls_in_a_row(device,
+                                                                capacity):
+    """K2 with a cell of more than 100 particles and with 20,000 in one
+    cell (its long-segment path), and over calls in a row on different
+    positions, its counts left zero between calls."""
+    cfg, _, state, grid = setup(device, capacity)
+    chip_smoke.check_bin_and_table_hard(state, [grid], cfg.dt, "")
+
+
+def test_bin_and_table_kernel_replays_in_a_cuda_graph(device):
+    """One captured K2 call replayed three times on moved positions."""
+    cfg, _, state, grid = setup(device)
+    chip_smoke.check_bin_and_table_graph(state.pos, state.vel, cfg.dt, grid,
+                                         "")
 
 
 def test_kernels_refuse_float64(device):
@@ -269,13 +287,15 @@ def test_cube_on_card_matches_cpu(device):
 
 
 def test_pack_and_slab_argument_kernels(device):
-    """K12 with room and truncated, its index form, and K2, K9 and K10 with
-    ``valid``, ``ids``, ``cell_window`` and ``local_mask`` on one slab's
-    local and ghost lanes."""
+    """K12's three entries with room, truncated, empty and at capacity 0,
+    the two-direction entry also without a neighbour on either side, all
+    three replayed in a CUDA graph; and K2, K9 and K10 with ``valid``,
+    ``ids``, ``cell_window`` and ``local_mask`` on one slab's local and
+    ghost lanes."""
     before = dict(kernels.launch_counts)
     chip_smoke.check_slab("", particles=TARGET, reps=0)
-    for name in ("pack_band", "pack_indices", "bin_and_table",
-                 "partner_sweep", "resolve_pairs"):
+    for name in ("pack_band", "pack_indices", "pack_band_pair",
+                 "bin_and_table", "partner_sweep", "resolve_pairs"):
         assert kernels.launch_counts[name] > before.get(name, 0), name
 
 
@@ -284,6 +304,9 @@ def test_pack_band_refuses_float64(device):
     rows = torch.zeros((8, 3), dtype=torch.float64, device=device)
     with pytest.raises(TypeError):
         chip_smoke.pack.pack_band({"pos": rows}, mask, 4)
+    edge = torch.zeros((), dtype=torch.float64, device=device)
+    with pytest.raises(TypeError):
+        chip_smoke.pack.pack_band_pair({"pos": rows}, mask, 4, edge, edge)
 
 
 def test_sharded_sweep_on_card_matches_cpu(device):

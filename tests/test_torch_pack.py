@@ -1,6 +1,8 @@
-"""Port vs reference: the plain versions of K12, ``pack_band_plain`` and
-``pack_indices_plain``, against ``_compact_band`` and ``_compact_idx`` of
-the JAX package's sharded engine on the same numpy-seeded inputs.
+"""Port vs reference: the plain versions of K12, ``pack_band_plain``,
+``pack_indices_plain`` and the two-direction ``pack_band_pair_plain``,
+against ``_compact_band`` and ``_compact_idx`` of the JAX package's sharded
+engine on the same numpy-seeded inputs (the two-direction form against two
+``_compact_band`` calls on the masks the reference's step builds).
 
 Everything is a copy or an integer, so every comparison is exact: the
 buffers (kept rows in ascending lane order, then the fill -- the far
@@ -102,6 +104,89 @@ def test_pack_indices_plain_matches_reference(density, room):
     assert (idx.numpy()[min(count, capacity):] == N).all()
 
 
+PAIR_CASES = ["room", "truncated", "capacity-0", "empty", "no-up",
+              "no-down"]
+
+
+def edge_lanes(rng, dtype):
+    """The payload's fields and valid over N lanes, with an up and a down
+    edge that three valid lanes each sit on or one ulp either side of."""
+    fields = make_fields(rng, dtype)
+    valid = rng.random(N) < 0.9
+    z = fields["pos"][:, 2]
+    up, down = dtype(0.9), dtype(-0.8)
+    for lane, value in ((10, up), (11, np.nextafter(up, dtype(np.inf))),
+                        (12, np.nextafter(up, dtype(-np.inf))),
+                        (20, down), (21, np.nextafter(down, dtype(np.inf))),
+                        (22, np.nextafter(down, dtype(-np.inf)))):
+        z[lane] = value
+        valid[lane] = True
+    return fields, valid, up, down
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("inclusive", [False, True], ids=["halo", "migrants"])
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pack_band_pair_plain_matches_reference(case, inclusive, dtype):
+    """Both directions of one exchange at once, against two
+    ``_compact_band`` calls on the reference's masks: ``valid & (z >
+    z_hi - halo_width)`` / ``valid & (z < z_lo + halo_width)`` for the halo,
+    ``valid & (z >= z_hi) & (me < n_shards - 1)`` / ``valid & (z < z_lo) &
+    (me > 0)`` for the migrants (shard.py:410-417, 479-486).  Lanes on an
+    edge and one ulp either side go the reference's way; a side without a
+    neighbour packs nothing; capacity 0, no lane selected and a truncated
+    capacity give the reference's fills, flags and dropped."""
+    np_dtype = DTYPES[dtype]
+    rng = np.random.default_rng(12)
+    fields, valid, up, down = edge_lanes(rng, np_dtype)
+    if case == "empty":
+        up, down = np_dtype(50.0), np_dtype(-50.0)
+    up_edge = None if case == "no-up" else up
+    down_edge = None if case == "no-down" else down
+
+    jf = {k: jnp.asarray(v) for k, v in fields.items()}
+    jz, jvalid = jf["pos"][:, 2], jnp.asarray(valid)
+    nobody = jnp.zeros(N, bool)
+    if up_edge is None:
+        jup = nobody
+    elif inclusive:
+        jup = jvalid & (jz >= jnp.asarray(up_edge))
+    else:
+        jup = jvalid & (jz > jnp.asarray(up_edge))
+    jdown = nobody if down_edge is None else jvalid & (jz < jnp.asarray(
+        down_edge))
+    count = max(int(jup.sum()), int(jdown.sum()))
+    capacity = {"truncated": max(count // 2, 1), "capacity-0": 0}.get(
+        case, count + 3)
+
+    t = {k: torch.from_numpy(v) for k, v in fields.items()}
+    as_t = (lambda e: None if e is None
+            else torch.tensor(e, dtype=t["pos"].dtype))
+    up_t, down_t, rest = tpack.pack_band_pair_plain(
+        t, torch.from_numpy(valid), capacity, as_t(up_edge), as_t(down_edge),
+        up_inclusive=inclusive, rest=True)
+    for (buf, flag, dropped), jmask in ((up_t, jup), (down_t, jdown)):
+        want, dropped_j = jshard._compact_band(jf, jmask, capacity)
+        for name, arr in fields.items():
+            got = buf[name].numpy()
+            assert got.shape == (capacity,) + arr.shape[1:]
+            np.testing.assert_array_equal(got, np.asarray(want[name]),
+                                          err_msg=name)
+        np.testing.assert_array_equal(flag.numpy(), np.asarray(want["flag"]))
+        assert int(dropped) == int(dropped_j)
+    np.testing.assert_array_equal(
+        rest.numpy(), valid & ~np.asarray(jup) & ~np.asarray(jdown))
+    if case in ("truncated", "capacity-0"):
+        assert int(up_t[2]) > 0
+    if case == "empty":
+        assert int(up_t[1].sum()) == int(down_t[1].sum()) == 0
+    if case == "room":
+        # The lanes on and beside the edges went the reference's way.
+        gids = set(up_t[0]["gid"][up_t[1]].tolist())
+        sides = {fields["gid"][lane] in gids for lane in (10, 11, 12)}
+        assert sides == {True, False}
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu():
     """A CPU mask runs the plain version (no launch); any other device
     than the CPU or CUDA raises instead of falling back."""
@@ -118,6 +203,16 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     for got, ref in zip(tpack.pack_indices(mask, 64),
                         tpack.pack_indices_plain(mask, 64)):
         assert torch.equal(got, ref)
+    edge = torch.tensor(0.5, dtype=torch.float32)
+    got = tpack.pack_band_pair(fields, mask, 64, edge, -edge, rest=True)
+    want = tpack.pack_band_pair_plain(fields, mask, 64, edge, -edge,
+                                      rest=True)
+    for (g_buf, g_flag, g_drop), (w_buf, w_flag, w_drop) in zip(got[:2],
+                                                                want[:2]):
+        for name in fields:
+            assert torch.equal(g_buf[name], w_buf[name])
+        assert torch.equal(g_flag, w_flag) and torch.equal(g_drop, w_drop)
+    assert torch.equal(got[2], want[2])
     assert dict(kernels.launch_counts) == before
     with pytest.raises(ValueError, match="plain version runs on the CPU"):
         tpack.pack_indices(mask.to("meta"), 64)
@@ -139,7 +234,8 @@ def declared_signatures():
     return declared
 
 
-@pytest.mark.parametrize("name", ["pack_band", "pack_indices"])
+@pytest.mark.parametrize("name", ["pack_band", "pack_indices",
+                                  "pack_band_pair"])
 def test_pack_signatures_match_source(name):
     """The ctypes argument table equals pack.cu's declarations, stream
     last."""
@@ -173,8 +269,22 @@ def test_pack_wrappers_pass_declared_arguments(monkeypatch):
     assert flag.shape == (64,)
     tpack.pack_band({"pos": fields["pos"], "gid": fields["gid"]}, mask, 8)
     tpack.pack_indices(mask, 32)
+    edge = torch.tensor(0.5, dtype=torch.float32)
+    up, down, rest = tpack.pack_band_pair(fields, mask, 16, edge, None,
+                                          up_inclusive=True, rest=True)
+    assert up[0]["pos"].shape == down[0]["pos"].shape == (16, 3)
+    assert up[1].shape == (16,) and rest.shape == (N,)
+    assert len(tpack.pack_band_pair(fields, mask, 16, edge, edge)) == 2
     assert [c[0] for c in calls] == ["pack_band", "pack_band",
-                                     "pack_indices"]
+                                     "pack_indices", "pack_band_pair",
+                                     "pack_band_pair"]
+    # valid, pos, n; the up edge given, the down edge null; >=; capacity
+    # and fields; rest given, then left out.
+    pair = calls[3][1]
+    assert pair[2] == N and pair[3].value is not None
+    assert pair[4].value is None and pair[5:8] == (1, 16, 5)
+    assert pair[-2].value is not None and calls[4][1][-2].value is None
+    assert calls[4][1][5] == 0
     # n, capacity, number of fields; row bytes, element bytes and the
     # fill's bit pattern of pos (1e9 as float32) and of has_collided.
     args = calls[0][1]
