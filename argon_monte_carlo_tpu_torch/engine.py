@@ -356,7 +356,7 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     return step
 
 
-def _copy(obj):
+def copy_tensors(obj):
     """A dataclass of tensors with every tensor cloned (None stays)."""
     if obj is None:
         return None
@@ -378,10 +378,11 @@ class Simulation:
     positions when the window is used up, and drops the list when ``run``
     gets a state other than the one it last returned (engine.py:494-814).
 
-    The pairs step updates the state and the measurements in place (K3 and
-    K7's compacted entry), so ``run`` copies the state and measurements it
-    is handed once on entry and carries its own copies: it never writes a
-    tensor its caller passed in.
+    The steps update the state and the measurements in place (the pairs
+    step's K3 and K7's compacted entry, the sweep's and the cube's K7), so
+    ``run`` copies the state and measurements it is handed once on entry
+    and carries its own copies: it never writes a tensor its caller passed
+    in.
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -454,7 +455,7 @@ class Simulation:
             # another trajectory.
             self._plist = None
             self._window_left = 0
-        state, measure = _copy(state), _copy(measure)
+        state, measure = copy_tensors(state), copy_tensors(measure)
         if draw is None:
             if generator is None:
                 raise ValueError("pass the generator that init() returned, "

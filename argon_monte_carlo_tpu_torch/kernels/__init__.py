@@ -43,12 +43,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (tests/test_torch_pairs.py holds them against the C declarations).
 _SIGNATURES = {
     "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I]
-                     + [_P] * 9,
+                     + [_P] * 8 + [_I, _P],
     "partner_sweep": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
     "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "flush_hist": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _P, _P, _P],
+    "flush_hist": [_P, _P, _I, _I, _I, _F] + [_P] * 8,
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 7,
     "compact": [_P, _I, _I, _I, _P, _P, _P],
     "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
@@ -58,7 +57,7 @@ _SIGNATURES = {
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F] + [_P] * 13,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 12,
-    "allpairs_partner": [_P, _I, _F, _P, _P],
+    "allpairs_partner": [_P, _I, _F, _I] + [_P] * 4 + [_I, _P, _P],
     "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 4,
     "pack_indices": [_P, _I, _I] + [_P] * 5,
     "pack_band_pair": [_P, _P, _I, _P, _P, _I, _I, _I]

@@ -14,9 +14,9 @@
 //   1. bin: one thread a particle computes its cell (amc::assign_cell) and
 //      takes its arrival rank in the cell from the count's atomicAdd; the
 //      rank waits in pslot (an output, overwritten by launch 4).
-//   2. scan: a single-pass exclusive scan of the C counts (the decoupled
-//      look-back of lookback.cuh; 1,024 counts a block, four a thread by one
-//      16-byte load) into offsets[0, C], offsets[C] the total; it leaves
+//   2. scan: a single-pass exclusive scan of the C counts (lookback.cuh's
+//      count_scan, which K11 shares; 1,024 counts a block, four a thread by
+//      one 16-byte load) into offsets[0, C], offsets[C] the total; it leaves
 //      each count zero after reading it, so no memset comes before launch 1.
 //   3. scatter: one thread a particle writes its index at its cell's offset
 //      plus its arrival rank: each cell's segment holds its particles in
@@ -44,8 +44,6 @@
 
 namespace {
 
-constexpr int kScanItems = 4;  // counts a thread, one int4
-constexpr int kScanTile = amc::kThreads * kScanItems;
 constexpr int kCellsPerWarp = 8;
 constexpr int kWarps = amc::kThreads / 32;
 // The largest capacity the long-segment path gathers in shared memory (the
@@ -78,57 +76,6 @@ __global__ void assign_cells_kernel(const float* __restrict__ pos,
                            layer_base, half_extent, nz, z_lo, cell_size);
   cell_id[i] = c;
   pslot[i] = atomicAdd(&counts[c], 1);  // the arrival rank, for launch 3
-}
-
-// offsets[c] = counts before cell c, offsets[m] = the total; counts[c] = 0
-// after it is read.  kVector: counts and offsets are 16-byte aligned.
-template <bool kVector>
-__launch_bounds__(amc::kThreads) __global__ void scan_kernel(
-    int* __restrict__ counts, int m, int ntiles,
-    unsigned long long* __restrict__ scratch, int* __restrict__ offsets) {
-  int tile = amc::take_tile(scratch);
-  long long first = static_cast<long long>(tile) * kScanTile +
-                    threadIdx.x * kScanItems;
-  int c[kScanItems] = {0, 0, 0, 0};
-  bool vector = kVector && first + kScanItems <= m;
-  if (vector) {
-    int4 v = *reinterpret_cast<const int4*>(counts + first);
-    c[0] = v.x;
-    c[1] = v.y;
-    c[2] = v.z;
-    c[3] = v.w;
-    *reinterpret_cast<int4*>(counts + first) = make_int4(0, 0, 0, 0);
-  } else {
-    for (int k = 0; k < kScanItems; ++k) {
-      if (first + k < m) {
-        c[k] = counts[first + k];
-        counts[first + k] = 0;
-      }
-    }
-  }
-  int own = c[0] + c[1] + c[2] + c[3];
-  int tile_total;
-  int rank = amc::block_exclusive_scan(own, &tile_total);
-  bool last;
-  int run = amc::tile_prefix(scratch, tile, tile_total, ntiles, &last) +
-            rank;
-  int o[kScanItems];
-  for (int k = 0; k < kScanItems; ++k) {
-    o[k] = run;
-    run += c[k];
-  }
-  if (vector) {
-    *reinterpret_cast<int4*>(offsets + first) =
-        make_int4(o[0], o[1], o[2], o[3]);
-  } else {
-    for (int k = 0; k < kScanItems; ++k) {
-      if (first + k < m) offsets[first + k] = o[k];
-    }
-  }
-  // The thread that holds count m - 1 knows the total.
-  if (first <= m - 1 && m - 1 < first + kScanItems) offsets[m] = run;
-  if (m == 0 && tile == 0 && threadIdx.x == 0) offsets[0] = 0;
-  if (last) amc::release_tiles(scratch, ntiles);
 }
 
 __global__ void scatter_kernel(const int* __restrict__ cell_id,
@@ -263,29 +210,25 @@ __launch_bounds__(amc::kThreads) __global__ void table_kernel(
 
 // Scratch: counts (num_cells ints, zero, and left zero), offsets
 // (num_cells + 1), seg (n), 16-byte aligned; the look-back scratch
-// (lookback.cuh) of 1 + ceil(num_cells / 1024) words, zero, this stream's.
+// (lookback.cuh), scratch_words zero words, this stream's: at least
+// 1 + ceil(num_cells / 1024), else nothing is launched and the call fails.
 // cap <= 128.
 AMC_EXPORT int amc_bin_and_table(
     const float* pos, const uint8_t* valid, int n, const int* nx,
     const int* layer_base, const float* half_extent, int nz, float z_lo,
     float cell_size, int num_cells, int cap, int* cell_id, int* table,
     int* pslot, int* overflow, int* counts, int* offsets, int* seg,
-    unsigned long long* scratch, cudaStream_t stream) {
-  if (cap < 1 || cap > kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned long long* scratch, int scratch_words, cudaStream_t stream) {
+  if (cap < 1 || cap > kMaxCap ||
+      scratch_words < amc::count_scan_words(num_cells)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   assign_cells_kernel<<<max(amc::blocks_for(n), 1), amc::kThreads, 0,
                         stream>>>(pos, valid, n, nx, layer_base, half_extent,
                                   nz, z_lo, cell_size, num_cells, cap,
                                   cell_id, pslot, counts, overflow);
-  int ntiles = max(amc::blocks_for(num_cells, kScanTile), 1);
-  uintptr_t aligned = reinterpret_cast<uintptr_t>(counts) |
-                      reinterpret_cast<uintptr_t>(offsets);
-  if ((aligned & 15u) == 0) {
-    scan_kernel<true><<<ntiles, amc::kThreads, 0, stream>>>(
-        counts, num_cells, ntiles, scratch, offsets);
-  } else {
-    scan_kernel<false><<<ntiles, amc::kThreads, 0, stream>>>(
-        counts, num_cells, ntiles, scratch, offsets);
-  }
+  amc::count_scan(counts, num_cells, offsets, scratch, scratch_words,
+                  stream);
   if (n > 0) {
     scatter_kernel<<<amc::blocks_for(n), amc::kThreads, 0, stream>>>(
         cell_id, pslot, n, num_cells, offsets, seg);

@@ -1,5 +1,6 @@
 // The single-pass scan with decoupled look-back that K6 (compact.cu), K3
-// (test_resolve.cu), K12 (pack.cu) and K2's scan (bin_and_table.cu) share.
+// (test_resolve.cu), K7 (flush_hist.cu), K12 (pack.cu) and the scan of
+// counts of K2 (bin_and_table.cu) and K11 (allpairs.cu) share.
 //
 // A block takes its tile from an atomic ticket, so tiles start in ticket
 // order and a tile only ever waits for tiles that already run.  The block
@@ -144,5 +145,91 @@ __device__ __forceinline__ void release_tiles(unsigned long long* scratch,
   for (int t = threadIdx.x; t < ntiles; t += blockDim.x) status[t] = 0ull;
   if (threadIdx.x == 0) scratch[0] = 0ull;
 }
+
+// The scan of counts of the counting sorts of K2 (cell counts) and K11
+// (slab counts): offsets[c] = the counts before c, offsets[m] = the total,
+// and each count left zero once read, so the next call counts from zero
+// with no memset.  kCountItems counts a thread (one 16-byte load where
+// counts and offsets are aligned), kCountTile a block.
+constexpr int kCountItems = 4;
+constexpr int kCountTile = kThreads * kCountItems;
+
+// The look-back words a scan of m counts needs (scratch[0] and a word a
+// tile).
+inline long long count_scan_words(int m) {
+  return 1 + max(blocks_for(m, kCountTile), 1);
+}
+
+namespace {  // each source its own copy: the sources link into one library
+
+template <bool kVector>
+__launch_bounds__(kThreads) __global__ void count_scan_kernel(
+    int* __restrict__ counts, int m, int ntiles,
+    unsigned long long* __restrict__ scratch, int* __restrict__ offsets) {
+  int tile = take_tile(scratch);
+  long long first = static_cast<long long>(tile) * kCountTile +
+                    threadIdx.x * kCountItems;
+  int c[kCountItems] = {0, 0, 0, 0};
+  bool vector = kVector && first + kCountItems <= m;
+  if (vector) {
+    int4 v = *reinterpret_cast<const int4*>(counts + first);
+    c[0] = v.x;
+    c[1] = v.y;
+    c[2] = v.z;
+    c[3] = v.w;
+    *reinterpret_cast<int4*>(counts + first) = make_int4(0, 0, 0, 0);
+  } else {
+    for (int k = 0; k < kCountItems; ++k) {
+      if (first + k < m) {
+        c[k] = counts[first + k];
+        counts[first + k] = 0;
+      }
+    }
+  }
+  int own = c[0] + c[1] + c[2] + c[3];
+  int tile_total;
+  int rank = block_exclusive_scan(own, &tile_total);
+  bool last;
+  int run = tile_prefix(scratch, tile, tile_total, ntiles, &last) + rank;
+  int o[kCountItems];
+  for (int k = 0; k < kCountItems; ++k) {
+    o[k] = run;
+    run += c[k];
+  }
+  if (vector) {
+    *reinterpret_cast<int4*>(offsets + first) =
+        make_int4(o[0], o[1], o[2], o[3]);
+  } else {
+    for (int k = 0; k < kCountItems; ++k) {
+      if (first + k < m) offsets[first + k] = o[k];
+    }
+  }
+  // The thread that holds count m - 1 knows the total.
+  if (first <= m - 1 && m - 1 < first + kCountItems) offsets[m] = run;
+  if (m == 0 && tile == 0 && threadIdx.x == 0) offsets[0] = 0;
+  if (last) release_tiles(scratch, ntiles);
+}
+
+// One launch of the scan of m counts on the stream; scratch holds
+// scratch_words zero words.  Launches nothing and returns
+// cudaErrorInvalidValue when that is fewer than count_scan_words(m).
+inline cudaError_t count_scan(int* counts, int m, int* offsets,
+                              unsigned long long* scratch,
+                              long long scratch_words, cudaStream_t stream) {
+  if (scratch_words < count_scan_words(m)) return cudaErrorInvalidValue;
+  int ntiles = max(blocks_for(m, kCountTile), 1);
+  uintptr_t aligned = reinterpret_cast<uintptr_t>(counts) |
+                      reinterpret_cast<uintptr_t>(offsets);
+  if ((aligned & 15u) == 0) {
+    count_scan_kernel<true><<<ntiles, kThreads, 0, stream>>>(
+        counts, m, ntiles, scratch, offsets);
+  } else {
+    count_scan_kernel<false><<<ntiles, kThreads, 0, stream>>>(
+        counts, m, ntiles, scratch, offsets);
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
 
 }  // namespace amc

@@ -15,8 +15,9 @@ phase runs three kernels:
 The pairs engine's rebuild runs K2 and then ``rebuild_sweep`` (K1): the
 one-sided half-shell reach-mode sweep of the active cells, which keeps each
 particle's top_k lowest-index candidates and the rebuild-time planes.  The
-cube's broad phase is ``allpairs_partner_search`` (K11), the exact O(N^2)
-lowest-index search, in place of K2 and K9.
+cube's broad phase is ``allpairs_partner_search`` (K11), the exact
+lowest-index search over all N (a z-window's work: the plain version's
+z-sorted blocks, the kernel's z-slabs), in place of K2 and K9.
 
 The z-slab engine (``parallel/shard.py``) runs K2, K9 and K10 over a slab's
 local and ghost lanes together, with their optional arguments: ``valid``
@@ -47,6 +48,17 @@ from . import measure as measure_ops
 _NO_PARTNER = 1 << 30
 # Cells of one run of the cell walk of K9 and K1 (cell_walk.cuh kRunCells).
 RUN_CELLS = 8
+# The counts a block of the scan of counts that K2 and K11 share takes
+# (lookback.cuh kCountTile); a kernel handed fewer look-back words than its
+# scan needs launches nothing and fails.
+COUNT_SCAN_TILE = 1024
+# K11 counts the particles into one z-slab a ALLPAIRS_SLAB_ROWS of them
+# (allpairs.cu); its scratch a (device index, stream handle): the slab
+# counts (zero between calls), the offsets and the slab-ordered copy.
+ALLPAIRS_SLAB_ROWS = 16
+_K11_COUNTS: dict = {}
+_K11_OFFSETS: dict = {}
+_K11_ROWS: dict = {}
 # K9's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 4 bytes a slot
 # of capacity, K1's 5 * (RUN_CELLS + 2) * 20 + RUN_CELLS * 4 * top_k (top_k
 # up to 16), of the 227 KB a block can have.
@@ -363,10 +375,8 @@ def bin_and_table_plain(pos: torch.Tensor, grid: DeviceGrid,
     return cell_id, table.view(num_cells + 1, cap), pslot, overflow
 
 
-# The largest cell capacity K2's kernel takes (bin_and_table.cu kMaxCap),
-# and the cell counts a block of its scan takes (kScanTile).
+# The largest cell capacity K2's kernel takes (bin_and_table.cu kMaxCap).
 K2_MAX_CAPACITY = 128
-K2_SCAN_TILE = 1024
 # (device index, stream handle) -> K2's scratch: counts, zero between
 # calls (the kernel leaves it so); offsets and seg, no invariant.
 _k2_counts: dict = {}
@@ -415,14 +425,14 @@ def bin_and_table(pos: torch.Tensor, grid: DeviceGrid,
     # offsets (num_cells + 1) then seg (n), each on a 16-byte boundary.
     seg_at = _round4(num_cells + 1)
     work = compact.stream_scratch(_k2_work, dev, seg_at + n, torch.int32, 0)
-    scan = compact.lookback_scratch(dev, -(-num_cells // K2_SCAN_TILE))
+    scan = compact.lookback_scratch(dev, -(-num_cells // COUNT_SCAN_TILE))
     p = kernels.ptr
     kernels.launch(
         "bin_and_table", dev, p(pos), kernels.optional_ptr(valid), n,
         p(grid.nx), p(grid.layer_base),
         p(grid.half_extent), grid.nz, grid.z_lo, grid.cell_size, num_cells,
         cap, p(cell_id), p(table), p(pslot), p(overflow), p(counts),
-        p(work), p(work[seg_at:]), p(scan),
+        p(work), p(work[seg_at:]), p(scan), scan.shape[0],
     )
     return cell_id, table, pslot, overflow
 
@@ -585,19 +595,38 @@ def allpairs_partner_search_plain(pos: torch.Tensor, search_radius: float,
     return partner
 
 
+def allpairs_slabs(n: int) -> int:
+    """The z-slabs K11 counts ``n`` particles into: one a
+    ``ALLPAIRS_SLAB_ROWS`` particles, at least 3 (allpairs.cu)."""
+    return max(3, -(-n // ALLPAIRS_SLAB_ROWS))
+
+
 def allpairs_partner_search(pos: torch.Tensor, search_radius: float,
                             tile: int = 2048) -> torch.Tensor:
     """K11 (see ``allpairs_partner_search_plain``); CUDA kernel for CUDA
-    tensors (which stages its own tiles; ``tile`` bounds only the plain
-    version's blocks)."""
+    tensors: four launches, a counting sort of the particles by z-slab and
+    a search of each particle's own and two neighbouring slabs (``tile``
+    bounds only the plain version's blocks).  Its scratch (slab counts and
+    offsets, the slab-ordered copy, the look-back words) is kept for each
+    stream of each device, restored by the kernel, and grown, never freed,
+    for a larger N (see ``ops/compact.stream_scratch``); make one call on a
+    stream before recording one in a CUDA graph there."""
     if kernels.use_plain(pos):
         return allpairs_partner_search_plain(pos, search_radius, tile)
     dev = pos.device
     n = pos.shape[0]
     kernels.check(pos, "pos", torch.float32, (n, 3), dev)
-    partner = torch.empty(n, dtype=torch.int32, device=dev)
-    kernels.launch("allpairs_partner", dev, kernels.ptr(pos), n,
-                   search_radius * search_radius, kernels.ptr(partner))
+    slabs = allpairs_slabs(n)
+    i32 = torch.int32
+    counts = compact.stream_scratch(_K11_COUNTS, dev, slabs, i32, 0)
+    offsets = compact.stream_scratch(_K11_OFFSETS, dev, slabs + 1, i32, 0)
+    rows = compact.stream_scratch(_K11_ROWS, dev, 4 * n, i32, 0)
+    scan = compact.lookback_scratch(dev, -(-slabs // COUNT_SCAN_TILE))
+    partner = torch.empty(n, dtype=i32, device=dev)
+    p = kernels.ptr
+    kernels.launch("allpairs_partner", dev, p(pos), n,
+                   search_radius * search_radius, slabs, p(counts),
+                   p(offsets), p(rows), p(scan), scan.shape[0], p(partner))
     return partner
 
 

@@ -5,8 +5,8 @@ completed path (total, x, y, z) into ``Measurements.pending_*``, one slot
 per particle; ``flush_hist`` (K7) folds the staging into the exact running
 sums and counts and the binned ``(4, num_bins+1)`` histogram once per flush.
 The pairs engine flushes through ``flush_hist_compacted`` (K7's second
-entry), which bins the events listed by the engine's shared compaction
-and updates the measurements in place.
+entry), which bins the events listed by the engine's shared compaction.
+Both entries, and their twins, update the measurements in place.
 A particle's first collision ends a partial path, which is discarded
 (Open_Air_Cube_MC.py:267-280).
 """
@@ -20,17 +20,17 @@ import torch
 from .. import kernels
 from ..state import Measurements, ParticleState
 from . import fp
-from .compact import compact_indices_plain, stream_scratch
+from .compact import compact_indices_plain, lookback_scratch, stream_scratch
 
 # Fixed event-compaction width of the flush (reference ops/measure.py:85).
 # Above it only the lowest-index events are binned; the rest are counted in
 # hist_drop_count and still enter the exact sums.
 FLUSH_CAPACITY = 16384
-# Particles a block of the compacted entry takes (flush_hist.cu kFlushTile).
+# Particles a block of either entry takes (flush_hist.cu kFlushTile).
 FLUSH_TILE = 4096
-# The compacted entry's scratch, one a (device index, stream handle): the
-# ticket and the integer bins (int32, zero between calls), and the blocks'
-# sums.
+# K7's scratch, one a (device index, stream handle), shared by both entries:
+# the ticket and the integer bins (int32, zero between calls), and the
+# tiles' sums.
 _FLUSH_INTS: dict = {}
 _FLUSH_SUMS: dict = {}
 
@@ -97,25 +97,10 @@ def end_paths(state: ParticleState, mask: torch.Tensor, t: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def flush_hist_plain(measure: Measurements, num_bins: int, hist_hi: float,
-                     capacity: int = FLUSH_CAPACITY) -> Measurements:
-    """Plain version of K7: path_sum += masked staging, path_count +=
-    events, bin floor(v / bin_width) clipped to [0, num_bins] per axis, and
-    clear the staging.  With more than ``capacity`` particles only the
-    lowest-index ``capacity`` events are binned and the excess is added to
-    ``hist_drop_count`` (the reference's compacted branch)."""
-    vals, mask = measure.pending_vals, measure.pending_mask
-    n = vals.shape[0]
-    path_sum = measure.path_sum + torch.where(
-        mask[:, None], vals, torch.zeros_like(vals)).sum(dim=0)
-    n_events = torch.sum(mask, dtype=torch.int32)
-    drop = measure.hist_drop_count
-    if n > capacity:
-        event_idx = compact_indices_plain(mask, capacity, n)
-        binned = event_idx[event_idx < n].long()
-        drop = drop + torch.clamp(n_events - capacity, min=0)
-    else:
-        binned = torch.nonzero(mask).flatten()
+def _bin_counts(vals: torch.Tensor, binned: torch.Tensor, num_bins: int,
+                hist_hi: float) -> torch.Tensor:
+    """(4, num_bins+1) float32 counts of the rows ``binned`` of ``vals``:
+    floor(v / bin_width) clipped to [0, num_bins] per axis."""
     bin_width = hist_hi / num_bins
     ids = torch.clamp(
         torch.floor(fp.div(vals[binned], bin_width)).to(torch.int32), 0,
@@ -123,59 +108,101 @@ def flush_hist_plain(measure: Measurements, num_bins: int, hist_hi: float,
     offsets = torch.arange(4, dtype=torch.int32, device=vals.device)
     flat = (ids + offsets * (num_bins + 1)).flatten().long()
     counts = torch.bincount(flat, minlength=4 * (num_bins + 1))
-    return dataclasses.replace(
-        measure,
-        hist=measure.hist + counts.view(4, num_bins + 1).to(torch.float32),
-        path_sum=path_sum,
-        path_count=measure.path_count + n_events,
-        hist_drop_count=drop,
-        pending_vals=torch.zeros_like(vals),
-        pending_mask=torch.zeros_like(mask),
-    )
+    return counts.view(4, num_bins + 1).to(torch.float32)
 
 
-def flush_hist(measure: Measurements, num_bins: int, hist_hi: float,
-               capacity: int = FLUSH_CAPACITY) -> Measurements:
-    """K7 (see ``flush_hist_plain``); CUDA kernel for CUDA tensors."""
-    vals = measure.pending_vals
-    if kernels.use_plain(vals):
-        return flush_hist_plain(measure, num_bins, hist_hi, capacity)
-    dev = vals.device
+def _fold(measure: Measurements, counts: torch.Tensor,
+          n_events: torch.Tensor, drop) -> Measurements:
+    """The flush's in-place end: sums, counts and histogram updated, the
+    staged rows cleared (an unstaged row is zero already)."""
+    vals, mask = measure.pending_vals, measure.pending_mask
+    staged_sum = torch.where(mask[:, None], vals,
+                             torch.zeros_like(vals)).sum(dim=0)
+    measure.hist.add_(counts)
+    measure.path_sum.add_(staged_sum)
+    measure.path_count.add_(n_events)
+    measure.hist_drop_count.add_(drop)
+    vals.masked_fill_(mask[:, None], 0.0)
+    mask.zero_()
+    return measure
+
+
+def flush_hist_plain(measure: Measurements, num_bins: int, hist_hi: float,
+                     capacity: int = FLUSH_CAPACITY) -> Measurements:
+    """Plain version of K7's dense entry (measure.py:131-197): path_sum +=
+    the staged rows, path_count += events, bin floor(v / bin_width)
+    clipped to [0, num_bins] per axis, and clear the staging.  With more
+    than ``capacity`` particles only the lowest-index ``capacity`` events
+    are binned and the excess is added to ``hist_drop_count`` (the
+    reference's compacted branch).  ``hist``, ``path_sum``, ``path_count``,
+    ``hist_drop_count`` and the staging are updated in place and returned,
+    as the kernel does; only the staged rows are cleared, under the
+    staging's contract that a row whose mask is clear is zero (see
+    ``flush_hist_compacted_plain``)."""
+    vals, mask = measure.pending_vals, measure.pending_mask
     n = vals.shape[0]
+    n_events = torch.sum(mask, dtype=torch.int32)
+    drop = 0
+    if n > capacity:
+        event_idx = compact_indices_plain(mask, capacity, n)
+        binned = event_idx[event_idx < n].long()
+        drop = torch.clamp(n_events - capacity, min=0)
+    else:
+        binned = torch.nonzero(mask).flatten()
+    counts = _bin_counts(vals, binned, num_bins, hist_hi)
+    return _fold(measure, counts, n_events, drop)
+
+
+def _flush_scratch(dev: torch.device, tiles: int, row: int):
+    """K7's scratch of this stream, shared by both entries (each call
+    leaves it as it found it): the ticket and the integer bins, the tiles'
+    sums."""
+    ints = stream_scratch(_FLUSH_INTS, dev, 1 + 4 * row, torch.int32, 0)
+    sums = stream_scratch(_FLUSH_SUMS, dev, 4 * tiles, torch.float32, 0)
+    return ints, sums
+
+
+def _check_measure(measure: Measurements, num_bins: int, n: int,
+                   dev: torch.device) -> None:
     row = num_bins + 1
     if 4 * row * 4 > 48 * 1024:
         raise ValueError(f"num_bins={num_bins}: the kernel's shared-memory "
                          f"bins hold at most {48 * 1024 // 16 - 1}")
     f32, i32 = torch.float32, torch.int32
-    kernels.check(vals, "pending_vals", f32, (n, 4), dev)
+    kernels.check(measure.pending_vals, "pending_vals", f32, (n, 4), dev)
     kernels.check(measure.pending_mask, "pending_mask", torch.bool, (n,), dev)
     kernels.check(measure.hist, "hist", f32, (4, row), dev)
     kernels.check(measure.path_sum, "path_sum", f32, (4,), dev)
     kernels.check(measure.path_count, "path_count", i32, (), dev)
     kernels.check(measure.hist_drop_count, "hist_drop_count", i32, (), dev)
-    # In-place targets of the kernel: fresh copies, so inputs stay intact.
-    hist = measure.hist.clone()
-    path_sum = measure.path_sum.clone()
-    path_count = measure.path_count.clone()
-    drop = measure.hist_drop_count.clone()
-    nblocks = -(-n // 256)
-    block_sums = torch.empty((nblocks, 4), dtype=f32, device=dev)
-    block_counts = torch.empty(nblocks, dtype=i32, device=dev)
-    block_offsets = torch.empty(nblocks, dtype=i32, device=dev)
-    bins = torch.empty(4 * row, dtype=i32, device=dev)
-    vals_out = torch.empty_like(vals)
-    mask_out = torch.empty_like(measure.pending_mask)
+
+
+def flush_hist(measure: Measurements, num_bins: int, hist_hi: float,
+               capacity: int = FLUSH_CAPACITY) -> Measurements:
+    """K7's dense entry (see ``flush_hist_plain``); CUDA kernel for CUDA
+    tensors: one launch, in place, deterministic, no allocation.  Its
+    scratch (a ticket, integer bins, the tiles' sums, and with more than
+    ``capacity`` particles the look-back words) is kept for each stream of
+    each device and restored by the kernel (see
+    ``ops/compact.stream_scratch``); make one call on a stream before
+    recording one in a CUDA graph there."""
+    vals = measure.pending_vals
+    if kernels.use_plain(vals):
+        return flush_hist_plain(measure, num_bins, hist_hi, capacity)
+    dev = vals.device
+    n = vals.shape[0]
+    _check_measure(measure, num_bins, n, dev)
+    tiles = max(-(-n // FLUSH_TILE), 1)
+    ints, sums = _flush_scratch(dev, tiles, num_bins + 1)
+    scan = lookback_scratch(dev, tiles)
     p = kernels.ptr
     kernels.launch(
         "flush_hist", dev, p(vals), p(measure.pending_mask), n, capacity,
-        num_bins, hist_hi / num_bins, p(hist), p(path_sum), p(path_count),
-        p(drop), p(block_sums), p(block_counts), p(block_offsets), p(bins),
-        p(vals_out), p(mask_out),
+        num_bins, hist_hi / num_bins, p(measure.hist), p(measure.path_sum),
+        p(measure.path_count), p(measure.hist_drop_count), p(ints), p(sums),
+        p(scan),
     )
-    return dataclasses.replace(
-        measure, hist=hist, path_sum=path_sum, path_count=path_count,
-        hist_drop_count=drop, pending_vals=vals_out, pending_mask=mask_out,
-    )
+    return measure
 
 
 def check_event_idx(event_idx: torch.Tensor, n: int) -> None:
@@ -211,25 +238,11 @@ def flush_hist_compacted_plain(measure: Measurements,
     vals, mask = measure.pending_vals, measure.pending_mask
     n = vals.shape[0]
     check_event_idx(event_idx, n)
-    staged_sum = torch.where(mask[:, None], vals,
-                             torch.zeros_like(vals)).sum(dim=0)
     n_events = torch.sum(mask, dtype=torch.int32)
     listed = event_idx[event_idx < n].long()
     binned = listed[mask[listed]]
-    bin_width = hist_hi / num_bins
-    ids = torch.clamp(
-        torch.floor(fp.div(vals[binned], bin_width)).to(torch.int32), 0,
-        num_bins)
-    offsets = torch.arange(4, dtype=torch.int32, device=vals.device)
-    flat = (ids + offsets * (num_bins + 1)).flatten().long()
-    counts = torch.bincount(flat, minlength=4 * (num_bins + 1))
-    measure.hist.add_(counts.view(4, num_bins + 1).to(torch.float32))
-    measure.path_sum.add_(staged_sum)
-    measure.path_count.add_(n_events)
-    measure.hist_drop_count.add_(n_events - binned.shape[0])
-    vals.masked_fill_(mask[:, None], 0.0)
-    mask.zero_()
-    return measure
+    counts = _bin_counts(vals, binned, num_bins, hist_hi)
+    return _fold(measure, counts, n_events, n_events - binned.shape[0])
 
 
 def flush_hist_compacted(measure: Measurements, event_idx: torch.Tensor,
@@ -248,21 +261,10 @@ def flush_hist_compacted(measure: Measurements, event_idx: torch.Tensor,
     dev = vals.device
     n = vals.shape[0]
     e = event_idx.shape[0]
-    row = num_bins + 1
-    if 4 * row * 4 > 48 * 1024:
-        raise ValueError(f"num_bins={num_bins}: the kernel's shared-memory "
-                         f"bins hold at most {48 * 1024 // 16 - 1}")
-    f32, i32 = torch.float32, torch.int32
-    kernels.check(vals, "pending_vals", f32, (n, 4), dev)
-    kernels.check(measure.pending_mask, "pending_mask", torch.bool, (n,), dev)
-    kernels.check(event_idx, "event_idx", i32, (e,), dev)
-    kernels.check(measure.hist, "hist", f32, (4, row), dev)
-    kernels.check(measure.path_sum, "path_sum", f32, (4,), dev)
-    kernels.check(measure.path_count, "path_count", i32, (), dev)
-    kernels.check(measure.hist_drop_count, "hist_drop_count", i32, (), dev)
-    ints = stream_scratch(_FLUSH_INTS, dev, 1 + 4 * row, i32, 0)
-    sums = stream_scratch(_FLUSH_SUMS, dev,
-                          4 * max(-(-n // FLUSH_TILE), 1), f32, 0)
+    _check_measure(measure, num_bins, n, dev)
+    kernels.check(event_idx, "event_idx", torch.int32, (e,), dev)
+    ints, sums = _flush_scratch(dev, max(-(-n // FLUSH_TILE), 1),
+                                num_bins + 1)
     p = kernels.ptr
     kernels.launch(
         "flush_hist_compacted", dev, p(vals), p(measure.pending_mask), n,

@@ -48,7 +48,7 @@ import torch
 
 from .. import kernels
 from ..config import cell_capacity_for, cell_size_for
-from ..engine import Workload
+from ..engine import Workload, copy_tensors
 from ..ops import collide
 from ..ops import measure as measure_ops
 from ..ops.compact import compact_indices
@@ -593,6 +593,12 @@ class ShardedSimulation:
             num_steps = self.cfg.num_timesteps
         if state is None:
             state, measure, generators = self.init(seed)
+        # The dense flush (K7) updates a slab's measurements in place: the
+        # run carries its own copies and never writes a tensor its caller
+        # passed in.
+        state = [(copy_tensors(st), valid.clone(), gid.clone())
+                 for st, valid, gid in state]
+        measure = [copy_tensors(m) for m in measure]
         if draw is None:
             if generators is None:
                 raise ValueError("pass the generators that init() returned, "

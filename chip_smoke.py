@@ -17,7 +17,10 @@ exits non-zero without a result line):
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
-   overflow; the pairs engine's K6, K1, K5, K3, K4 and K7's compacted
+   overflow; K7 in place, each side on its own copy, over its capacity
+   (the look-back's cut), under it, on one slab's lanes, over two calls in
+   a row and as one launch recorded in a CUDA graph and replayed three
+   times on changed staging; the pairs engine's K6, K1, K5, K3, K4 and K7's compacted
    entry, K6 also at lengths around its tile, on an unaligned view, over
    100 calls in a row and as one launch recorded in a CUDA graph and
    replayed; K1 also with overflowing cells, a cut active list and rows
@@ -28,8 +31,9 @@ exits non-zero without a result line):
    repeated duplicate entries, K7c with some events unlisted and with all
    listed, K3 and K7c also recorded in a CUDA graph and replayed three
    times on changed inputs; K8, the fused drift/walls/recapture pass,
-   over 16 steps of the pairs slice) and of the 24,627-particle cube (K11, also at
-   ~200k), with the kernel's, the plain version's and, where one exists,
+   over 16 steps of the pairs slice) and of the 24,627-particle cube (K11,
+   also at ~200k, with every particle in one z-slab, with probe pairs at
+   the window's edges, and as one call replayed in a CUDA graph), with the kernel's, the plain version's and, where one exists,
    the library call's time beside the kernel's bound; K2 also with a cell
    of more than 100 particles, with all in one cell, over calls in a row
    and as one call recorded in a CUDA graph and replayed on moved
@@ -61,7 +65,8 @@ exits non-zero without a result line):
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
    sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
-   ``torch.nonzero``; K2 and K12 timed alone.
+   ``torch.nonzero``; K2 and K12 timed alone; K7 and K11 alone, device
+   time and launches a call.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
@@ -307,7 +312,7 @@ def check_kernels(tag: str) -> dict:
     state = dataclasses.replace(state, pos=state.pos + cfg.dt * state.vel)
     n = state.num_particles
     wl = amt.make_workload(cfg)
-    _, grid = amt.engine.build_grids(wl, dev)
+    host_grid, grid = amt.engine.build_grids(wl, dev)
     r = cfg.physics.collision_range
     results = {}
 
@@ -395,47 +400,179 @@ def check_kernels(tag: str) -> dict:
         70 * n,
     )
 
-    # K7: the staging K10 left (realistic, compacted branch), a dense
-    # staging over a small capacity (events dropped), and capacity >= N
-    # (the dense branch).
-    nb, hi = cfg.engine.num_bins, cfg.engine.hist_range[1]
-    dense = dataclasses.replace(
-        got_m, pending_mask=u[:, 5] < 0.25,
-        hist=torch.randint(0, 50, got_m.hist.shape, generator=gen,
-                           device=dev).float(),
-        path_sum=u[:4, 0] * 1e-3)
-    k7_err = 0.0
-    for label, m, cap in (("staging after K10", got_m, measure_ops.FLUSH_CAPACITY),
-                          ("dense, capacity 4096", dense, 4096),
-                          ("capacity >= N", dense, n)):
-        a = measure_ops.flush_hist(m, nb, hi, capacity=cap)
-        b = measure_ops.flush_hist_plain(m, nb, hi, capacity=cap)
-        exact(f"K7 hist ({label})", a.hist, b.hist)
-        for f in ("path_count", "hist_drop_count", "pending_mask",
-                  "pending_vals"):
-            exact(f"K7 {f} ({label})", getattr(a, f), getattr(b, f))
-        rel = float(((a.path_sum.double() - b.path_sum.double()).abs()
-                     / b.path_sum.double().abs().clamp(min=1e-30)).max())
-        require(rel <= 1e-6, f"K7 path_sum ({label}): rel {rel}")
-        k7_err = max(k7_err, max_abs(a.path_sum, b.path_sum))
-        if cap == 4096:
-            require(int(a.hist_drop_count) > 0, "K7: no events dropped")
-        print(f"K7 flush_hist ({label}): hist and counts exact, "
-              f"events={int(a.path_count) - int(m.path_count)}, "
-              f"dropped={int(a.hist_drop_count) - int(m.hist_drop_count)}, "
-              f"path_sum rel err {rel!r} (bound 1e-6) {tag}")
-    flushed = measure_ops.flush_hist(got_m, nb, hi)
-    results["flush_hist"] = result(
-        k7_err,
-        timed_ms(lambda: measure_ops.flush_hist(got_m, nb, hi), 20),
-        timed_ms(lambda: measure_ops.flush_hist_plain(got_m, nb, hi), 5),
-        tensor_bytes(got_m.pending_vals, got_m.pending_mask, got_m.hist,
-                     got_m.path_sum, flushed.pending_vals,
-                     flushed.pending_mask, flushed.hist, flushed.path_sum),
-        4 * n,
-    )
+    # K7 reads K10's staging within its contract: a row whose mask is clear
+    # is zero (K10's own check above keeps arbitrary unstaged rows).
+    staged = dataclasses.replace(
+        got_m, pending_vals=torch.where(got_m.pending_mask[:, None],
+                                        got_m.pending_vals, 0.0))
+    results["flush_hist"] = check_flush_dense(staged, gen, cfg, host_grid,
+                                              tag)
     print_times(results, n, tag)
     return results
+
+
+def slab_lanes(cfg, host_grid) -> int:
+    """The staging rows of one of SLABS z-slabs of ``cfg``: its local and
+    ghost lanes, the capacity the z-slab engine flushes them with."""
+    plan = amt.parallel.make_shard_plan(amt.make_workload(cfg), SLABS,
+                                        host_grid)
+    return plan.shard_capacity + 2 * plan.halo_capacity
+
+
+def k7_staging(meas, gen, density: float, scale: float = 1.2e-6):
+    """``meas`` with a staging drawn from ``gen`` within its contract (a
+    row whose mask is clear is zero), some values beyond the histogram's
+    range, ``hist`` and ``path_sum`` drawn too."""
+    n, dev = meas.pending_mask.shape[0], meas.pending_mask.device
+    u = torch.rand((n, 5), generator=gen, device=dev)
+    mask = u[:, 4] < density
+    return dataclasses.replace(
+        meas, pending_mask=mask,
+        pending_vals=torch.where(mask[:, None], u[:, :4] * scale, 0.0),
+        hist=torch.randint(0, 50, meas.hist.shape, generator=gen,
+                           device=dev).float(),
+        path_sum=u[:4, 0] * 1e-3)
+
+
+def check_flush_case(label, meas, kernel, twin, mine=None):
+    """A K7 entry, ``kernel(m)``, and its twin, ``twin(m)``, each on its
+    own copy of the measurements (the kernel on ``mine`` if given,
+    refilled from ``meas``): hist, counts and the cleared staging exact,
+    path_sum within 1e-6 relative, the kernel's measurements the tensors
+    it was given, none moved.  Returns (kernel output, twin output,
+    path_sum's relative error)."""
+    if mine is None:
+        mine = own(meas)
+    else:
+        refill(mine, meas)
+    ptrs = {f.name: getattr(mine, f.name).data_ptr()
+            for f in dataclasses.fields(mine)}
+    got = kernel(mine)
+    want = twin(own(meas))
+    same_tensors(got, mine, label)
+    require(all(getattr(got, k).data_ptr() == v for k, v in ptrs.items()),
+            f"{label}: a data_ptr moved")
+    for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
+              "pending_vals"):
+        exact(f"{label} {f}", getattr(got, f), getattr(want, f))
+    rel = path_sum_rel(got, want)
+    require(rel <= 1e-6, f"{label} path_sum: rel {rel}")
+    return got, want, rel
+
+
+def check_k7_case(label, meas, nb, hi, cap, mine=None):
+    """K7's dense entry at capacity ``cap`` (see ``check_flush_case``)."""
+    return check_flush_case(
+        f"K7 ({label})", meas,
+        lambda m: measure_ops.flush_hist(m, nb, hi, capacity=cap),
+        lambda m: measure_ops.flush_hist_plain(m, nb, hi, capacity=cap),
+        mine)
+
+
+def check_flush_dense(after_k10, gen, cfg, host_grid, tag: str,
+                      reps: int = 20):
+    """K7's dense entry in place: on the staging K10 left at the sweep's
+    capacity (some 100k events over 16,384: the look-back's cut), a dense
+    staging over capacity 4096 (events dropped), capacity >= N (no cut),
+    a slab's staging at its capacity of cap + 2 hcap, two calls in a row
+    on the same tensors, and one launch captured in a CUDA graph and
+    replayed three times on changed staging; then its time net of the
+    copy that restores the inputs, beside the twin's."""
+    n = after_k10.pending_mask.shape[0]
+    nb, hi = cfg.engine.num_bins, cfg.engine.hist_range[1]
+    require(not bool(after_k10.pending_vals[~after_k10.pending_mask].any()),
+            "K7: an unstaged row of K10's staging is not zero")
+    dense = k7_staging(after_k10, gen, 0.25)
+    lanes = slab_lanes(cfg, host_grid)
+    slab = k7_staging(Measurements.zeros(nb, torch.float32, lanes, "cuda"),
+                      gen, 0.05)
+    err = 0.0
+    for label, m, cap in (
+            ("staging after K10", after_k10, measure_ops.FLUSH_CAPACITY),
+            ("dense, capacity 4096", dense, 4096),
+            ("capacity >= N", dense, n),
+            (f"a slab of {lanes} lanes, capacity {lanes}", slab, lanes)):
+        got, want, rel = check_k7_case(label, m, nb, hi, cap)
+        err = max(err, max_abs(got.path_sum, want.path_sum))
+        events = int(m.pending_mask.sum())
+        dropped = int(got.hist_drop_count) - int(m.hist_drop_count)
+        require(dropped == (max(events - cap, 0) if m.pending_mask.shape[0]
+                            > cap else 0), f"K7 ({label}): {dropped} dropped")
+        print(f"K7 flush_hist ({label}): hist and counts exact, "
+              f"events={events}, dropped={dropped}, path_sum rel err "
+              f"{rel!r} (bound 1e-6), in place, data_ptrs unchanged {tag}")
+
+    # Two calls in a row on the same tensors, the second on a new staging.
+    mine = own(after_k10)
+    check_k7_case("first of two calls", after_k10, nb, hi,
+                  measure_ops.FLUSH_CAPACITY, mine)
+    second = dataclasses.replace(
+        k7_staging(after_k10, gen, 0.15), hist=mine.hist.clone(),
+        path_sum=mine.path_sum.clone(), path_count=mine.path_count.clone(),
+        hist_drop_count=mine.hist_drop_count.clone())
+    check_k7_case("second of two calls", second, nb, hi,
+                  measure_ops.FLUSH_CAPACITY, mine)
+    print(f"K7 flush_hist: two calls in a row on the same tensors: exact "
+          f"{tag}")
+    check_flush_dense_graph(after_k10, gen, nb, hi, tag)
+
+    # What the flush needs: the mask read, the staged rows read and
+    # cleared with their mask bytes, hist and path_sum read and written;
+    # four additions a staged event.
+    count = int(after_k10.pending_mask.sum())
+    io = n + 33 * count + 2 * (after_k10.hist.numel() * 4 + 16)
+    ms = plain_ms = None
+    if reps > 0:
+        mine = own(after_k10)
+        ms, reset_ms, nets = net_ms(
+            lambda: measure_ops.flush_hist(mine, nb, hi),
+            lambda: refill(mine, after_k10), reps)
+        plain_ms = timed_ms(lambda: measure_ops.flush_hist_plain(
+            own(after_k10), nb, hi), min(reps, 5))
+        print(f"K7 flush_hist: {ms!r} ms a call in place (the median of "
+              f"{nets!r}, each net of the copy that restores the "
+              f"measurements, {reset_ms!r} ms; the four-launch copying "
+              f"first version: 0.083-0.165 ms) {tag}")
+    return result(err, ms, plain_ms, io, 4 * count)
+
+
+def check_flush_dense_graph(meas, gen, nb, hi, tag: str) -> None:
+    """K7's dense entry at the sweep's capacity (the look-back's cut)
+    recorded in a CUDA graph and replayed three times, the staging redrawn
+    before each replay: every replay equals the twin on the same inputs.
+    One call on the capturing stream first allocates that stream's
+    scratch."""
+    dev = meas.pending_mask.device
+    cap = measure_ops.FLUSH_CAPACITY
+    static = own(meas)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        measure_ops.flush_hist(own(meas), nb, hi, capacity=cap)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["flush_hist"]
+    with torch.cuda.graph(graph, stream=side):
+        measure_ops.flush_hist(static, nb, hi, capacity=cap)
+    require(kernels.launch_counts["flush_hist"] == before + 1,
+            "K7: the capture recorded other than one launch")
+    counts = []
+    for density in (0.005, 0.1, 0.3):
+        fresh = k7_staging(meas, gen, density)
+        fresh = dataclasses.replace(fresh, path_count=meas.path_count + 7)
+        refill(static, fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = measure_ops.flush_hist_plain(own(fresh), nb, hi, capacity=cap)
+        for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
+                  "pending_vals"):
+            exact(f"K7 {f} (graph replay)", getattr(static, f),
+                  getattr(want, f))
+        rel = path_sum_rel(static, want)
+        require(rel <= 1e-6, f"K7 path_sum (graph replay): rel {rel}")
+        counts.append(int(fresh.pending_mask.sum()))
+    print(f"K7 flush_hist: one captured launch replayed 3 times with "
+          f"{counts} events staged at capacity {cap}: exact each time {tag}")
 
 
 def check_k2(label: str, pos, grid, valid=None):
@@ -1113,20 +1250,11 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
 
 
 def check_k7c_case(label, meas, idx, nb, hi):
-    """K7's compacted entry and its twin, each on its own copy of the
-    measurements: hist, counts and the cleared staging exact, path_sum
-    within 1e-6 relative, the kernel's measurements the tensors it was
-    given.  Returns (kernel output, path_sum's relative error)."""
-    mine = own(meas)
-    got = measure_ops.flush_hist_compacted(mine, idx, nb, hi)
-    want = measure_ops.flush_hist_compacted_plain(own(meas), idx, nb, hi)
-    same_tensors(got, mine, f"K7c ({label})")
-    for f in ("hist", "path_count", "hist_drop_count", "pending_mask",
-              "pending_vals"):
-        exact(f"K7c {f} ({label})", getattr(got, f), getattr(want, f))
-    rel = path_sum_rel(got, want)
-    require(rel <= 1e-6, f"K7c path_sum ({label}): rel {rel}")
-    return got, want, rel
+    """K7's compacted entry on ``idx`` (see ``check_flush_case``)."""
+    return check_flush_case(
+        f"K7c ({label})", meas,
+        lambda m: measure_ops.flush_hist_compacted(m, idx, nb, hi),
+        lambda m: measure_ops.flush_hist_compacted_plain(m, idx, nb, hi))
 
 
 def check_flush_compacted(case, meas, tag: str, reps: int):
@@ -1420,6 +1548,12 @@ def run_slice(tag: str, names, **engine):
     for name in names:
         require(counts.get(name, 0) > 0,
                 f"{label} slice: kernel {name} not launched")
+    # The sweep step launches each of its wrappers once.
+    if label == "sweep":
+        for name in KERNELS:
+            require(counts.get(name, 0) == STEPS,
+                    f"sweep slice: {name} launched {counts.get(name, 0)} "
+                    f"times in {STEPS} steps")
     # K8 is the step's whole per-particle stage: once a step.
     require(counts.get("pore_advance", 0) == STEPS,
             f"{label} slice: pore_advance launched "
@@ -1662,10 +1796,72 @@ def cube_config(particles=None, **engine) -> amt.CubeConfig:
         broadphase="allpairs", **engine))
 
 
+def allpairs_keys(pos, r: float) -> tuple:
+    """K11's z-slab of every particle (allpairs.cu's key, in float64 on
+    the card) and the slab width: floor(z / w) mod S, w = 1.001 sqrt(r2)
+    with r2 the float32 r^2 the kernel gets."""
+    slabs = collide.allpairs_slabs(pos.shape[0])
+    width = math.sqrt(float(np.float32(r * r))) * 1.001
+    q = torch.floor(pos[:, 2].double() * (1.0 / width))
+    q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
+    return torch.remainder(q, slabs).long(), width
+
+
+def allpairs_window_tests(pos, r: float) -> int:
+    """The pair tests of K11's z-window on this data: sum over the slabs
+    of n_s (n_{s-1} + n_s + n_{s+1})."""
+    key, _ = allpairs_keys(pos, r)
+    counts = torch.bincount(key, minlength=collide.allpairs_slabs(
+        pos.shape[0])).double()
+    return int((counts * (counts.roll(1) + counts + counts.roll(-1))).sum())
+
+
+def allpairs_cell_tests(pos, r: float) -> int:
+    """The pair tests the function needs on this data: those of a cell
+    grid of side w (every hit lies in one of a particle's 27 neighbouring
+    cells), sum over the cells of n_c times the particles of its 27."""
+    _, width = allpairs_keys(pos, r)
+    ijk = torch.floor(pos.double() / width).long()
+    ijk -= ijk.min(dim=0).values - 1
+    span = int(ijk.max()) + 2
+    keys, counts = torch.unique((ijk[:, 0] * span + ijk[:, 1]) * span
+                                + ijk[:, 2], return_counts=True)
+    near = torch.zeros_like(counts)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                other = keys + (dx * span + dy) * span + dz
+                at = torch.searchsorted(keys, other).clamp(max=len(keys) - 1)
+                near += torch.where(keys[at] == other, counts[at], 0)
+    return int((counts * near).sum())
+
+
+def window_edge_probes(r: float, slabs: int) -> torch.Tensor:
+    """Pairs of particles, one x and y a pair, whose z gap is r and one
+    float32 ulp either side of it, the lower one on a slab boundary of
+    K11's key or one ulp below it: inside the box, at z = 0 and at the
+    boundary where the key wraps around (S w)."""
+    f32 = np.float32
+    width = math.sqrt(float(f32(r * r))) * 1.001
+    rows = []
+    for k in (1, 7, 150, 294, 0, -3, slabs):
+        zb = f32(k * width)
+        for zi in (np.nextafter(zb, f32(-np.inf)), zb):
+            at_r = f32(zi + f32(r))
+            for zj in (np.nextafter(at_r, f32(-np.inf)), at_r,
+                       np.nextafter(at_r, f32(np.inf))):
+                x = f32(2e-9 * (len(rows) // 2 + 1))
+                rows += [(x, f32(50e-9), zi), (x, f32(50e-9), zj)]
+    return torch.tensor(np.array(rows, f32), device="cuda")
+
+
 def check_allpairs(tag: str, sizes=(None, 200_000), reps: int = 20) -> dict:
     """K11 against its plain version, exactly, on the cube's state after
     one drift: at the published 24,627 particles and at a larger box of
-    the same density (more tiles, one j-split)."""
+    the same density (more slabs, several scan tiles); then with every
+    particle in one slab (the quadratic case), with probe pairs at the
+    window's edges in front of the gas, and as one call recorded in a
+    CUDA graph and replayed three times on moved positions."""
     out = None
     for particles in sizes:
         cfg = cube_config(particles)
@@ -1681,21 +1877,116 @@ def check_allpairs(tag: str, sizes=(None, 200_000), reps: int = 20) -> dict:
         exact(f"K11 partner (N={n})", got, want)
         hits = int((got >= 0).sum())
         require(hits > 0, f"K11: no particle with a partner at N={n}")
+        window = allpairs_window_tests(pos, r)
         print(f"K11 allpairs_partner N={n}: exact; {hits} particles with a "
-              f"partner {tag}")
-        if out is None:
-            # The pair tests this data needs: up to the first hit, else all.
-            tests = int(torch.where(got >= 0, got.long() + 1, n).sum())
-            out = {"allpairs_partner": result(
-                0.0,
-                maybe_timed(lambda: collide.allpairs_partner_search(
-                    pos, r, tile), reps),
-                maybe_timed(lambda: collide.allpairs_partner_search_plain(
-                    pos, r, tile), min(reps, 3)),
-                tensor_bytes(pos, got), PAIR_TEST_OPS * tests)}
-            if reps > 0:
-                print_times(out, n, tag)
+              f"partner; {window} window pair tests in "
+              f"{collide.allpairs_slabs(n)} slabs {tag}")
+        if out is not None:
+            continue
+        check_allpairs_edges(pos, state.vel * cfg.dt, r, tile, tag)
+        # The bound is the function's: pos read, partner written, and the
+        # pair tests a cell grid needs.  Each algorithm's own work is
+        # printed beside it: the window's tests and its slab-ordered copy
+        # (16 bytes a particle written and read), the brute force's tests
+        # up to the first hit.
+        cells = allpairs_cell_tests(pos, r)
+        brute = int(torch.where(got >= 0, got.long() + 1, n).sum())
+        out = {"allpairs_partner": result(
+            0.0,
+            maybe_timed(lambda: collide.allpairs_partner_search(
+                pos, r, tile), reps),
+            maybe_timed(lambda: collide.allpairs_partner_search_plain(
+                pos, r, tile), min(reps, 3)),
+            tensor_bytes(pos, got), PAIR_TEST_OPS * cells)}
+        own_work = result(0.0, None, None, tensor_bytes(pos, got) + 32 * n,
+                          PAIR_TEST_OPS * window)
+        old = result(0.0, None, None, tensor_bytes(pos, got),
+                     PAIR_TEST_OPS * brute)
+        k11 = out["allpairs_partner"]
+        print(f"K11 allpairs_partner: bound {k11['bound_ms']!r} ms "
+              f"({k11['bound_by']}: {tensor_bytes(pos, got)} bytes, {cells} "
+              f"cell-grid pair tests); the window's own work, {window} "
+              f"pair tests and the copy, {own_work['bound_ms']!r} ms "
+              f"({own_work['bound_by']}); the brute force's, {brute} pair "
+              f"tests, {old['bound_ms']!r} ms ({old['bound_by']}); the "
+              f"brute-force first version: 0.478-0.484 ms {tag}")
+        if reps > 0:
+            print_times(out, n, tag)
     return out
+
+
+def check_allpairs_edges(pos, step, r: float, tile: int, tag: str) -> None:
+    """K11's hard cases on the cube's gas (see ``check_allpairs``)."""
+    n = pos.shape[0]
+    _, width = allpairs_keys(pos, r)
+    band = pos.clone()
+    band[:, 2] = (150.25 + 0.5 * pos[:, 2] / float(pos[:, 2].max())) * width
+    key, _ = allpairs_keys(band, r)
+    require(int(torch.bincount(key).max()) == n,
+            "K11: the band is not one slab")
+    got = collide.allpairs_partner_search(band, r, tile)
+    exact("K11 partner (one slab)", got,
+          collide.allpairs_partner_search_plain(band, r, tile))
+    print(f"K11 allpairs_partner, all {n} particles in one slab: exact; "
+          f"{int((got >= 0).sum())} particles with a partner {tag}")
+
+    probes = window_edge_probes(r, collide.allpairs_slabs(n + 84))
+    m = probes.shape[0]
+    require(m == 84, f"K11: {m} probe particles")
+    both = torch.cat([probes, pos])
+    got = collide.allpairs_partner_search(both, r, tile)
+    exact("K11 partner (window edges)", got,
+          collide.allpairs_partner_search_plain(both, r, tile))
+    # Of each triple of probe pairs the one below r hits its mate (the
+    # lowest index near it), the one above does not.
+    mate = torch.arange(m, device="cuda") ^ 1
+    hit = (got[:m] == mate).view(-1, 3, 2).all(dim=2)
+    require(bool(hit[:, 0].all()) and not bool(hit[:, 2].any()),
+            "K11: a probe pair at the window's edge is wrong")
+    print(f"K11 allpairs_partner, {m // 2} probe pairs at slab boundaries "
+          f"with z gaps of r and one ulp either side, wrapped slabs too: "
+          f"exact {tag}")
+
+    static = pos.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        collide.allpairs_partner_search(static, r, tile)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["allpairs_partner"]
+    with torch.cuda.graph(graph, stream=side):
+        partner = collide.allpairs_partner_search(static, r, tile)
+    require(kernels.launch_counts["allpairs_partner"] == before + 1,
+            "K11: the capture recorded other than one call")
+    for k in (1, 2, 3):
+        static.copy_(pos + k * step)
+        graph.replay()
+        torch.cuda.synchronize()
+        exact("K11 partner (graph replay)", partner,
+              collide.allpairs_partner_search_plain(static, r, tile))
+    print(f"K11 allpairs_partner: one captured call replayed 3 times on "
+          f"moved positions: exact each time {tag}")
+
+    # Look-back words fewer than the scan needs: refused, nothing written.
+    slabs = collide.allpairs_slabs(n)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    partner = torch.full((n,), -7, **i32)
+    short = torch.zeros(1, dtype=torch.int64, device="cuda")
+    scratch = [torch.zeros(k, **i32) for k in (slabs, slabs + 1, 4 * n)]
+    p = kernels.ptr
+    try:
+        kernels.launch("allpairs_partner", pos.device, p(pos), n,
+                       float(np.float32(r * r)), slabs,
+                       *map(p, scratch), p(short), 1, p(partner))
+        refused = False
+    except RuntimeError:
+        refused = True
+    torch.cuda.synchronize()
+    require(refused and bool((partner == -7).all()),
+            "K11: a short look-back scratch was not refused")
+    print(f"K11 allpairs_partner: a look-back scratch of 1 word for "
+          f"{slabs} slabs refused, nothing written {tag}")
 
 
 def kinetic(state) -> float:
@@ -2395,9 +2686,10 @@ def check_specular_pore(tag: str, steps: int = 100) -> None:
 
 
 def our_kernel_names() -> set:
-    """The __global__ function names of the port's CUDA sources."""
+    """The __global__ function names of the port's CUDA sources and
+    headers."""
     names = set()
-    for src in kernels.CSRC.glob("*.cu"):
+    for src in kernels.CSRC.glob("*.cu*"):
         names.update(re.findall(r"__global__\s+void\s+(\w+)",
                                 src.read_text()))
     return names
@@ -2573,10 +2865,73 @@ def time_k2_k12(tag: str, reps: int = 20) -> None:
           f"{tag}")
 
 
+def device_per_call(call, reset, calls: int = 20) -> tuple:
+    """(device us, launches) a call in the port's kernels, from
+    torch.profiler over ``calls`` calls, each after ``reset()`` (copies,
+    not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    reset()
+    call()
+    torch.cuda.synchronize()
+    ours = our_kernel_names()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            reset()
+            call()
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel_short_name(e.name, ours) in ours):
+            us += e.time_range.elapsed_us()
+            launches += 1
+    return us / calls, launches / calls
+
+
+def time_k7_k11(tag: str) -> None:
+    """K7's dense entry and K11 alone, device time and launches a call:
+    K7 at 1M particles with 5,000 staged (a sweep step's order) at the
+    flush capacity and on one slab's lanes at its own capacity, K11 on the
+    cube's 24,627 particles; so that two checkouts read in one call
+    compare on them.  Each K7 call is given the same staging again."""
+    dev = torch.device("cuda")
+    cfg = config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    nb, hi = cfg.engine.num_bins, cfg.engine.hist_range[1]
+    host_grid, _ = build_grids(amt.make_workload(cfg), dev)
+    lanes = slab_lanes(cfg, host_grid)
+    for n, cap, label in ((cfg.num_molecules, measure_ops.FLUSH_CAPACITY,
+                           "1M"), (lanes, lanes, "a slab")):
+        given = k7_staging(Measurements.zeros(nb, torch.float32, n, dev),
+                           gen, 5000 / n)
+        mine = own(given)
+        us, launches = device_per_call(
+            lambda: measure_ops.flush_hist(mine, nb, hi, capacity=cap),
+            lambda: refill(mine, given))
+        print(f"breakdown K7: flush_hist {us!r} us of device time a call in "
+              f"{launches!r} launches, {label} ({n} rows, "
+              f"{int(given.pending_mask.sum())} staged, capacity {cap}) "
+              f"{tag}")
+    cube = cube_config()
+    gen.manual_seed(cube.seed)
+    state = init_ops.init_cube(cube, gen)
+    pos = state.pos + cube.dt * state.vel
+    r = cube.physics.collision_range + cube.engine.skin
+    us, launches = device_per_call(
+        lambda: collide.allpairs_partner_search(pos, r,
+                                                cube.engine.allpairs_tile),
+        lambda: None)
+    print(f"breakdown K11: allpairs_partner {us!r} us of device time a call "
+          f"in {launches!r} launches at N={pos.shape[0]} {tag}")
+
+
 def breakdowns(tag: str) -> None:
     """Phase 9 for every slice this checkout has."""
     time_compact(tag)
     time_k2_k12(tag)
+    time_k7_k11(tag)
     breakdown(tag, "sweep", config())
     breakdown(tag, "pairs", config(**PAIRS))
     if hasattr(amt, "CubeConfig"):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from argon_monte_carlo_tpu.ops.compact import compact_indices as jcompact
+from argon_monte_carlo_tpu_torch.ops import collide as tcollide
 from argon_monte_carlo_tpu_torch.ops import compact as tcompact
 from argon_monte_carlo_tpu_torch.ops import measure as tmeasure
 from argon_monte_carlo_tpu_torch.ops import pairs as tpairs
@@ -112,14 +113,19 @@ def test_compact_tile_matches_the_kernel_source():
                        "constexpr int kFlushTile = amc::kThreads * "
                        "kFlushBytes;"),
      "FLUSH_TILE"),
+    ("lookback.cuh", ("constexpr int kCountItems = 4;",
+                      "constexpr int kCountTile = kThreads * kCountItems;"),
+     "COUNT_SCAN_TILE"),
 ])
 def test_kept_scratch_is_sized_by_the_kernels_tiles(source, lines, constant):
-    """K3 and K7's compacted entry keep per-tile scratch (look-back words,
-    block sums) sized by their wrappers from the kernels' tiles."""
+    """K3, K7's compacted entry and the scan of counts of K2 and K11 keep
+    per-tile scratch (look-back words, block sums) sized by their wrappers
+    from the kernels' tiles."""
     src = (tcompact.kernels.CSRC / source).read_text()
     for line in lines:
         assert line in src
     per_thread = int(lines[0].split("= ")[1].rstrip(";"))
-    module = tpairs if constant == "K3_TILE" else tmeasure
+    module = {"K3_TILE": tpairs, "FLUSH_TILE": tmeasure,
+              "COUNT_SCAN_TILE": tcollide}[constant]
     value = getattr(module, constant)
     assert value == 256 * per_thread

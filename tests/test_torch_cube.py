@@ -96,6 +96,81 @@ def test_allpairs_float32_matches_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+EDGE_R = 1e-9
+
+
+def edge_gas(case):
+    """float32 positions where a z-window search could go wrong: pairs
+    whose z gap is the radius and one ulp either side of it (x and y
+    equal, so d^2 is dz^2 alone), at several z; every particle in one z
+    band; z below 0 and above a 100 nm box; N of 1, 2 and 3."""
+    f32 = np.float32
+    rng = np.random.default_rng(len(case))
+    if case == "gap at r":
+        rows = []
+        for k, z0 in enumerate((3e-9, 7.1e-9, -2.5e-9, 1.3e-7, 0.0, 4e-8)):
+            z0 = f32(z0)
+            at_r = f32(z0 + f32(EDGE_R))
+            for step, zj in enumerate((np.nextafter(at_r, f32(-np.inf)),
+                                       at_r,
+                                       np.nextafter(at_r, f32(np.inf)))):
+                x = f32(5e-9 * (3 * k + step + 1))
+                rows += [(x, 0.0, z0), (x, 0.0, zj)]
+        return np.array(rows, f32)
+    if case == "one band":
+        n = 600
+        z = 4e-9 + rng.uniform(0.0, EDGE_R / 4, n)
+        return np.stack([rng.uniform(0, 20e-9, n), rng.uniform(0, 20e-9, n),
+                         z], axis=1).astype(f32)
+    if case == "outside the box":
+        n = 800
+        z = np.where(rng.uniform(size=n) < 0.5,
+                     rng.uniform(-30e-9, -10e-9, n),
+                     rng.uniform(110e-9, 130e-9, n))
+        return np.stack([rng.uniform(0, 6e-9, n), rng.uniform(0, 6e-9, n),
+                         z], axis=1).astype(f32)
+    n = int(case[-1])
+    pos = np.array([[1e-9, 1e-9, 1e-9], [1.5e-9, 1e-9, 1.2e-9],
+                    [9e-9, 9e-9, 9e-9]], f32)
+    return pos[:n]
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("case", ["gap at r", "one band", "outside the box",
+                                  "N=1", "N=2", "N=3"])
+def test_allpairs_plain_matches_reference_at_the_window_edges(case, tile):
+    """K11's plain version (a z-window search) equals the reference's
+    all-pairs scan exactly, float32, where its window could lose a hit:
+    pairs exactly at the radius in z and one ulp either side, all
+    particles in one band, z outside the box, and one to three
+    particles."""
+    pos = edge_gas(case)
+    want, _ = jcollide.allpairs_partner_search(jnp.asarray(pos), EDGE_R,
+                                               tile)
+    got = tcollide.allpairs_partner_search(torch.from_numpy(pos), EDGE_R,
+                                           tile)
+    assert got.dtype == torch.int32 and got.shape == (pos.shape[0],)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    p = got.numpy()
+    if case == "gap at r":
+        # Of each triple of probe pairs, the one below r hits, the one
+        # above does not.
+        hit = (p[0::2] >= 0).reshape(-1, 3)
+        assert hit[:, 0].all() and not hit[:, 2].any()
+    elif case in ("one band", "outside the box"):
+        assert (p >= 0).any() and (p == -1).any()
+    else:
+        assert p.tolist() == [[-1], [1, 0], [1, 0, -1]][pos.shape[0] - 1]
+
+
+@pytest.mark.parametrize("n,slabs", [(0, 3), (1, 3), (48, 3), (49, 4),
+                                     (24_627, 1_540)])
+def test_allpairs_slabs(n, slabs):
+    """K11 counts N particles into one z-slab a 16 of them, at least
+    three, whatever the box (the key wraps modulo the count)."""
+    assert tcollide.allpairs_slabs(n) == slabs
+
+
 @pytest.mark.parametrize("stratified", [False, True])
 def test_init_cube(stratified):
     """Both fills lie in the box; the stratified one puts exactly
@@ -266,7 +341,9 @@ def test_measured_mfp_matches_analytic():
 def test_allpairs_wrapper_passes_declared_arguments(monkeypatch):
     """K11's wrapper, forced down its kernel side with the launch
     intercepted, passes the declared argument kinds (the stream is
-    launch's) and r^2 as a float; float64 is refused."""
+    launch's), r^2 as a float and the slab count of N; its scratch is
+    kept between calls of one size and grown for a larger N; float64 is
+    refused."""
     calls = []
 
     def fake_launch(name, device, *args):
@@ -276,13 +353,24 @@ def test_allpairs_wrapper_passes_declared_arguments(monkeypatch):
             want = {ctypes.c_void_p: ctypes.c_void_p, ctypes.c_int: int,
                     ctypes.c_float: float}[kind]
             assert isinstance(arg, want), (arg, kind)
-        calls.append((name, args[1], args[2]))
+        calls.append((name, args[1], args[2], args[3],
+                      [a.value for a in args[4:7]]))
+        # The look-back words handed over with their count, which the
+        # kernel checks against what its scan needs.
+        scan_words = tcollide.compact.lookback_scratch(device, 1).shape[0]
+        assert args[8] == scan_words >= 1 + -(-args[3] //
+                                              tcollide.COUNT_SCAN_TILE)
 
     monkeypatch.setattr(kernels, "use_plain", lambda t: False)
     monkeypatch.setattr(kernels, "launch", fake_launch)
-    pos = torch.zeros((10, 3))
-    out = tcollide.allpairs_partner_search(pos, 2.0, 4)
-    assert out.shape == (10,) and out.dtype == torch.int32
-    assert calls == [("allpairs_partner", 10, 4.0)]
+    for n in (10, 10, 5000):
+        out = tcollide.allpairs_partner_search(torch.zeros((n, 3)), 2.0, 4)
+        assert out.shape == (n,) and out.dtype == torch.int32
+    first, again, larger = calls
+    assert first[:4] == ("allpairs_partner", 10, 4.0, 3)
+    assert again == first
+    assert larger[:4] == ("allpairs_partner", 5000, 4.0, 313)
+    assert larger[4][2] != first[4][2]  # the copy grew: 5000 rows
     with pytest.raises(TypeError):
-        tcollide.allpairs_partner_search(pos.double(), 2.0, 4)
+        tcollide.allpairs_partner_search(torch.zeros((10, 3)).double(), 2.0,
+                                         4)

@@ -1,13 +1,16 @@
-"""The pairs step updates its own tensors in place (K3, K4 and K7's
-compacted entry); what that leans on and what it must not touch, on the
-CPU with the plain twins, in both pores:
+"""The steps update their own tensors in place: the pairs step through K3,
+K4 and K7's compacted entry, the sweep, the cube and the z-slab engine
+through K7's dense entry.  What that leans on and what it must not touch,
+on the CPU with the plain twins, in both pores' pairs mode and in the
+temperature pore's sweep, the cube and a 2-slab sharded sweep:
 
-- ``Simulation.run`` copies what its caller hands it, so the caller's state
-  and measurements stay bitwise as they were, also across runs that carry
-  the pair list;
-- the staging keeps a row whose mask is clear at zero whenever the step
-  flushes it, so the compacted flush may clear only the staged rows, and
-  the events it is given ascend.
+- ``Simulation.run`` and ``ShardedSimulation.run`` copy what their caller
+  hands them, so the caller's state and measurements stay bitwise as they
+  were, also across runs that carry the pair list;
+- the staging keeps a row whose mask is clear at zero whenever a step
+  flushes it, so either flush may clear only the staged rows, and the
+  staging is empty after each flush; the events the compacted flush is
+  given ascend.
 """
 
 import dataclasses
@@ -106,3 +109,107 @@ def test_unstaged_rows_are_zero_at_every_flush(pore, monkeypatch):
                          generator=gen)
     assert len(seen) == 12
     assert sum(seen) == int(meas.path_count) > 0
+
+
+# The callers of K7's dense entry: the temperature pore's sweep, the cube
+# and the sweep cut in two z-slabs.
+DENSE = ("sweep", "cube", "sharded")
+
+
+def dense_sim(kind):
+    engine = amt.EngineConfig(steps_per_epoch=3)
+    if kind == "cube":
+        cfg = amt.CubeConfig(num_particles_override=TARGET, engine=dataclasses
+                             .replace(engine, broadphase="allpairs"))
+        return amt.Simulation(amt.make_workload(cfg), device="cpu")
+    cfg = amt.temperature_pore_config(num_particles_override=TARGET,
+                                      engine=engine)
+    if kind == "sweep":
+        return amt.Simulation(amt.make_workload(cfg), device="cpu")
+    return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
+                                 devices=["cpu"])
+
+
+def dense_start(sim):
+    """As ``start``: every particle's partial path already ended; for the
+    sharded engine, each slab's."""
+    if isinstance(sim, amt.ShardedSimulation):
+        state, meas, gens = sim.init()
+        state = [(dataclasses.replace(
+            st, has_collided=torch.ones_like(st.has_collided)), valid, gid)
+            for st, valid, gid in state]
+        return state, meas, dict(generators=gens)
+    state, meas, gen = start(sim)
+    return state, meas, dict(generator=gen)
+
+
+def snapshot_all(state, meas):
+    """Every tensor the caller holds: one state and measurements, or the
+    sharded engine's lists of (state, valid, gid) and measurements."""
+    if isinstance(meas, list):
+        return ([(snapshot(st), valid.clone(), gid.clone())
+                 for st, valid, gid in state], [snapshot(m) for m in meas])
+    return snapshot(state), snapshot(meas)
+
+
+def assert_all_as_snapshot(state, meas, snap):
+    if isinstance(meas, list):
+        for (st, valid, gid), (s_st, s_valid, s_gid) in zip(state, snap[0]):
+            assert_as_snapshot(st, s_st)
+            assert torch.equal(valid, s_valid) and torch.equal(gid, s_gid)
+        for m, s_m in zip(meas, snap[1]):
+            assert_as_snapshot(m, s_m)
+    else:
+        assert_as_snapshot(state, snap[0])
+        assert_as_snapshot(meas, snap[1])
+
+
+@pytest.mark.parametrize("kind", DENSE)
+def test_dense_flush_runs_leave_callers_tensors_untouched(kind):
+    """Two runs through K7's dense entry, the second on what the first
+    returned: neither writes a tensor it was handed, the histogram got
+    events, and the carried run equals one run of all the steps."""
+    sim = dense_sim(kind)
+    state, meas, gens = dense_start(sim)
+    given = snapshot_all(state, meas)
+    s1, m1, _ = sim.run(num_steps=3, state=state, measure=meas, **gens)
+    assert_all_as_snapshot(state, meas, given)
+    totals = m1 if isinstance(m1, list) else [m1]
+    assert sum(int(m.path_count) for m in totals) > 0
+    first = snapshot_all(s1, m1)
+    s2, m2, _ = sim.run(num_steps=3, state=s1, measure=m1, start_step=3,
+                        **gens)
+    assert_all_as_snapshot(s1, m1, first)
+
+    # The caller's initial state, never written, starts the whole run.
+    _, _, gens = dense_start(sim)
+    whole, whole_meas, _ = sim.run(num_steps=6, state=state, measure=meas,
+                                   **gens)
+    assert_all_as_snapshot(s2, m2, snapshot_all(whole, whole_meas))
+
+
+@pytest.mark.parametrize("kind", DENSE)
+def test_unstaged_rows_are_zero_at_every_dense_flush(kind, monkeypatch):
+    """At every dense flush a row of the staging whose mask is clear is
+    zero, and after it the staging is empty; every flush returns the
+    measurements it was given."""
+    flush = tmeasure.flush_hist
+    seen = []
+
+    def spy(measure, num_bins, hist_hi, capacity=tmeasure.FLUSH_CAPACITY):
+        vals, mask = measure.pending_vals, measure.pending_mask
+        assert not vals[~mask].any()
+        seen.append(int(mask.sum()))
+        out = flush(measure, num_bins, hist_hi, capacity)
+        assert out is measure
+        assert not out.pending_vals.any() and not out.pending_mask.any()
+        return out
+
+    monkeypatch.setattr(tmeasure, "flush_hist", spy)
+    sim = dense_sim(kind)
+    state, meas, gens = dense_start(sim)
+    _, meas, _ = sim.run(num_steps=6, state=state, measure=meas, **gens)
+    slabs = 2 if kind == "sharded" else 1
+    assert len(seen) == 6 * slabs
+    totals = meas if isinstance(meas, list) else [meas]
+    assert sum(seen) == sum(int(m.path_count) for m in totals) > 0

@@ -10,7 +10,9 @@ Tolerances: integer outputs and staging exact; K10's and K3's state within
 2 ulp (both sides round every operation once, IEEE; measured 0); K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
-why); K11 exact; K12's buffers bitwise, its flags and counts exact; K2
+why); K11 exact, also with every particle in one z-slab, at the window's
+edges and replayed in a CUDA graph; K7 in place, also over two calls and
+replayed in a CUDA graph; K12's buffers bitwise, its flags and counts exact; K2
 exact, also on its long-segment path and when replayed in a CUDA graph.  The
 pairs engine's kernels, K8, K11, K12 and the z-slab arguments of K2, K9 and
 K10 run ``chip_smoke.py``'s own checks, untimed: the pore at 200k
@@ -123,22 +125,30 @@ def test_resolve_pairs_kernel(device):
 @pytest.mark.parametrize("capacity", [measure_ops.FLUSH_CAPACITY, 1024,
                                       TARGET * 2])
 def test_flush_hist_kernel(device, capacity):
+    """K7's dense entry in place against its twin, each on its own copy,
+    the staging within its contract (a row whose mask is clear is zero):
+    over the capacity (the look-back's cut, events dropped at 1024) and
+    under it."""
     _, gen, state, _ = setup(device)
     n = state.num_particles
-    u = torch.rand((n, 5), generator=gen, device=device)
-    meas = Measurements.zeros(200, torch.float32, n, device)
-    meas = dataclasses.replace(
-        meas, pending_vals=u[:, :4] * 1.2e-6, pending_mask=u[:, 4] < 0.05,
-        path_sum=u[:4, 0].contiguous())
-    got = measure_ops.flush_hist(meas, 200, 1e-6, capacity=capacity)
-    want = measure_ops.flush_hist_plain(meas, 200, 1e-6, capacity=capacity)
-    for f in ("hist", "path_count", "hist_drop_count", "pending_vals",
-              "pending_mask"):
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
-    torch.testing.assert_close(got.path_sum, want.path_sum, rtol=1e-6,
-                               atol=0)
+    meas = chip_smoke.k7_staging(
+        Measurements.zeros(200, torch.float32, n, device), gen, 0.05)
+    got, _, _ = chip_smoke.check_k7_case("", meas, 200, 1e-6, capacity)
     if capacity == 1024:
         assert int(got.hist_drop_count) > 0
+
+
+def test_flush_hist_kernel_in_place_calls_and_graph(device):
+    """K7's dense entry on chip_smoke's cases: dense and sparse staging
+    over and under the capacity, a slab's lanes at its own capacity, two
+    calls in a row on the same tensors, and one launch captured in a CUDA
+    graph and replayed three times."""
+    cfg, gen, state, _ = setup(device)
+    host_grid, _ = build_grids(amt.make_workload(cfg), device)
+    meas = chip_smoke.k7_staging(
+        Measurements.zeros(cfg.engine.num_bins, torch.float32,
+                           state.num_particles, device), gen, 0.1)
+    chip_smoke.check_flush_dense(meas, gen, cfg, host_grid, "", reps=0)
 
 
 @pytest.mark.parametrize("capacity", [None, 8])
@@ -275,9 +285,12 @@ def test_pore_advance_kernel(device):
 
 
 def test_allpairs_partner_kernel(device):
+    """K11 at the cube's 24,627 particles, with all of them in one slab,
+    with probe pairs at the window's edges and replayed in a CUDA graph:
+    five calls, the captured one counted once."""
     before = kernels.launch_counts["allpairs_partner"]
     chip_smoke.check_allpairs("", sizes=(None,), reps=0)
-    assert kernels.launch_counts["allpairs_partner"] == before + 1
+    assert kernels.launch_counts["allpairs_partner"] == before + 5
 
 
 def test_cube_on_card_matches_cpu(device):

@@ -1,14 +1,15 @@
 """Port vs reference: the plain version of K7 (histogram flush) against
 ``ops/measure.flush_pending``, on the dense branch (capacity >= N) and the
 compacted one (capacity < events, so events are dropped), its compacted
-entry against ``flush_pending_compacted``, plus the path bookkeeping
-helpers.
+entry against ``flush_pending_compacted``, both twins in place, plus the
+path bookkeeping helpers.
 
 Tolerances: hist, path_count, hist_drop_count and the cleared staging are
 exact; path_sum within reduction-order rounding (float64 1e-12 relative,
 float32 1e-6 relative: a sum over ~1000 events in another order).
 """
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -19,7 +20,7 @@ import torch
 from argon_monte_carlo_tpu.ops import measure as jmeasure
 from argon_monte_carlo_tpu.state import Measurements as JMeasurements
 from argon_monte_carlo_tpu.state import ParticleState as JState
-from argon_monte_carlo_tpu_torch import convert
+from argon_monte_carlo_tpu_torch import convert, kernels
 from argon_monte_carlo_tpu_torch.ops import measure as tmeasure
 from argon_monte_carlo_tpu_torch.state import Measurements as TMeasurements
 
@@ -44,6 +45,7 @@ def staged(np_dtype, seed):
 def test_flush_hist_plain_matches_reference(dtype, capacity):
     np_dtype, t_dtype = DTYPES[dtype]
     vals, mask, hist, path_sum = staged(np_dtype, seed=capacity)
+    vals[~mask] = 0.0   # the staging's contract: unstaged rows are zero
 
     jm = JMeasurements.zeros(NUM_BINS, np_dtype, num_particles=N)
     jm.pending_vals, jm.pending_mask = jnp.asarray(vals), jnp.asarray(mask)
@@ -52,11 +54,13 @@ def test_flush_hist_plain_matches_reference(dtype, capacity):
     jm.hist_drop_count = jnp.asarray(3, jnp.int32)
     jm = jmeasure.flush_pending(jm, NUM_BINS, HIST_HI, capacity=capacity)
 
+    # The in-place twin is fed clones.
     tm = TMeasurements.zeros(NUM_BINS, t_dtype, num_particles=N)
     tm = dataclasses.replace(
-        tm, pending_vals=torch.from_numpy(vals),
-        pending_mask=torch.from_numpy(mask), hist=torch.from_numpy(hist),
-        path_sum=torch.from_numpy(path_sum),
+        tm, pending_vals=torch.from_numpy(vals).clone(),
+        pending_mask=torch.from_numpy(mask).clone(),
+        hist=torch.from_numpy(hist).clone(),
+        path_sum=torch.from_numpy(path_sum).clone(),
         path_count=torch.tensor(7, dtype=torch.int32),
         hist_drop_count=torch.tensor(3, dtype=torch.int32),
     )
@@ -232,3 +236,67 @@ def test_flush_hist_compacted_plain_refuses_unsorted_event_idx(fault):
         tmeasure.flush_hist_compacted_plain(tm, bad, NUM_BINS, HIST_HI)
     assert torch.equal(tm.pending_vals, before)
     tmeasure.check_event_idx(event_idx, N)
+
+
+@pytest.mark.parametrize("capacity", [N, 256, 2000])
+def test_flush_hist_plain_updates_in_place(capacity):
+    """K7's dense twin folds into the measurements' own tensors and
+    returns them, as the kernel does: the counts updated, the staging
+    cleared where it stands, equal to a flush of clones; with capacity N
+    every event binned, with 256 events dropped, with 2000 (N > capacity
+    > events) none."""
+    tm, _ = compacted_case(seed=31)
+    events = int(tm.pending_mask.sum())
+    assert 256 < events < 2000
+    copy = dataclasses.replace(tm, **{f.name: getattr(tm, f.name).clone()
+                                      for f in dataclasses.fields(tm)})
+    given = {f.name: getattr(tm, f.name) for f in dataclasses.fields(tm)}
+    out = tmeasure.flush_hist_plain(tm, NUM_BINS, HIST_HI, capacity)
+    for name, t in given.items():
+        assert getattr(out, name) is t, name
+    assert int(tm.path_count) == 7 + events
+    dropped = max(events - capacity, 0) if N > capacity else 0
+    assert int(tm.hist_drop_count) == 3 + dropped
+    assert float(tm.hist.sum() - copy.hist.sum()) == 4 * (events - dropped)
+    assert not tm.pending_mask.any() and not tm.pending_vals.any()
+    again = tmeasure.flush_hist_plain(copy, NUM_BINS, HIST_HI, capacity)
+    for f in dataclasses.fields(tm):
+        assert torch.equal(getattr(again, f.name), getattr(out, f.name))
+    # A second flush of the emptied staging adds nothing but zeros.
+    before = {f.name: getattr(tm, f.name).clone()
+              for f in dataclasses.fields(tm)}
+    tmeasure.flush_hist_plain(tm, NUM_BINS, HIST_HI, capacity)
+    for name, kept in before.items():
+        assert torch.equal(getattr(tm, name), kept), name
+
+
+def test_flush_hist_wrapper_passes_declared_arguments(monkeypatch):
+    """K7's dense entry, forced down its kernel side with the launch
+    intercepted: the declared argument kinds, in place (it returns the
+    measurements it was given and allocates no output), and the same
+    kept scratch on a second call."""
+    calls = []
+
+    def fake_launch(name, device, *args):
+        sig = kernels._SIGNATURES[name][:-1]
+        assert len(args) == len(sig)
+        for arg, kind in zip(args, sig):
+            want = {ctypes.c_void_p: ctypes.c_void_p, ctypes.c_int: int,
+                    ctypes.c_float: float}[kind]
+            assert isinstance(arg, want), (arg, kind)
+        calls.append((name, args[2], args[3], args[4], args[5],
+                      [a.value for a in args[10:13]]))
+
+    monkeypatch.setattr(kernels, "use_plain", lambda t: False)
+    monkeypatch.setattr(kernels, "launch", fake_launch)
+    tm, _ = compacted_case(seed=41)
+    out = tmeasure.flush_hist(tm, NUM_BINS, HIST_HI, capacity=256)
+    assert out is tm
+    tmeasure.flush_hist(tm, NUM_BINS, HIST_HI)
+    (name, n, cap, bins, width, scratch), second = calls
+    assert (name, n, cap, bins) == ("flush_hist", N, 256, NUM_BINS)
+    assert width == HIST_HI / NUM_BINS
+    assert second[2] == tmeasure.FLUSH_CAPACITY and second[5] == scratch
+    with pytest.raises(TypeError):
+        tmeasure.flush_hist(dataclasses.replace(
+            tm, pending_vals=tm.pending_vals.double()), NUM_BINS, HIST_HI)
