@@ -15,7 +15,8 @@ engine.py:310-472) is
     one shared compaction (K6) and the dirty sub-compaction (K6) ->
     research_dirty (K4) -> flush_hist_compacted (K7) -> counters
 
-(K3, K4 and K7's compacted entry update the step's own tensors in place)
+(K3, K4 and K7's compacted entry update the step's own tensors in place,
+as K10 and K7's dense entry do in the sweep)
 
 with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
 on the pre-drift positions at the start of every ``rebuild_interval``
@@ -160,13 +161,12 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
         state, measure, ledger, oob_walls, _, _ = workload.advance(
             state, measure, uniforms)
 
-        # PARTICLE-PARTICLE COLLISIONS.
+        # PARTICLE-PARTICLE COLLISIONS: K10 adds the step's pairs to its
+        # wall hits in place, the step's collision count.
         partner, overflow = search(state.pos)
-        state, measure, pair_collisions = collide.resolve_pairs(
-            state, measure, partner, cr)
-        measure = dataclasses.replace(
-            measure,
-            collision_count=measure.collision_count + pair_collisions)
+        collisions = ledger.wall_hits.clone()
+        state, measure, _ = collide.resolve_pairs(state, measure, partner,
+                                                  cr, count=collisions)
         state, oob_pairs = workload.post_pairs(state)
 
         # HISTOGRAM FLUSH: every step is exact; a wider window stages
@@ -184,7 +184,7 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
             measure,
             overflow_count=measure.overflow_count + overflow,
             err_count=measure.err_count + ledger.errs,
-            collision_count=measure.collision_count + ledger.wall_hits,
+            collision_count=measure.collision_count + collisions,
         )
 
         zero = torch.zeros((), dtype=torch.int32, device=state.pos.device)
@@ -192,7 +192,7 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
             momentum_z=ledger.momentum_z,
             energy_hot=ledger.energy_hot,
             energy_cold=ledger.energy_cold,
-            collisions=pair_collisions + ledger.wall_hits,
+            collisions=collisions,
             wall_hits=ledger.wall_hits,
             oob_after_walls=oob_walls,
             oob_after_pairs=oob_pairs,
@@ -379,7 +379,8 @@ class Simulation:
     gets a state other than the one it last returned (engine.py:494-814).
 
     The steps update the state and the measurements in place (the pairs
-    step's K3 and K7's compacted entry, the sweep's and the cube's K7), so
+    step's K3 and K7's compacted entry, the sweep's and the cube's K10 and
+    K7), so
     ``run`` copies the state and measurements it is handed once on entry
     and carries its own copies: it never writes a tensor its caller passed
     in.

@@ -45,12 +45,12 @@ _SIGNATURES = {
     "bin_and_table": [_P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _I]
                      + [_P] * 8 + [_I, _P],
     "partner_sweep": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
-    "resolve_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "resolve_pairs": [_P] * 8 + [_I, _F, _F, _P, _P, _P],
     "flush_hist": [_P, _P, _I, _I, _I, _F] + [_P] * 8,
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 7,
     "compact": [_P, _I, _I, _I, _P, _P, _P],
-    "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11,
+    "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 8
+                  + [_I, _P],
     "rebuild_sweep": [_P] * 7 + [_I] * 6 + [_P] * 5,
     "test_and_resolve": [_P] * 10 + [_I, _I, _I, _F, _F] + [_P] * 6,
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8

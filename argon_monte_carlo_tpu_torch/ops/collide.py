@@ -10,7 +10,9 @@ phase runs three kernels:
 2. ``partner_sweep`` (K9): each particle's lowest-index partner within the
    collision range over its 27 neighbour cells (-1 = none);
 3. ``resolve_pairs`` (K10): mutually matched pairs exchange the elastic
-   impulse; completed paths are staged and path accumulators reset.
+   impulse; completed paths are staged and path accumulators reset, in
+   place on the step's own tensors (the rows of the resolved pairs alone),
+   and the pair count is added to a counter the caller holds.
 
 The pairs engine's rebuild runs K2 and then ``rebuild_sweep`` (K1): the
 one-sided half-shell reach-mode sweep of the active cells, which keeps each
@@ -758,22 +760,28 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def resolve_pairs_plain(state: ParticleState, measure: Measurements,
                         partner: torch.Tensor, collision_range: float,
+                        count: torch.Tensor | None = None,
                         local_mask: torch.Tensor | None = None):
-    """Plain version of K10.  Returns (state, measure, n_collisions ()).
+    """Plain version of K10.  Returns (state, measure, count); ``state``'s
+    four tensors, ``measure``'s ``pending_vals`` and ``pending_mask`` and
+    ``count`` are updated in place and returned, as the kernel does, and
+    only the rows of the lanes applied to are written.
 
     A pair (a, b) is resolved iff partner[a] == b and partner[b] == a and
     they overlap and approach: t is the larger root of
     |dx - dv t|^2 = cr^2; both rewind by t, exchange the impulse along the
     contact normal and replay.  Completed paths are staged with the
     pre-collision velocity (record_completed) and path accumulators reset
-    to the residual along the new direction (end_paths).
+    to the residual along the new direction (end_paths).  ``count`` (an
+    int32 () tensor, or None to count nothing) grows by the pairs
+    resolved.
 
     With ``local_mask`` (the z-slab engine, collide.py:1067-1071): a lane
     holding a neighbour's ghost takes part in the match, but state,
-    staging and path resets apply only where ``ok & local_mask``; the
-    count is then sum(apply), not halved (the caller counts each pair on
-    the slab that owns the lower id), and the matched mask ``ok`` is
-    returned fourth: (state, measure, n_applied (), ok (N,)).
+    staging and path resets apply only where ``ok & local_mask``; ``count``
+    then grows by sum(apply), not by the pairs (the caller counts each pair
+    on the slab that owns the lower id), and the matched mask ``ok`` is
+    returned fourth: (state, measure, count, ok (N,)).
     """
     n = state.pos.shape[0]
     pos, vel = state.pos, state.vel
@@ -802,31 +810,42 @@ def resolve_pairs_plain(state: ParticleState, measure: Measurements,
     new_pos = qa + new_vel * t[:, None]
 
     apply = ok if local_mask is None else ok & local_mask
-    measure = measure_ops.record_completed(
+    staged = measure_ops.record_completed(
         measure, state.paths, state.has_collided, vel, t, apply)
-    state = dataclasses.replace(
-        state,
-        pos=torch.where(apply[:, None], new_pos, pos),
-        vel=torch.where(apply[:, None], new_vel, vel),
-    )
-    state = measure_ops.end_paths(state, apply, t, state.vel,
+    ended = measure_ops.end_paths(state, apply, t, new_vel,
                                   zero_residual=False)
+    # In place, once everything is computed from the inputs: the rows of
+    # the lanes applied to, and nothing else.
+    rows = torch.nonzero(apply).flatten()
+    pos[rows] = new_pos[rows]
+    vel[rows] = new_vel[rows]
+    state.paths[rows] = ended.paths[rows]
+    state.has_collided[rows] = True
+    measure.pending_vals[rows] = staged.pending_vals[rows]
+    measure.pending_mask[rows] = staged.pending_mask[rows]
+    if count is not None:
+        count.add_(torch.sum(ok, dtype=torch.int32) // 2
+                   if local_mask is None
+                   else torch.sum(apply, dtype=torch.int32))
     if local_mask is None:
-        return state, measure, torch.sum(ok, dtype=torch.int32) // 2
-    return state, measure, torch.sum(apply, dtype=torch.int32), ok
+        return state, measure, count
+    return state, measure, count, ok
 
 
 def resolve_pairs(state: ParticleState, measure: Measurements,
                   partner: torch.Tensor, collision_range: float,
+                  count: torch.Tensor | None = None,
                   local_mask: torch.Tensor | None = None):
-    """K10 (see ``resolve_pairs_plain``); CUDA kernel for CUDA tensors.
-    Returns (state, measure, n_collisions ()) -- with ``local_mask``,
-    (state, measure, n_applied (), ok (N,)) -- and leaves
-    ``collision_count`` to the caller, as the plain version does."""
+    """K10 (see ``resolve_pairs_plain``); CUDA kernel for CUDA tensors: one
+    launch, in place like the twin, touching only the rows of matched
+    pairs.  Returns (state, measure, count) -- with ``local_mask``,
+    (state, measure, count, ok (N,)) -- and leaves ``collision_count`` to
+    the caller, as the plain version does.  No allocation but ``ok``, no
+    scratch: a launch replays in a CUDA graph."""
     pos = state.pos
     if kernels.use_plain(pos):
         return resolve_pairs_plain(state, measure, partner, collision_range,
-                                   local_mask)
+                                   count, local_mask)
     dev = pos.device
     n = pos.shape[0]
     f32, b8 = torch.float32, torch.bool
@@ -840,24 +859,19 @@ def resolve_pairs(state: ParticleState, measure: Measurements,
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
+    if count is not None:
+        kernels.check(count, "count", torch.int32, (), dev)
     ok = None
     if local_mask is not None:
         kernels.check(local_mask, "local_mask", b8, (n,), dev)
         ok = torch.empty(n, dtype=b8, device=dev)
-    outs = [torch.empty_like(t) for t, *_ in inputs if t is not partner]
-    pos_o, vel_o, paths_o, has_o, pv_o, pm_o = outs
-    count = torch.empty((), dtype=torch.int32, device=dev)
     p = kernels.ptr
     cr = collision_range
     kernels.launch(
         "resolve_pairs", dev, *(p(t) for t, *_ in inputs),
         kernels.optional_ptr(local_mask), n, cr, cr * cr,
-        *(p(t) for t in outs), kernels.optional_ptr(ok), p(count),
+        kernels.optional_ptr(ok), kernels.optional_ptr(count),
     )
-    state = ParticleState(pos=pos_o, vel=vel_o, paths=paths_o,
-                          has_collided=has_o)
-    measure = dataclasses.replace(measure, pending_vals=pv_o,
-                                  pending_mask=pm_o)
     if local_mask is None:
-        return state, measure, count // 2
+        return state, measure, count
     return state, measure, count, ok

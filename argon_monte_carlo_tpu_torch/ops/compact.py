@@ -74,9 +74,9 @@ def lookback_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
     """The single-pass scan's scratch (``kernels/csrc/lookback.cuh``) of a
     call on ``dev``'s current stream: at least 1 + ``tiles`` 64-bit words
     (ticket and finished count, a status word a tile), zero when allocated
-    and zero again after every call of K6 or K3, which share it (see
-    ``stream_scratch``; a zero scratch that a captured launch still holds
-    stays right)."""
+    and zero again after every call of the kernels that share it (K6, K3,
+    K5, K7, K12 and the scans of K2 and K11; see ``stream_scratch``; a
+    zero scratch that a captured launch still holds stays right)."""
     return stream_scratch(_scratch, dev, tiles + 1, torch.int64, 0)
 
 

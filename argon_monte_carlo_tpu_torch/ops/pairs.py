@@ -24,7 +24,8 @@ Each kernel wrapper (``emit_pairs`` K5, ``test_and_resolve`` K3,
 signature and outputs) for CPU tensors and launches the CUDA kernel for
 CUDA tensors.  K3 and K4, and their twins, update the step's own tensors
 in place (the state and staging, the pair list) and return them: a
-caller that needs its inputs afterwards passes copies.
+caller that needs its inputs afterwards passes copies.  K5 writes a fresh
+list: the rebuild leaves the old one to whoever still holds it.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from . import measure as measure_ops
 from .compact import compact_indices_plain, lookback_scratch, stream_scratch
 
 INT_BIG = 1 << 30
+# Particles a block of K5 takes (compact.cu kEmitTile).
+EMIT_TILE = 4096
 # Entries a block of K3's test takes (test_resolve.cu kTile).
 K3_TILE = 1024
 # K3's scratch besides the look-back words it shares with K6, one a (device
@@ -240,9 +243,13 @@ def emit_pairs_plain(cands, pslot0, clipped, unswept, cell_overflow,
 def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
                old_spill, dummy_slot: int, m_cap: int):
     """K5 (see ``emit_pairs_plain``); CUDA kernel for CUDA tensors: one
-    count -> scan -> write pass, which gives the reference's list even when
-    truncated (the first m_cap entries come from at most m_cap
-    particles)."""
+    single-pass launch (the entries' scan on ``lookback.cuh``, which gives
+    the reference's list even when truncated: the first m_cap entries come
+    from at most m_cap particles; the pad by extra blocks of the same
+    grid).  Four allocations, the outputs (a and b share one); the
+    look-back scratch is K6's, kept for each stream of each device and
+    left zero by the kernel, so as with K6 a launch replays in a CUDA graph
+    after one call on the capturing stream.  ``top_k`` is 1 to 16."""
     if kernels.use_plain(cands):
         return emit_pairs_plain(cands, pslot0, clipped, unswept,
                                 cell_overflow, old_overflow, old_spill,
@@ -250,6 +257,11 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
     dev = cands.device
     n, top_k = cands.shape
     i32, b8 = torch.int32, torch.bool
+    if not 1 <= top_k <= 16:
+        raise ValueError(f"top_k={top_k}: the kernel takes 1 to 16")
+    if n * top_k >= 1 << 31:
+        raise ValueError(f"{n} x {top_k} candidates: the kernel counts "
+                         f"entries in 31 bits")
     kernels.check(cands, "cands", i32, (n, top_k), dev)
     kernels.check(pslot0, "pslot0", i32, (n,), dev)
     kernels.check(clipped, "clipped", b8, (n,), dev)
@@ -257,24 +269,20 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
     for t, name in ((cell_overflow, "cell_overflow"),
                     (old_overflow, "old_overflow"), (old_spill, "old_spill")):
         kernels.check(t, name, i32, (), dev)
-    a = torch.empty(m_cap, dtype=i32, device=dev)
-    b = torch.empty(m_cap, dtype=i32, device=dev)
+    ab = torch.empty((2, m_cap), dtype=i32, device=dev)
     counters = torch.empty(3, dtype=i32, device=dev)  # cursor, overflow, spill
     hot = torch.empty(n, dtype=b8, device=dev)
     pending1 = torch.empty(n, dtype=b8, device=dev)
-    nblocks = -(-n // 256)
-    block_vals = torch.empty(3 * nblocks, dtype=i32, device=dev)
-    block_offsets = torch.empty(nblocks, dtype=i32, device=dev)
-    totals = torch.empty(3, dtype=i32, device=dev)
+    # The look-back words of the tiles and one word for the unswept count.
+    scan = lookback_scratch(dev, max(-(-n // EMIT_TILE), 1) + 1)
     p = kernels.ptr
     kernels.launch(
         "emit_pairs", dev, p(cands), n, top_k, p(pslot0), dummy_slot,
         p(clipped), p(unswept), p(cell_overflow), p(old_overflow),
-        p(old_spill), m_cap, p(a), p(b), p(counters[0]), p(hot),
-        p(pending1), p(counters[1]), p(counters[2]), p(block_vals),
-        p(block_offsets), p(totals),
+        p(old_spill), m_cap, p(ab[0]), p(ab[1]), p(counters[0]), p(hot),
+        p(pending1), p(counters[1]), p(counters[2]), p(scan), scan.shape[0],
     )
-    return a, b, counters[0], hot, pending1, counters[1], counters[2]
+    return ab[0], ab[1], counters[0], hot, pending1, counters[1], counters[2]
 
 
 # --------------------------------------------------------------------------

@@ -17,14 +17,19 @@ exits non-zero without a result line):
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
-   overflow; K7 in place, each side on its own copy, over its capacity
-   (the look-back's cut), under it, on one slab's lanes, over two calls in
-   a row and as one launch recorded in a CUDA graph and replayed three
-   times on changed staging; the pairs engine's K6, K1, K5, K3, K4 and K7's compacted
-   entry, K6 also at lengths around its tile, on an unaligned view, over
-   100 calls in a row and as one launch recorded in a CUDA graph and
-   replayed; K1 also with overflowing cells, a cut active list and rows
-   that saturate top_k; K3, K4 and K7's compacted entry in place, each on
+   overflow; K10 in place, each side on its own copy, also with a chain
+   k -> i <-> j, with self-partners, with matched pairs split between a
+   local and a ghost lane, and as one launch recorded in a CUDA graph and
+   replayed three times; K7 in place, each side on its own copy, over its
+   capacity (the look-back's cut), under it, on one slab's lanes, over two
+   calls in a row and as one launch recorded in a CUDA graph and replayed
+   three times on changed staging; the pairs engine's K6, K1, K5, K3, K4
+   and K7's compacted entry, K6 also at lengths around its tile, on an
+   unaligned view, over 100 calls in a row and as one launch recorded in
+   a CUDA graph and replayed; K5 at two capacities and as one launch
+   replayed three times on shrinking lists, each shorter than the tail
+   the one before left; K1 also with overflowing cells, a cut active list
+   and rows that saturate top_k; K3, K4 and K7's compacted entry in place, each on
    its own copy of the inputs and returning the tensors it was given: K4
    also with a small append budget, a cursor near the list's end and
    lists that fill, K3 also at event capacity 64 and with reversed and
@@ -65,8 +70,8 @@ exits non-zero without a result line):
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
    sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
-   ``torch.nonzero``; K2 and K12 timed alone; K7 and K11 alone, device
-   time and launches a call.
+   ``torch.nonzero``; K2 and K12 timed alone; K7, K11, K10 and K5 alone,
+   device time and launches a call.
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
@@ -81,6 +86,7 @@ import argparse
 import cProfile
 import csv
 import dataclasses
+import inspect
 import json
 import math
 import pstats
@@ -366,39 +372,25 @@ def check_kernels(tag: str) -> dict:
         PAIR_TEST_OPS * neighbor_slots(table, pslot, grid, n),
     )
 
-    # K10, with paths, has_collided and staging drawn from the Generator.
-    u = torch.rand((n, 6), generator=gen, device=dev)
-    state = dataclasses.replace(state, paths=u[:, :4] * 2e-7,
-                                has_collided=u[:, 4] < 0.6)
-    meas = Measurements.zeros(cfg.engine.num_bins, torch.float32, n, dev)
-    meas = dataclasses.replace(meas, pending_vals=u[:, :4].flip(1) * 1e-6,
-                               pending_mask=u[:, 5] < 0.1)
-    got_s, got_m, got_c = collide.resolve_pairs(state, meas, partner, r)
-    want_s, want_m, want_c = collide.resolve_pairs_plain(state, meas,
-                                                         partner, r)
-    exact("K10 count", got_c.int(), want_c.int())
-    exact("K10 has_collided", got_s.has_collided, want_s.has_collided)
-    exact("K10 pending_mask", got_m.pending_mask, want_m.pending_mask)
-    exact("K10 pending_vals", got_m.pending_vals, want_m.pending_vals)
-    floats = [(got_s.pos, want_s.pos), (got_s.vel, want_s.vel),
-              (got_s.paths, want_s.paths)]
-    k10_ulps = max(ulp_diff(a, b) for a, b in floats)
-    k10_err = max(max_abs(a, b) for a, b in floats)
-    # Stated bound: 2 ulp (both round every operation once, IEEE).
-    require(k10_ulps <= 2, f"K10: {k10_ulps} ulp from plain")
+    # K10 in place, with paths, has_collided and staging drawn from the
+    # Generator; the chain, self-partner and ghost cases; three replays of
+    # one captured launch.
+    state, meas = k10_inputs(state, gen, cfg.engine.num_bins)
+    _, got_m, got_c, k10_ulps, k10_err, _ = check_k10_case(
+        "at 1M", state, meas, partner, r)
     print(f"K10 resolve_pairs: {int(got_c)} pairs, count and staging "
           f"exact, state {k10_ulps} ulp from plain (bound 2), max abs err "
-          f"{k10_err!r} {tag}")
-    # ~70 float32 operations a particle.
-    results["resolve_pairs"] = result(
-        k10_err,
-        timed_ms(lambda: collide.resolve_pairs(state, meas, partner, r), 20),
-        timed_ms(lambda: collide.resolve_pairs_plain(state, meas, partner, r),
-                 5),
-        tensor_bytes(state, partner, meas.pending_vals, meas.pending_mask,
-                     got_s, got_m.pending_vals, got_m.pending_mask),
-        70 * n,
-    )
+          f"{k10_err!r}, in place, the lanes of no matched pair untouched "
+          f"{tag}")
+    check_k10_hard_cases(state, meas, partner, r, tag)
+
+    def search(pos):
+        _, tbl, ps, _ = collide.bin_and_table(pos, grid)
+        return collide.partner_sweep(pos, tbl, ps, grid, r)
+
+    check_resolve_pairs_graph(state, meas, search, r, cfg.dt, gen, tag)
+    results["resolve_pairs"] = time_resolve_pairs(state, meas, partner, r,
+                                                  k10_err, 20, tag)
 
     # K7 reads K10's staging within its contract: a row whose mask is clear
     # is zero (K10's own check above keeps arbitrary unstaged rows).
@@ -409,6 +401,220 @@ def check_kernels(tag: str) -> dict:
                                               tag)
     print_times(results, n, tag)
     return results
+
+
+def k10_inputs(state, gen, num_bins: int):
+    """``state`` with paths and has_collided, and measurements with
+    staging (arbitrary unstaged rows: K10 writes a row only where it
+    stages one), drawn from the Generator."""
+    n = state.num_particles
+    u = torch.rand((n, 6), generator=gen, device=state.pos.device)
+    state = dataclasses.replace(state, paths=u[:, :4] * 2e-7,
+                                has_collided=u[:, 4] < 0.6)
+    meas = Measurements.zeros(num_bins, torch.float32, n, state.pos.device)
+    meas = dataclasses.replace(meas, pending_vals=u[:, :4].flip(1) * 1e-6,
+                               pending_mask=u[:, 5] < 0.1)
+    return state, meas
+
+
+def k10_matched(state, meas, partner, r: float):
+    """The twin's matched mask: the lanes of the pairs K10 resolves."""
+    everyone = torch.ones_like(state.has_collided)
+    return collide.resolve_pairs_plain(own(state), own(meas), partner, r,
+                                       local_mask=everyone)[3]
+
+
+def check_k10_case(label, state, meas, partner, r: float, local=None):
+    """K10 and its twin, each on its own copy of the inputs and its own
+    count (both from 7): count, ok mask and staging exact, state within 2
+    ulp, the kernel's tensors those it was given, and every lane it
+    applies to no pair (outside ``ok & local``) bitwise as given.
+    Returns (state, measurements, count, ulps, max abs error) of the
+    kernel."""
+    gs, gm = own(state), own(meas)
+    gc = torch.full((), 7, dtype=torch.int32, device=partner.device)
+    wc = gc.clone()
+    got = collide.resolve_pairs(gs, gm, partner, r, count=gc,
+                                local_mask=local)
+    want = collide.resolve_pairs_plain(own(state), own(meas), partner, r,
+                                       count=wc, local_mask=local)
+    same_tensors(got[0], gs, f"K10 ({label})")
+    same_tensors(got[1], gm, f"K10 ({label})")
+    require(got[2] is gc, f"K10 ({label}): not the count given")
+    exact(f"K10 count ({label})", gc, wc)
+    if local is None:
+        matched = k10_matched(state, meas, partner, r)
+        applied = matched
+    else:
+        matched = got[3]
+        exact(f"K10 ok ({label})", matched, want[3])
+        applied = matched & local
+    ks, km, ws, wm = got[0], got[1], want[0], want[1]
+    exact(f"K10 has_collided ({label})", ks.has_collided, ws.has_collided)
+    exact(f"K10 pending_mask ({label})", km.pending_mask, wm.pending_mask)
+    exact(f"K10 pending_vals ({label})", km.pending_vals, wm.pending_vals)
+    floats = [(ks.pos, ws.pos), (ks.vel, ws.vel), (ks.paths, ws.paths)]
+    ulps = max(ulp_diff(a, b) for a, b in floats)
+    # Stated bound: 2 ulp (both round every operation once, IEEE).
+    require(ulps <= 2, f"K10 ({label}): {ulps} ulp from plain")
+    rest = ~applied
+    for f, mine, given in (
+            ("pos", ks.pos, state.pos), ("vel", ks.vel, state.vel),
+            ("paths", ks.paths, state.paths),
+            ("has_collided", ks.has_collided, state.has_collided),
+            ("pending_vals", km.pending_vals, meas.pending_vals),
+            ("pending_mask", km.pending_mask, meas.pending_mask)):
+        exact(f"K10 {f} of the lanes not applied to ({label})", mine[rest],
+              given[rest])
+    return (ks, km, gc, ulps, max(max_abs(a, b) for a, b in floats),
+            matched)
+
+
+def check_k10_hard_cases(state, meas, partner, r: float, tag: str) -> None:
+    """K10 where the partner array is hard: up to 200 lanes without a
+    partner pointed at a lane of a matched pair (a chain k -> i while i <->
+    j), up to 200 lanes partnered with themselves (not a pair: nothing
+    written), and a local mask that splits every matched pair between a
+    local and a ghost lane, half of them each way (only the local lane
+    applied)."""
+    matched = k10_matched(state, meas, partner, r)
+    lone = torch.nonzero(partner < 0).flatten()
+    ends = torch.nonzero(matched).flatten()
+    pairs_lo = torch.unique(torch.minimum(ends, partner[ends].long()))
+    m = pairs_lo.numel()
+    k = min(200, lone.numel() // 2, ends.numel())
+    require(k >= 2 and m >= 2,
+            "K10: too few lone lanes or matched pairs for the hard cases")
+    chain = partner.clone()
+    chain[lone[:k]] = ends[:k].int()
+    selfish = partner.clone()
+    selfish[lone[k:2 * k]] = lone[k:2 * k].int()
+    local = torch.ones_like(state.has_collided)
+    local[partner[pairs_lo[: m // 2]].long()] = False  # the higher a ghost
+    local[pairs_lo[m // 2:]] = False                   # the lower a ghost
+    for label, p, loc in (
+            (f"a chain k -> i <-> j, {k} lanes", chain, None),
+            (f"{k} self-partners", selfish, None),
+            (f"{m} pairs split local / ghost, {m // 2} and {m - m // 2} "
+             f"each way", partner, local)):
+        _, _, count, ulps, _, _ = check_k10_case(label, state, meas, p, r,
+                                                 loc)
+        print(f"K10 resolve_pairs ({label}): count {int(count) - 7}, mask "
+              f"and staging exact, state {ulps} ulp from plain, the lanes "
+              f"not applied to untouched {tag}")
+        if loc is not None:
+            require(int(count) - 7 == m, f"K10 ({label}): {int(count) - 7} "
+                    f"lanes applied, not one a pair")
+
+
+def check_resolve_pairs_graph(state, meas, search, r: float, dt: float, gen,
+                              tag: str) -> None:
+    """K10 recorded in a CUDA graph and replayed three times, the positions
+    moved by 1-3 more drifts, the partners searched again and the paths
+    and staging redrawn before each replay: every replay equals the twin
+    on the same inputs (K10 keeps no scratch and takes nothing from the
+    host that changes from call to call)."""
+    dev = state.pos.device
+    ss, sm = own(state), own(meas)
+    partner = search(state.pos)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        collide.resolve_pairs(own(state), own(meas), partner, r,
+                              count=count.clone())
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["resolve_pairs"]
+    with torch.cuda.graph(graph, stream=side):
+        collide.resolve_pairs(ss, sm, partner, r, count=count)
+    require(kernels.launch_counts["resolve_pairs"] == before + 1,
+            "K10: the capture recorded other than one launch")
+    counts = []
+    for k in range(1, 4):
+        moved = dataclasses.replace(state,
+                                    pos=state.pos + k * dt * state.vel)
+        fresh, fresh_m = k10_inputs(moved, gen, meas.hist.shape[1] - 1)
+        refill(ss, fresh)
+        refill(sm, fresh_m)
+        partner.copy_(search(fresh.pos))
+        count.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        wc = torch.zeros_like(count)
+        ws, wm, _ = collide.resolve_pairs_plain(
+            own(fresh), own(fresh_m), partner, r, count=wc)
+        exact("K10 count (graph replay)", count, wc)
+        for f in ("pending_mask", "pending_vals"):
+            exact(f"K10 {f} (graph replay)", getattr(sm, f), getattr(wm, f))
+        exact("K10 has_collided (graph replay)", ss.has_collided,
+              ws.has_collided)
+        ulps = max(ulp_diff(getattr(ss, f), getattr(ws, f))
+                   for f in ("pos", "vel", "paths"))
+        require(ulps <= 2, f"K10 (graph replay): {ulps} ulp from plain")
+        counts.append(int(wc))
+    print(f"K10 resolve_pairs: one captured launch replayed 3 times on "
+          f"positions moved by 1-3 more drifts, {counts} pairs: exact each "
+          f"time, state within 2 ulp {tag}")
+
+
+def k10_bound_bytes(state, partner, applied, local=None) -> int:
+    """What the in-place K10 needs: the partner array read, each lane with
+    a partner reads its partner's partner, a mutual pair's two rows of pos
+    and vel read, a lane applied to reads its paths and has_collided (17
+    bytes) and writes pos, vel, paths and has_collided (41), and stages 17
+    bytes where its path was already broken; with ``local`` the mask of
+    the applied lanes read and ``ok`` written for every lane."""
+    n = partner.shape[0]
+    has = partner >= 0
+    safe = torch.where(has, partner, 0).long()
+    idx = torch.arange(n, device=partner.device)
+    mutual = has & (partner[safe] == idx) & (safe != idx)
+    emits = applied & state.has_collided
+    io = (4 * n + 4 * int(has.sum()) + 24 * int(mutual.sum())
+          + 58 * int(applied.sum()) + 17 * int(emits.sum()))
+    if local is not None:
+        io += n + int(mutual.sum())
+    return io
+
+
+def time_resolve_pairs(state, meas, partner, r: float, err: float,
+                       reps: int, tag: str, local=None, label="at 1M"):
+    """K10's time in place on a copy of its inputs refilled before each
+    call, net of that copy (median of three), beside the twin's; its bound
+    restated for the in-place form from these inputs, the copying first
+    version's printed beside it."""
+    ts, tm = own(state), own(meas)
+    count = torch.zeros((), dtype=torch.int32, device=partner.device)
+
+    def reset():
+        refill(ts, state)
+        refill(tm, meas)
+
+    ms, reset_ms, nets = net_ms(
+        lambda: collide.resolve_pairs(ts, tm, partner, r, count=count,
+                                      local_mask=local), reset, reps)
+    plain_ms = timed_ms(lambda: collide.resolve_pairs_plain(
+        own(state), own(meas), partner, r, count=count.clone(),
+        local_mask=local), min(reps, 5))
+    matched = (k10_matched(state, meas, partner, r) if local is None
+               else collide.resolve_pairs_plain(
+                   own(state), own(meas), partner, r, local_mask=local)[3])
+    applied = matched if local is None else matched & local
+    io = k10_bound_bytes(state, partner, applied, local)
+    copying = tensor_bytes(state, partner, meas.pending_vals,
+                           meas.pending_mask) * 2 - 4 * partner.shape[0]
+    # ~20 float32 operations a mutual lane's test, ~70 an applied lane.
+    ops = 20 * int(matched.sum()) + 70 * int(applied.sum())
+    r_ = result(err, ms, plain_ms, io, ops)
+    print(f"K10 resolve_pairs {label}: {ms!r} ms a call in place (the "
+          f"median of {nets!r}, each net of the copy that restores the "
+          f"inputs, {reset_ms!r} ms; the copying first version: "
+          f"0.070-0.096 ms), plain {plain_ms!r} ms, bound "
+          f"{r_['bound_ms']!r} ms ({r_['bound_by']}: "
+          f"{int(applied.sum())} lanes applied to; the copying form's "
+          f"{copying / HBM_BYTES_PER_S * 1e3!r} ms) {tag}")
+    return r_
 
 
 def slab_lanes(cfg, host_grid) -> int:
@@ -908,7 +1114,55 @@ def check_emit_pairs(case, tag: str, reps: int):
                       maybe_timed(lambda: pairs_ops.emit_pairs_plain(*args),
                                   min(reps, 5)))
             io = tensor_bytes(args[:7], got)
-    return result(0.0, *timing, io)
+            check_emit_pairs_graph(case, args, tag)
+    r = result(0.0, *timing, io)
+    if reps > 0:
+        print(f"K5 emit_pairs: {r['ms']!r} ms a call (the six-launch first "
+              f"version: 0.071-0.133 ms), bound {r['bound_ms']!r} ms "
+              f"({r['bound_by']}) {tag}")
+    return r
+
+
+def check_emit_pairs_graph(case, args, tag: str) -> None:
+    """K5 recorded in a CUDA graph and replayed three times on candidate
+    rows thinned to 100%, 40% and 5%: each replay's list is shorter than
+    the one the replay before left in the same outputs, so the pad must
+    overwrite that longer tail; every replay equals the twin, and the
+    look-back scratch is zero after each.  One call on the capturing
+    stream first allocates that stream's scratch."""
+    cands, rest = args[0], args[1:]
+    static = cands.clone()
+    side = torch.cuda.Stream(case.dev)
+    side.wait_stream(torch.cuda.current_stream(case.dev))
+    with torch.cuda.stream(side):
+        pairs_ops.emit_pairs(static, *rest)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["emit_pairs"]
+    with torch.cuda.graph(graph, stream=side):
+        out = pairs_ops.emit_pairs(static, *rest)
+    require(kernels.launch_counts["emit_pairs"] == before + 1,
+            "K5: the capture recorded other than one launch")
+    scratch = compact._scratch[(cands.device.index, side.cuda_stream)]
+    u = torch.rand(cands.shape[0], generator=case.gen, device=case.dev)
+    cursors = []
+    for keep in (1.0, 0.4, 0.05):
+        static.copy_(torch.where((u < keep)[:, None], cands, -1))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pairs_ops.emit_pairs_plain(static, *rest)
+        for name, a, b in zip(("a", "b", "cursor", "hot", "pending1",
+                               "overflow", "spill"), out, want):
+            exact(f"K5 {name} (graph replay, {keep:.0%} of the rows)", a, b)
+        require(int(scratch.abs().sum()) == 0,
+                "K5: the look-back scratch is not zero after a call")
+        cursors.append(int(want[2]))
+    require(cursors[0] > cursors[1] > cursors[2],
+            "K5: the replays' lists do not shrink")
+    print(f"K5 emit_pairs: one captured launch replayed 3 times on lists of "
+          f"{cursors} entries, each shorter than the tail the one before "
+          f"left: exact each time (pad included), scratch zero after each "
+          f"{tag}")
 
 
 def own(obj):
@@ -2388,25 +2642,12 @@ def check_slab_kernels(case, tag: str, reps: int) -> None:
         Measurements.zeros(case.sim.cfg.engine.num_bins, torch.float32, n,
                            "cuda"),
         pending_vals=u[:, :4].flip(1) * 1e-6, pending_mask=u[:, 5] < 0.1)
-    gs, gm, gc, gok = collide.resolve_pairs(comb, meas, partner, r,
-                                            local_mask=local)
-    ws, wm, wc, wok = collide.resolve_pairs_plain(comb, meas, partner, r,
-                                                  local_mask=local)
-    exact("K10 count (local_mask)", gc.int(), wc.int())
-    exact("K10 ok (local_mask)", gok, wok)
-    exact("K10 has_collided (local_mask)", gs.has_collided, ws.has_collided)
-    exact("K10 pending_mask (local_mask)", gm.pending_mask, wm.pending_mask)
-    exact("K10 pending_vals (local_mask)", gm.pending_vals, wm.pending_vals)
-    floats = [(gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)]
-    ulps = max(ulp_diff(a, b) for a, b in floats)
-    require(ulps <= 2, f"K10 (local_mask): {ulps} ulp from plain")
-    for name, a, b in (("pos", gs.pos, pos), ("vel", gs.vel, case.vel),
-                       ("paths", gs.paths, paths)):
-        exact(f"K10 ghost lanes' {name} untouched", a[ghost], b[ghost])
+    _, _, gc, ulps, k10_err, gok = check_k10_case(
+        "local_mask", comb, meas, partner, r, local)
     print(f"K10 resolve_pairs local_mask=: {int(gok.sum())} lanes matched, "
-          f"{int(gc)} applied (local); count, ok mask and staging exact, "
-          f"state {ulps} ulp from plain (bound 2), ghost lanes untouched "
-          f"{tag}")
+          f"{int(gc) - 7} applied (local); count, ok mask and staging exact, "
+          f"state {ulps} ulp from plain (bound 2), in place, ghost lanes "
+          f"and every lane not applied to untouched {tag}")
 
     # Arguments that change nothing, on the valid lanes alone.
     live = pos[lanes].contiguous()
@@ -2430,9 +2671,12 @@ def check_slab_kernels(case, tag: str, reps: int) -> None:
     smeas = dataclasses.replace(
         meas, pending_vals=meas.pending_vals[lanes].contiguous(),
         pending_mask=meas.pending_mask[lanes].contiguous())
-    a_s, a_m, a_c = collide.resolve_pairs(small, smeas, plain_k9, r)
-    b_s, b_m, b_c, b_ok = collide.resolve_pairs(small, smeas, plain_k9, r,
-                                                local_mask=everyone)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    a_s, a_m, a_c = collide.resolve_pairs(own(small), own(smeas), plain_k9,
+                                          r, count=zero.clone())
+    b_s, b_m, b_c, b_ok = collide.resolve_pairs(
+        own(small), own(smeas), plain_k9, r, count=zero.clone(),
+        local_mask=everyone)
     for f in ("pos", "vel", "paths", "has_collided"):
         exact(f"K10 {f} (every lane local) against no argument",
               getattr(b_s, f), getattr(a_s, f))
@@ -2451,16 +2695,14 @@ def check_slab_kernels(case, tag: str, reps: int) -> None:
                  lambda: collide.partner_sweep(pos, table, pslot, grid, r,
                                                **kw),
                  lambda: collide.partner_sweep_plain(pos, table, pslot, grid,
-                                                     r, **kw)),
-                ("resolve_pairs",
-                 lambda: collide.resolve_pairs(comb, meas, partner, r,
-                                               local_mask=local),
-                 lambda: collide.resolve_pairs_plain(comb, meas, partner, r,
-                                                     local_mask=local))):
+                                                     r, **kw))):
             print(f"time {name} with its z-slab arguments: kernel "
                   f"{timed_ms(fn, reps)!r} ms, plain "
                   f"{timed_ms(plain, min(reps, 3))!r} ms on {n} lanes of one "
                   f"of {SLABS} slabs {tag}")
+        time_resolve_pairs(comb, meas, partner, r, k10_err, reps, tag,
+                           local=local, label=f"with its z-slab arguments on "
+                           f"{n} lanes of one of {SLABS} slabs")
 
 
 def check_slab(tag: str, particles: int = PARTICLES, reps: int = 20) -> dict:
@@ -2927,11 +3169,82 @@ def time_k7_k11(tag: str) -> None:
           f"in {launches!r} launches at N={pos.shape[0]} {tag}")
 
 
+def time_k10_k5(tag: str) -> None:
+    """K10 and K5 alone, device time and launches a call: K10 at 1M
+    particles one drift after init with its partners from K9 (each call
+    on a copy of the same inputs, refilled before it and then a read of
+    64 MB, so that the refill's dirty lines leave the 50 MB L2 before the
+    call, as they are gone in a step; neither is counted), K5 on the main
+    path's rebuild candidates at 1M; so that two checkouts read in one
+    call compare on them.  K10 is the in-place form where the checkout
+    has it (a ``count`` argument), else the copying one."""
+    dev = torch.device("cuda")
+    cfg = config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = init_ops.init_pore(cfg, gen, dev)
+    state = dataclasses.replace(state, pos=state.pos + cfg.dt * state.vel)
+    _, grid = build_grids(amt.make_workload(cfg), dev)
+    r = cfg.physics.collision_range
+    _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
+    partner = collide.partner_sweep(state.pos, table, pslot, grid, r)
+    u = torch.rand((state.num_particles, 6), generator=gen, device=dev)
+    state = dataclasses.replace(state, paths=u[:, :4] * 2e-7,
+                                has_collided=u[:, 4] < 0.6)
+    meas = Measurements.zeros(cfg.engine.num_bins, torch.float32,
+                              state.num_particles, dev)
+    meas = dataclasses.replace(meas, pending_vals=u[:, :4].flip(1) * 1e-6,
+                               pending_mask=u[:, 5] < 0.1)
+    ts, tm = own(state), own(meas)
+    if "count" in inspect.signature(collide.resolve_pairs).parameters:
+        form = "in place"
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def k10():
+            collide.resolve_pairs(ts, tm, partner, r, count=count)
+    else:
+        form = "copying"
+
+        def k10():
+            collide.resolve_pairs(ts, tm, partner, r)
+
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+
+    def reset():
+        refill(ts, state)
+        refill(tm, meas)
+        flush.sum()
+
+    us, launches = device_per_call(k10, reset)
+    print(f"breakdown K10: resolve_pairs ({form}) {us!r} us of device time "
+          f"a call in {launches!r} launches of the port's kernels at "
+          f"N={state.num_particles} {tag}")
+    case = pairs_case()
+    pcfg, grid = case.pcfg, case.grid
+    reach, clipped = pairs_ops.reach_radii(
+        case.state.vel, case.cr, case.dt, pcfg.rebuild_interval,
+        0.5 * grid.cell_size)
+    _, table, pslot, overflow = collide.bin_and_table(case.state.pos, grid)
+    cands, unswept, _, _ = collide.rebuild_sweep(case.state.pos, reach,
+                                                 table, pslot, grid,
+                                                 pcfg.top_k)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    args = (cands, pslot, clipped, unswept, overflow, zero, zero,
+            grid.num_cells * grid.capacity, pcfg.pair_capacity)
+    us, launches = device_per_call(lambda: pairs_ops.emit_pairs(*args),
+                                   lambda: None)
+    print(f"breakdown K5: emit_pairs {us!r} us of device time a call in "
+          f"{launches!r} launches of the port's kernels at N={case.n}, "
+          f"{int((cands >= 0).sum())} entries, pair_capacity "
+          f"{pcfg.pair_capacity} {tag}")
+
+
 def breakdowns(tag: str) -> None:
     """Phase 9 for every slice this checkout has."""
     time_compact(tag)
     time_k2_k12(tag)
     time_k7_k11(tag)
+    time_k10_k5(tag)
     breakdown(tag, "sweep", config())
     breakdown(tag, "pairs", config(**PAIRS))
     if hasattr(amt, "CubeConfig"):

@@ -169,9 +169,11 @@ def test_resolve_pairs_plain_matches_reference(dtype):
     tmeas = dataclasses.replace(
         tmeas, pending_vals=torch.from_numpy(pending_vals),
         pending_mask=torch.from_numpy(pending_mask))
+    count = torch.zeros((), dtype=torch.int32)
     tstate, tmeas, ncol_t = tcollide.resolve_pairs_plain(
-        tstate, tmeas, torch.from_numpy(np.array(partner)), cr)
+        tstate, tmeas, torch.from_numpy(np.array(partner)), cr, count=count)
 
+    assert ncol_t is count
     assert int(ncol_t) == int(ncol_j) > 200
     for f in ("pos", "vel", "paths"):
         assert_floats(getattr(tstate, f).numpy(), getattr(jstate, f),
@@ -326,6 +328,7 @@ def test_resolve_pairs_local_mask_matches_reference(dtype):
     before = tmeas.collision_count.clone()
     tstate, tmeas, count_t, ok_t = tcollide.resolve_pairs_plain(
         tstate, tmeas, torch.from_numpy(np.array(partner)), cr,
+        count=torch.zeros((), dtype=torch.int32),
         local_mask=torch.from_numpy(local))
 
     ok = ok_t.numpy()
@@ -343,6 +346,130 @@ def test_resolve_pairs_local_mask_matches_reference(dtype):
     np.testing.assert_array_equal(tmeas.pending_mask.numpy(),
                                   np.asarray(jmeas.pending_mask))
     assert_floats(tmeas.pending_vals.numpy(), jmeas.pending_vals, np_dtype)
+
+
+def hard_partners(partner, ok, rng, local=None):
+    """The partner array with the cases an in-place K10 must get right: a
+    chain k -> i while i <-> j (k a lane without a partner pointed at a
+    lane of a matched pair), self-partners (not a pair), and, with
+    ``local``, matched pairs split between a local and a ghost lane each
+    way.  Returns (partner, local, the lanes of each case)."""
+    partner = partner.copy()
+    lone = rng.permutation(np.flatnonzero(partner < 0))
+    ends = np.flatnonzero(ok)
+    chain, selfish = lone[:40], lone[40:80]
+    partner[chain] = rng.choice(ends, 40, replace=False)
+    partner[selfish] = selfish
+    split = None
+    if local is not None:
+        local = local.copy()
+        lo = np.unique(np.minimum(ends, partner[ends]))
+        lo = lo[local[lo] & local[partner[lo]]]
+        local[partner[lo[:30]]] = False   # the higher lane a ghost
+        local[lo[30:60]] = False          # the lower lane a ghost
+        split = np.concatenate([lo[:60], partner[lo[:60]]])
+    return partner, local, dict(chain=chain, selfish=selfish, split=split)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("slab", [False, True], ids=["plain", "slab"])
+def test_resolve_pairs_plain_in_place_matches_reference(dtype, slab):
+    """The in-place twin on clones of its inputs against the JAX
+    resolve_collisions, with a chain k -> i <-> j, self-partners and (on a
+    slab) pairs split across a local and a ghost lane: the tensors given
+    are the tensors returned, the lanes not applied to keep their rows,
+    and the count grows from what it held."""
+    np_dtype, t_dtype = DTYPES[dtype]
+    cfg, host_grid = pore_setup()
+    jgrid, _ = grids(host_grid, np_dtype, t_dtype)
+    rng = np.random.default_rng(11)
+    if slab:
+        pos, ids, valid = slab_lanes(cfg, rng, np_dtype)
+        kw = dict(ids=jnp.asarray(ids), valid=jnp.asarray(valid))
+        local = valid & (rng.uniform(size=pos.shape[0]) < 0.8)
+    else:
+        pos = clustered_positions(cfg, rng).astype(np_dtype)
+        kw, local = {}, None
+    n = pos.shape[0]
+    arrays = {
+        "pos": pos,
+        "vel": (rng.normal(size=(n, 3)) * 300.0).astype(np_dtype),
+        "paths": rng.uniform(0, 2e-7, (n, 4)).astype(np_dtype),
+        "has_collided": rng.uniform(size=n) < 0.7,
+    }
+    pending_vals = rng.uniform(0, 1e-6, (n, 4)).astype(np_dtype)
+    pending_mask = rng.uniform(size=n) < 0.1
+    cr = cfg.physics.collision_range
+    partner, _ = jcollide.cell_partner_search(jnp.asarray(pos), jgrid, cr,
+                                              **kw)
+
+    def reference(partner, local):
+        jstate = JState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+        jmeas = JMeasurements.zeros(200, np_dtype, num_particles=n)
+        jmeas.pending_vals = jnp.asarray(pending_vals)
+        jmeas.pending_mask = jnp.asarray(pending_mask)
+        return jcollide.resolve_collisions(
+            jstate, jmeas, jnp.asarray(partner), cr, cfg.physics.mass, 200,
+            1e-6, local_mask=None if local is None else jnp.asarray(local))
+
+    ok0 = np.asarray(reference(np.asarray(partner), local)[3])
+    partner, local, lanes = hard_partners(np.asarray(partner), ok0, rng,
+                                          local)
+    jstate, jmeas, count_j, ok_j = reference(partner, local)
+
+    given_state, _ = convert.state_from_numpy(arrays, "cpu", t_dtype)
+    given_state = dataclasses.replace(given_state, **{
+        f.name: getattr(given_state, f.name).clone()
+        for f in dataclasses.fields(given_state)})
+    given_meas = dataclasses.replace(
+        amt.state.Measurements.zeros(200, t_dtype, num_particles=n),
+        pending_vals=torch.from_numpy(pending_vals).clone(),
+        pending_mask=torch.from_numpy(pending_mask).clone())
+    tstate = dataclasses.replace(given_state, **{
+        f.name: getattr(given_state, f.name).clone()
+        for f in dataclasses.fields(given_state)})
+    tmeas = dataclasses.replace(
+        given_meas, pending_vals=given_meas.pending_vals.clone(),
+        pending_mask=given_meas.pending_mask.clone())
+    ptrs = [t.data_ptr() for t in (tstate.pos, tstate.vel, tstate.paths,
+                                   tstate.has_collided, tmeas.pending_vals,
+                                   tmeas.pending_mask)]
+    count = torch.full((), 5, dtype=torch.int32)
+    out = tcollide.resolve_pairs_plain(
+        tstate, tmeas, torch.from_numpy(partner), cr, count=count,
+        local_mask=None if local is None else torch.from_numpy(local))
+
+    assert out[0] is tstate and out[1] is tmeas and out[2] is count
+    assert ptrs == [t.data_ptr() for t in (
+        tstate.pos, tstate.vel, tstate.paths, tstate.has_collided,
+        tmeas.pending_vals, tmeas.pending_mask)]
+    ok = np.asarray(ok_j)
+    applied = ok if local is None else ok & local
+    assert int(count) == 5 + int(count_j) > 5 + 20
+    if local is not None:
+        np.testing.assert_array_equal(out[3].numpy(), ok)
+        split = lanes["split"]
+        assert ok[split].all() and (applied[split] == local[split]).all()
+        assert (~local[split]).sum() == 60
+    for case in ("chain", "selfish"):
+        assert not ok[lanes[case]].any(), case
+    assert ok[partner[lanes["chain"]]].all()
+    for f in ("pos", "vel", "paths"):
+        assert_floats(getattr(tstate, f).numpy(), getattr(jstate, f),
+                      np_dtype)
+        np.testing.assert_array_equal(
+            getattr(tstate, f).numpy()[~applied],
+            getattr(given_state, f).numpy()[~applied])
+    np.testing.assert_array_equal(tstate.has_collided.numpy(),
+                                  np.asarray(jstate.has_collided))
+    np.testing.assert_array_equal(tmeas.pending_mask.numpy(),
+                                  np.asarray(jmeas.pending_mask))
+    assert_floats(tmeas.pending_vals.numpy(), jmeas.pending_vals, np_dtype)
+    for got, was in ((tstate.has_collided, given_state.has_collided),
+                     (tmeas.pending_vals, given_meas.pending_vals),
+                     (tmeas.pending_mask, given_meas.pending_mask)):
+        np.testing.assert_array_equal(got.numpy()[~applied],
+                                      was.numpy()[~applied])
 
 
 @pytest.mark.parametrize("slab", [False, True], ids=["plain", "slab"])
@@ -376,17 +503,20 @@ def test_sweep_wrappers_pass_declared_arguments(monkeypatch, slab):
     monkeypatch.setattr(amt.kernels, "use_plain", lambda t: False)
     monkeypatch.setattr(amt.kernels, "launch", fake_launch)
     cr = cfg.physics.collision_range
+    count = torch.zeros((), dtype=torch.int32)
     if slab:
         tcollide.bin_and_table(pos_t, tgrid, valid=valid_t)
         tcollide.partner_sweep(pos_t, table, pslot, tgrid, cr, ids=ids_t,
                                valid=valid_t, cell_window=(100, 50))
         out = tcollide.resolve_pairs(state, meas, pslot, cr,
                                      local_mask=valid_t)
-        assert len(out) == 4 and out[3].shape == (n,)
+        assert len(out) == 4 and out[3].shape == (n,) and out[2] is None
     else:
         tcollide.bin_and_table(pos_t, tgrid)
         tcollide.partner_sweep(pos_t, table, pslot, tgrid, cr)
-        assert len(tcollide.resolve_pairs(state, meas, pslot, cr)) == 3
+        out = tcollide.resolve_pairs(state, meas, pslot, cr, count=count)
+        assert len(out) == 3 and out[2] is count
+        assert out[0] is state and out[1] is meas
     given = (lambda a: a.value is not None) if slab else (
         lambda a: a.value is None)
     assert given(calls["bin_and_table"][1])
@@ -395,8 +525,15 @@ def test_sweep_wrappers_pass_declared_arguments(monkeypatch, slab):
         (100, 50) if slab else (0, tgrid.num_cells))
     assert calls["partner_sweep"][9:11] == (
         tgrid.run_start.shape[0] - 1, tcollide.RUN_CELLS)
+    # The state and staging are passed as they are (in place), the local
+    # mask and ok with the slab's arguments, the count without them.
+    assert [a.value for a in calls["resolve_pairs"][:7]] == [
+        t.data_ptr() for t in (state.pos, state.vel, state.paths,
+                               state.has_collided, pslot, meas.pending_vals,
+                               meas.pending_mask)]
     assert given(calls["resolve_pairs"][7])
     assert given(calls["resolve_pairs"][-2])
+    assert (calls["resolve_pairs"][-1].value is not None) != slab
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,8 @@ nothing passed that changes from call to call).
 Tolerance: exact (integers).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,16 +118,22 @@ def test_compact_tile_matches_the_kernel_source():
     ("lookback.cuh", ("constexpr int kCountItems = 4;",
                       "constexpr int kCountTile = kThreads * kCountItems;"),
      "COUNT_SCAN_TILE"),
+    ("compact.cu", ("constexpr int kEmitItems = 4;",
+                    "constexpr int kEmitGroups = 4;",
+                    "constexpr int kEmitStride = amc::kThreads * kEmitItems;",
+                    "constexpr int kEmitTile = kEmitStride * kEmitGroups;"),
+     "EMIT_TILE"),
 ])
 def test_kept_scratch_is_sized_by_the_kernels_tiles(source, lines, constant):
-    """K3, K7's compacted entry and the scan of counts of K2 and K11 keep
-    per-tile scratch (look-back words, block sums) sized by their wrappers
+    """K3, K7's compacted entry, the scan of counts of K2 and K11, and K5
+    keep per-tile scratch (look-back words, block sums) sized by their wrappers
     from the kernels' tiles."""
     src = (tcompact.kernels.CSRC / source).read_text()
     for line in lines:
         assert line in src
-    per_thread = int(lines[0].split("= ")[1].rstrip(";"))
+    values = [line.split("= ")[1].rstrip(";") for line in lines]
+    per_thread = math.prod(int(v) for v in values if v.isdigit())
     module = {"K3_TILE": tpairs, "FLUSH_TILE": tmeasure,
-              "COUNT_SCAN_TILE": tcollide}[constant]
+              "COUNT_SCAN_TILE": tcollide, "EMIT_TILE": tpairs}[constant]
     value = getattr(module, constant)
     assert value == 256 * per_thread

@@ -1,8 +1,8 @@
 """The steps update their own tensors in place: the pairs step through K3,
 K4 and K7's compacted entry, the sweep, the cube and the z-slab engine
-through K7's dense entry.  What that leans on and what it must not touch,
-on the CPU with the plain twins, in both pores' pairs mode and in the
-temperature pore's sweep, the cube and a 2-slab sharded sweep:
+through K10 and K7's dense entry.  What that leans on and what it must
+not touch, on the CPU with the plain twins, in both pores' pairs mode and
+in the temperature pore's sweep, the cube and a 2-slab sharded sweep:
 
 - ``Simulation.run`` and ``ShardedSimulation.run`` copy what their caller
   hands them, so the caller's state and measurements stay bitwise as they
@@ -10,7 +10,9 @@ temperature pore's sweep, the cube and a 2-slab sharded sweep:
 - the staging keeps a row whose mask is clear at zero whenever a step
   flushes it, so either flush may clear only the staged rows, and the
   staging is empty after each flush; the events the compacted flush is
-  given ascend.
+  given ascend;
+- K10 writes the tensors it is given, in every caller, and on a slab no
+  ghost lane.
 """
 
 import dataclasses
@@ -213,3 +215,52 @@ def test_unstaged_rows_are_zero_at_every_dense_flush(kind, monkeypatch):
     assert len(seen) == 6 * slabs
     totals = meas if isinstance(meas, list) else [meas]
     assert sum(seen) == sum(int(m.path_count) for m in totals) > 0
+
+
+def k10_sim(kind):
+    """K10's callers at a density where pairs collide every few steps: the
+    temperature pore scaled to TARGET particles (the sweep, and cut in two
+    z-slabs), and the cube."""
+    if kind == "cube":
+        return dense_sim(kind)
+    cfg = amt.temperature_pore_config(
+        engine=amt.EngineConfig(steps_per_epoch=3)).scaled_to(TARGET)
+    if kind == "sweep":
+        return amt.Simulation(amt.make_workload(cfg), device="cpu")
+    return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
+                                 devices=["cpu"])
+
+
+@pytest.mark.parametrize("kind", DENSE)
+def test_resolve_pairs_writes_the_steps_own_tensors(kind, monkeypatch):
+    """K10 in every caller (the sweep, the cube, each slab's combined
+    lanes) updates the tensors it is given and returns them, writes no
+    ghost lane of a slab and none of the caller's tensors, and resolves
+    pairs; the sweep and the cube hand it a count, a slab none."""
+    from argon_monte_carlo_tpu_torch.ops import collide as tcollide
+    resolve = tcollide.resolve_pairs
+    applied = []
+
+    def spy(state, measure, partner, cr, count=None, local_mask=None):
+        before = snapshot(state)
+        out = resolve(state, measure, partner, cr, count=count,
+                      local_mask=local_mask)
+        assert out[0] is state and out[1] is measure
+        changed = (state.pos != before["pos"]).any(1)
+        if local_mask is None:
+            assert count is not None and out[2] is count
+        else:
+            assert count is None and out[2] is None
+            assert not changed[~local_mask].any()
+        applied.append(int(changed.sum()))
+        return out
+
+    monkeypatch.setattr(tcollide, "resolve_pairs", spy)
+    sim = k10_sim(kind)
+    state, meas, gens = dense_start(sim)
+    given = snapshot_all(state, meas)
+    steps = 6
+    sim.run(num_steps=steps, state=state, measure=meas, **gens)
+    assert_all_as_snapshot(state, meas, given)
+    slabs = 2 if kind == "sharded" else 1
+    assert len(applied) == steps * slabs and sum(applied) > 0

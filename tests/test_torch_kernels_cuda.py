@@ -7,7 +7,10 @@ JAX; there, the JAX-importing conftest is skipped:
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: integer outputs and staging exact; K10's and K3's state within
-2 ulp (both sides round every operation once, IEEE; measured 0); K7's
+2 ulp (both sides round every operation once, IEEE; measured 0), both in
+place, K10 also with a chain, self-partners and pairs split across a local
+and a ghost lane, and replayed in a CUDA graph; K5 one launch, also
+replayed in a CUDA graph over a longer old tail; K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
 why); K11 exact, also with every particle in one z-slab, at the window's
@@ -100,26 +103,45 @@ def test_partner_sweep_kernel(device, capacity):
         assert (got[pslot >= grid.num_cells * grid.capacity] == -1).all()
 
 
-def test_resolve_pairs_kernel(device):
+def k10_case(device):
     cfg, gen, state, grid = setup(device)
     r = cfg.physics.collision_range
-    n = state.num_particles
     _, table, pslot, _ = collide.bin_and_table(state.pos, grid)
     partner = collide.partner_sweep(state.pos, table, pslot, grid, r)
-    u = torch.rand((n, 6), generator=gen, device=device)
-    state = dataclasses.replace(state, paths=u[:, :4] * 2e-7,
-                                has_collided=u[:, 4] < 0.6)
-    meas = Measurements.zeros(200, torch.float32, n, device)
-    meas = dataclasses.replace(meas, pending_vals=u[:, :4] * 1e-6,
-                               pending_mask=u[:, 5] < 0.1)
-    gs, gm, gc = collide.resolve_pairs(state, meas, partner, r)
-    ws, wm, wc = collide.resolve_pairs_plain(state, meas, partner, r)
-    assert int(gc) == int(wc) > 0
-    assert torch.equal(gs.has_collided, ws.has_collided)
-    assert torch.equal(gm.pending_mask, wm.pending_mask)
-    assert torch.equal(gm.pending_vals, wm.pending_vals)
-    for a, b in ((gs.pos, ws.pos), (gs.vel, ws.vel), (gs.paths, ws.paths)):
-        assert ulps(a, b) <= 2
+    state, meas = chip_smoke.k10_inputs(state, gen, 200)
+    return cfg, gen, grid, state, meas, partner, r
+
+
+def test_resolve_pairs_kernel(device):
+    """K10 in place against its in-place twin, each on its own copy: the
+    count, ok and staging exact, the state within 2 ulp, the lanes of no
+    matched pair untouched, one launch."""
+    _, _, _, state, meas, partner, r = k10_case(device)
+    before = kernels.launch_counts["resolve_pairs"]
+    _, _, count, _, _, _ = chip_smoke.check_k10_case("", state, meas,
+                                                      partner, r)
+    assert kernels.launch_counts["resolve_pairs"] == before + 1
+    assert int(count) > 7
+
+
+def test_resolve_pairs_kernel_hard_cases(device):
+    """K10 with a chain k -> i <-> j, with self-partners and with matched
+    pairs split between a local and a ghost lane each way."""
+    _, _, _, state, meas, partner, r = k10_case(device)
+    chip_smoke.check_k10_hard_cases(state, meas, partner, r, "")
+
+
+def test_resolve_pairs_kernel_replays_in_a_cuda_graph(device):
+    """One captured K10 launch replayed three times on moved positions,
+    searched partners and redrawn staging."""
+    cfg, gen, grid, state, meas, _, r = k10_case(device)
+
+    def search(pos):
+        _, table, pslot, _ = collide.bin_and_table(pos, grid)
+        return collide.partner_sweep(pos, table, pslot, grid, r)
+
+    chip_smoke.check_resolve_pairs_graph(state, meas, search, r, cfg.dt, gen,
+                                         "")
 
 
 @pytest.mark.parametrize("capacity", [measure_ops.FLUSH_CAPACITY, 1024,
@@ -235,7 +257,37 @@ def test_rebuild_sweep_kernel(pairs_case):
 
 
 def test_emit_pairs_kernel(pairs_case):
+    """K5 at the configured pair capacity and at half the entries, and one
+    captured launch replayed three times on shrinking lists (the pad
+    overwrites the longer tail the replay before left)."""
+    before = kernels.launch_counts["emit_pairs"]
     chip_smoke.check_emit_pairs(pairs_case, "", 0)
+    # Two calls and the warm-up and capture of the graph: a launch each.
+    assert kernels.launch_counts["emit_pairs"] == before + 4
+
+
+def test_emit_pairs_kernel_is_one_launch_leaving_its_scratch_zero(
+        pairs_case):
+    """K5 at N not a multiple of its tile and at capacities 0 and 1: one
+    launch a call, exact, the look-back scratch zero after each."""
+    c = pairs_case
+    n = c.n - 123
+    gen = torch.Generator(device=c.dev).manual_seed(5)
+    cands = torch.randint(-3, n, (n, c.pcfg.top_k), generator=gen,
+                          device=c.dev, dtype=torch.int32).clamp(min=-1)
+    flags = torch.rand((2, n), generator=gen, device=c.dev) < 0.01
+    zero = torch.zeros((), dtype=torch.int32, device=c.dev)
+    pslot = torch.randint(0, 2 * n, (n,), generator=gen, device=c.dev,
+                          dtype=torch.int32)
+    for m_cap in (0, 1, 1000, n * c.pcfg.top_k):
+        args = (cands, pslot, flags[0], flags[1], zero, zero, zero, n, m_cap)
+        before = kernels.launch_counts["emit_pairs"]
+        got = pairs_ops.emit_pairs(*args)
+        assert kernels.launch_counts["emit_pairs"] == before + 1
+        for a, b in zip(got, pairs_ops.emit_pairs_plain(*args)):
+            assert torch.equal(a, b)
+        key = (c.dev.index or 0, torch.cuda.current_stream().cuda_stream)
+        assert int(compact._scratch[key].abs().sum()) == 0
 
 
 def test_test_and_resolve_kernel(pairs_case, plist):

@@ -250,6 +250,67 @@ def test_rebuild_matches_reference(capacity, pair_capacity):
         assert int(got.overflow) > 0
 
 
+def emit_case(n, top_k, density, rng):
+    """Candidate rows as K1 leaves them -- the lowest indices ascending,
+    then -1 -- with a few rows holding gaps, and the rebuild's other
+    inputs, from ``rng``."""
+    cands = np.sort(rng.integers(0, n, (n, top_k)), axis=1).astype(np.int32)
+    keep = rng.uniform(size=(n, 1)) < density
+    width = rng.integers(1, top_k + 1, (n, 1))
+    cands = np.where(keep & (np.arange(top_k) < width), cands, -1)
+    gaps = rng.uniform(size=(n, top_k)) < 0.02
+    cands = np.where(gaps, -1, cands).astype(np.int32)
+    dummy = 5 * n
+    pslot0 = rng.integers(0, dummy + 2, n).astype(np.int32)
+    clipped = rng.uniform(size=n) < 0.01
+    unswept = rng.uniform(size=n) < 0.02
+    return cands, pslot0, clipped, unswept, dummy
+
+
+@pytest.mark.parametrize("m_cap", ["above", "equal", "below", "none"])
+def test_emit_pairs_plain_matches_reference(m_cap):
+    """K5's twin against the JAX ``rebuild_finish`` at a pair capacity
+    above, equal to and below the entry count, and with no candidate at
+    all, at N = 5125 (not a multiple of the kernel's 4,096-particle tile):
+    the list, its padding with n, the cursor, hot, pending1 and both
+    counters exact."""
+    rng = np.random.default_rng(21)
+    n, top_k = 5125, 4
+    cands, pslot0, clipped, unswept, dummy = emit_case(
+        n, top_k, 0.0 if m_cap == "none" else 0.4, rng)
+    entries = int((cands >= 0).sum())
+    cap = {"above": entries + 321, "equal": entries, "below": entries // 3,
+           "none": 64}[m_cap]
+    assert n % tpairs.EMIT_TILE != 0 and (entries > 0) == (m_cap != "none")
+    cell_overflow, old_overflow, old_spill = 3, 11, 7
+
+    grid = dataclasses.make_dataclass("G", ["num_cells", "capacity"])(
+        dummy // 5, 5)
+    pcfg = dataclasses.make_dataclass("P", ["pair_capacity", "top_k"])(
+        cap, top_k)
+    old = dataclasses.make_dataclass("O", ["overflow", "spill"])(
+        jnp.int32(old_overflow), jnp.int32(old_spill))
+    want = jpairs.rebuild_finish(
+        jnp.asarray(cands), jnp.int32(cell_overflow), jnp.asarray(pslot0),
+        None, jnp.asarray(unswept), jnp.asarray(clipped), old, grid, pcfg, n)
+
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    got = tpairs.emit_pairs_plain(
+        torch.from_numpy(cands), torch.from_numpy(pslot0),
+        torch.from_numpy(clipped), torch.from_numpy(unswept),
+        i32(cell_overflow), i32(old_overflow), i32(old_spill), dummy, cap)
+    for name, g in zip(("a", "b", "cursor", "hot", "pending1", "overflow",
+                        "spill"), got):
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    a, b, cursor = got[0].numpy(), got[1].numpy(), int(got[2])
+    assert cursor == min(entries, cap)
+    assert (a[cursor:] == n).all() and (b[cursor:] == n).all()
+    assert (int(got[5]) > old_overflow) == (m_cap == "below")
+    assert got[4].any() == (m_cap != "none") and got[3].any()
+
+
 def k3_case(event_capacity, repeated=False):
     """K3's inputs on a rebuilt list with 300 reversed duplicates appended
     (and, with ``repeated``, 300 repeated ones after them), run through the
@@ -511,10 +572,11 @@ def test_kernel_signatures_match_sources():
 def test_wrappers_pass_declared_arguments(monkeypatch):
     """Each new wrapper, forced down its kernel side with the launch
     intercepted, passes exactly the declared argument kinds."""
-    calls = []
+    calls, given = [], {}
 
     def fake_launch(name, device, *args):
         calls.append(name)
+        given[name] = args
         sig = kernels._SIGNATURES[name][:-1]  # the stream is launch's
         assert len(args) == len(sig), name
         for arg, kind in zip(args, sig):
@@ -553,3 +615,8 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
     assert calls == ["compact", "rebuild_sweep", "emit_pairs",
                      "test_and_resolve", "research_dirty",
                      "flush_hist_compacted"]
+    # K5: the look-back words of its tiles and the unswept count's word,
+    # whose length it is told; a and b one allocation, a row each.
+    emit = given["emit_pairs"]
+    assert emit[-1] >= -(-n // tpairs.EMIT_TILE) + 2
+    assert emit[12].value - emit[11].value == 4 * pcfg.pair_capacity
