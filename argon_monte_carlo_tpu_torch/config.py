@@ -3,8 +3,7 @@
 Mirrors ``argon_monte_carlo_tpu.config`` for the cube and the temperature
 pore.  ``EngineConfig`` keeps only the knobs that change physics or shapes;
 the reference's compile-wall and TPU lane-geometry knobs have no
-counterpart here.  Options the port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+counterpart here.
 """
 
 from __future__ import annotations
@@ -56,7 +55,9 @@ class EngineConfig:
     skin: float = 0.0
     # Count non-finite state elements per step.
     check_finite: bool = False
-    # The reference's missed-case audit; not ported yet.
+    # The reference's missed-case audit: re-evaluate every wall-case
+    # predicate after the wall pass and report the residual counts per
+    # step (StepMetrics.missed_cases; Open_Air_Pore_MC.py:488-511).
     debug_audits: bool = False
 
     def __post_init__(self):
@@ -68,11 +69,6 @@ class EngineConfig:
             raise ValueError(f"unknown broadphase {self.broadphase!r}")
         if self.narrowphase == "pairs" and self.broadphase != "cells":
             raise ValueError("narrowphase='pairs' requires broadphase='cells'")
-        if self.debug_audits:
-            raise NotImplementedError(
-                "debug_audits is not ported yet (ROADMAP queue 1, slice 7: "
-                "audits)"
-            )
         if self.rebuild_interval < 1:
             raise ValueError("rebuild_interval must be >= 1")
         if self.narrowphase == "sweep" and self.rebuild_interval != 1:
@@ -103,14 +99,6 @@ class CubeConfig:
     # distribution).
     stratified_init: bool = False
     init_cells_per_axis: int = 15  # Open_Air_Cube_MC.py:30
-
-    def __post_init__(self):
-        if self.engine.broadphase == "cells":
-            raise NotImplementedError(
-                "the cube on the cell grid is not ported yet: it needs a "
-                "grid centred on the box (DeviceGrid.center_x/y) in K2 and "
-                "K9 (ROADMAP queue 1, slice 7); use broadphase='allpairs'"
-            )
 
     @property
     def num_molecules(self) -> int:

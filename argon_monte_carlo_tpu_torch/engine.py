@@ -67,6 +67,10 @@ class Workload:
     advance_plain: the same, composed from the plain wall pass and
         recapture by ``advance_plain``
     post_pairs(state) -> (state, recaptured_count)
+    audit_fn(state, prior) -> (10,) int32: the missed-case audit of the
+        post-wall state against the pre-drift positions, or None where the
+        workload has none (the cube); both ``advance`` functions take
+        ``missed=``, a (10,) int32 tensor the audit's counts are added to
     """
 
     cfg: object
@@ -76,17 +80,19 @@ class Workload:
     advance_plain: Callable
     post_pairs: Callable
     fluid_volume: float
+    audit_fn: Optional[Callable] = None
 
 
-def advance_plain(wall_pass: Callable, post_wall: Callable,
-                  dt: float) -> Callable:
+def advance_plain(wall_pass: Callable, post_wall: Callable, dt: float,
+                  audit_fn: Optional[Callable] = None) -> Callable:
     """The per-particle stage of a step as plain PyTorch, in the
     reference's order: the speed before the drift (the pairs engine's
     bump mask reads it), drift and path accrual (Open_Air_Cube_MC.py:
-    179-187), the wall pass, the post-wall recapture and which particles
+    179-187), the wall pass, the missed-case audit where ``missed`` is
+    given (engine.py:162-165), the post-wall recapture and which particles
     it moved.  ``cases``, if a dict, receives each wall case's mask."""
 
-    def advance(state, measure, uniforms, cases=None):
+    def advance(state, measure, uniforms, cases=None, missed=None):
         speed_pre = measure_ops.speed(state.vel)
         prior = state.pos
         state = dataclasses.replace(
@@ -96,6 +102,8 @@ def advance_plain(wall_pass: Callable, post_wall: Callable,
         )
         state, measure, ledger = wall_pass(state, prior, measure, uniforms,
                                            cases)
+        if missed is not None and audit_fn is not None:
+            missed.add_(audit_fn(state, prior))
         pos_pre = state.pos
         state, recaptured = post_wall(state)
         recap_w = torch.any(state.pos != pos_pre, dim=-1)
@@ -107,8 +115,8 @@ def advance_plain(wall_pass: Callable, post_wall: Callable,
 def build_grids(workload: Workload, device):
     """Host-build the collision grid; returns (host_grid, device_grid), or
     (None, None) for the all-pairs broad phase.  The pairs engine's grid
-    has the tighter capacity of ``pairs_cell_capacity_for``
-    (engine.py:61-102)."""
+    has the tighter capacity of ``pairs_cell_capacity_for``; the cube's
+    grid is centred on the box (engine.py:61-102)."""
     cfg = workload.cfg
     eng = cfg.engine
     if eng.broadphase != "cells":
@@ -120,9 +128,33 @@ def build_grids(workload: Workload, device):
         capacity = pairs_cell_capacity_for(*args)
     else:
         capacity = cell_capacity_for(*args)
-    host_grid = collide.grid_for_pore(cfg.geometry, cell_size, capacity)
-    return host_grid, collide.DeviceGrid.from_grid(host_grid, eng.torch_dtype,
-                                                   device)
+    geom = cfg.geometry
+    if hasattr(geom, "total_height"):  # a pore
+        host_grid = collide.grid_for_pore(geom, cell_size, capacity)
+        center = (0.0, 0.0)
+    else:  # the cube: a grid centred on the box
+        host_grid = collide.grid_for_cube(geom, cell_size, capacity)
+        center = (geom.lx / 2.0, geom.ly / 2.0)
+    return host_grid, collide.DeviceGrid.from_grid(
+        host_grid, eng.torch_dtype, device, center)
+
+
+_NO_MISSED: dict = {}
+
+
+def missed_counts(device, audits: bool):
+    """A step's (sink, missed_cases): with the audit on, one fresh (10,)
+    int32 zero tensor as both (``advance`` adds the counts to the sink);
+    with it off, no sink and one zero tensor a device that nothing
+    writes."""
+    if audits:
+        counts = torch.zeros(10, dtype=torch.int32, device=device)
+        return counts, counts
+    device = torch.device(device)
+    if device not in _NO_MISSED:
+        _NO_MISSED[device] = torch.zeros(10, dtype=torch.int32,
+                                         device=device)
+    return None, _NO_MISSED[device]
 
 
 def _nonfinite(state: ParticleState, check: bool) -> torch.Tensor:
@@ -142,6 +174,7 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
     cr = physics.collision_range
     search_radius = cr + eng.skin
     hist_hi = eng.hist_range[1]
+    audits = eng.debug_audits and workload.audit_fn is not None
 
     if eng.broadphase == "cells":
         def search(pos):
@@ -157,9 +190,10 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
 
     def step(state: ParticleState, measure: Measurements,
              uniforms: torch.Tensor, step_index: int):
-        # DRIFT, WALL CASES, then recapture.
+        # DRIFT, WALL CASES, the missed-case audit, then recapture.
+        sink, missed = missed_counts(state.pos.device, audits)
         state, measure, ledger, oob_walls, _, _ = workload.advance(
-            state, measure, uniforms)
+            state, measure, uniforms, missed=sink)
 
         # PARTICLE-PARTICLE COLLISIONS: K10 adds the step's pairs to its
         # wall hits in place, the step's collision count.
@@ -196,6 +230,7 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
             wall_hits=ledger.wall_hits,
             oob_after_walls=oob_walls,
             oob_after_pairs=oob_pairs,
+            missed_cases=missed,
             nonfinite=_nonfinite(state, eng.check_finite),
             rebuilt=zero, dirty_count=zero, latent_full=zero,
             teleports=zero, latent_research=zero,
@@ -265,15 +300,17 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     dt = cfg.dt
     cr = cfg.physics.collision_range
     hist_hi = eng.hist_range[1]
+    audits = eng.debug_audits and workload.audit_fn is not None
 
     def step(state: ParticleState, measure: Measurements,
              plist: pairs_ops.PairList, uniforms: torch.Tensor,
              step_index: int, rebuilt: bool):
         dev = state.pos.device
-        # DRIFT, WALL CASES, then recapture (which particles it moved go
-        # hot).
+        # DRIFT, WALL CASES, the missed-case audit, then recapture (which
+        # particles it moved go hot).
+        sink, missed = missed_counts(dev, audits)
         state, measure, ledger, oob_walls, recap_w, speed_pre = (
-            workload.advance(state, measure, uniforms))
+            workload.advance(state, measure, uniforms, missed=sink))
 
         # PARTICLE-PARTICLE COLLISIONS on the listed pairs, in place on
         # the state and the staging.
@@ -343,6 +380,7 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
             wall_hits=ledger.wall_hits,
             oob_after_walls=oob_walls,
             oob_after_pairs=oob_pairs,
+            missed_cases=missed,
             nonfinite=_nonfinite(state, eng.check_finite),
             rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
                                device=dev),
@@ -425,6 +463,38 @@ class Simulation:
             state, self.grid, self.pcfg, self.cfg.physics.collision_range,
             self.cfg.dt, self._plist)
         self._window_left = self.pcfg.rebuild_interval
+
+    def pair_window(self):
+        """(the carried pair list, steps left in its window) for a
+        checkpoint, or None (the sweep, or no window open)."""
+        if not self._pairs_mode or self._plist is None:
+            return None
+        return self._plist, self._window_left
+
+    def resume_pair_window(self, state: ParticleState,
+                           plist: pairs_ops.PairList, window_left: int):
+        """Carry ``plist``, with ``window_left`` steps left in its window,
+        into the next ``run`` from ``state``, as if this Simulation had
+        returned that state: a run resumed from a checkpoint then rebuilds
+        on the uninterrupted run's steps.  (A rebuild at the resume step
+        instead is trajectory-neutral only while no one-step latency --
+        a full emission, a table spill -- falls in the window.)"""
+        if not self._pairs_mode:
+            raise ValueError("resume_pair_window: narrowphase='sweep' "
+                             "carries no pair list")
+        want = pairs_ops.PairList.init(
+            state.num_particles, self.grid, self.pcfg,
+            self.cfg.engine.torch_dtype, "meta")
+        for f in dataclasses.fields(plist):
+            got = getattr(plist, f.name)
+            if got.shape != getattr(want, f.name).shape:
+                raise ValueError(
+                    f"resume_pair_window: {f.name} of shape "
+                    f"{tuple(got.shape)}, this run's is "
+                    f"{tuple(getattr(want, f.name).shape)}")
+        self._plist = plist
+        self._window_left = int(window_left)
+        self._last_state_out = state
 
     def _pairs_step(self, state, measure, uniforms, step_index):
         rebuilt = self._window_left <= 0

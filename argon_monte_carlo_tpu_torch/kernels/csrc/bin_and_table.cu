@@ -59,6 +59,7 @@ __global__ void assign_cells_kernel(const float* __restrict__ pos,
                                     const int* __restrict__ layer_base,
                                     const float* __restrict__ half_extent,
                                     int nz, float z_lo, float cell_size,
+                                    float center_x, float center_y,
                                     int num_cells, int cap,
                                     int* __restrict__ cell_id,
                                     int* __restrict__ pslot,
@@ -72,8 +73,9 @@ __global__ void assign_cells_kernel(const float* __restrict__ pos,
     pslot[i] = num_cells * cap;
     return;
   }
-  int c = amc::assign_cell(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], nx,
-                           layer_base, half_extent, nz, z_lo, cell_size);
+  int c = amc::assign_cell(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2],
+                           center_x, center_y, nx, layer_base, half_extent,
+                           nz, z_lo, cell_size);
   cell_id[i] = c;
   pslot[i] = atomicAdd(&counts[c], 1);  // the arrival rank, for launch 3
 }
@@ -208,6 +210,8 @@ __launch_bounds__(amc::kThreads) __global__ void table_kernel(
 
 }  // namespace
 
+// center_x, center_y: the grid's centre, subtracted from x and y before
+// binning (the cube's box centre; 0 for the pores).
 // Scratch: counts (num_cells ints, zero, and left zero), offsets
 // (num_cells + 1), seg (n), 16-byte aligned; the look-back scratch
 // (lookback.cuh), scratch_words zero words, this stream's: at least
@@ -216,8 +220,9 @@ __launch_bounds__(amc::kThreads) __global__ void table_kernel(
 AMC_EXPORT int amc_bin_and_table(
     const float* pos, const uint8_t* valid, int n, const int* nx,
     const int* layer_base, const float* half_extent, int nz, float z_lo,
-    float cell_size, int num_cells, int cap, int* cell_id, int* table,
-    int* pslot, int* overflow, int* counts, int* offsets, int* seg,
+    float cell_size, float center_x, float center_y, int num_cells, int cap,
+    int* cell_id, int* table, int* pslot, int* overflow, int* counts,
+    int* offsets, int* seg,
     unsigned long long* scratch, int scratch_words, cudaStream_t stream) {
   if (cap < 1 || cap > kMaxCap ||
       scratch_words < amc::count_scan_words(num_cells)) {
@@ -225,7 +230,8 @@ AMC_EXPORT int amc_bin_and_table(
   }
   assign_cells_kernel<<<max(amc::blocks_for(n), 1), amc::kThreads, 0,
                         stream>>>(pos, valid, n, nx, layer_base, half_extent,
-                                  nz, z_lo, cell_size, num_cells, cap,
+                                  nz, z_lo, cell_size, center_x, center_y,
+                                  num_cells, cap,
                                   cell_id, pslot, counts, overflow);
   amc::count_scan(counts, num_cells, offsets, scratch, scratch_words,
                   stream);

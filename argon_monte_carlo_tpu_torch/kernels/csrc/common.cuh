@@ -58,19 +58,24 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return before + x - v;
 }
 
-// The port's cell binning (reference ops/collide.py:324-349): floor,
-// convert to int32, clip.  Shared by K2 and K4.
+// The port's cell binning (reference ops/collide.py:324-349): x and y less
+// the grid's centre (the cube's box centre; 0 for the pores, where
+// x - 0.0f is x to the bit, -0.0 included), then floor, convert to int32,
+// clip.  Shared by K2 and K4.
 __device__ __forceinline__ int assign_cell(float x, float y, float z,
+                                           float center_x, float center_y,
                                            const int* __restrict__ nx,
                                            const int* __restrict__ layer_base,
                                            const float* __restrict__ half_extent,
                                            int nz, float z_lo,
                                            float cell_size) {
+  float xs = x - center_x;
+  float ys = y - center_y;
   int iz = clampi(static_cast<int>(floorf((z - z_lo) / cell_size)), 0, nz - 1);
   int m = nx[iz];
   float half = half_extent[iz];
-  int ix = clampi(static_cast<int>(floorf((x + half) / cell_size)), 0, m - 1);
-  int iy = clampi(static_cast<int>(floorf((y + half) / cell_size)), 0, m - 1);
+  int ix = clampi(static_cast<int>(floorf((xs + half) / cell_size)), 0, m - 1);
+  int iy = clampi(static_cast<int>(floorf((ys + half) / cell_size)), 0, m - 1);
   return layer_base[iz] + iy * m + ix;
 }
 

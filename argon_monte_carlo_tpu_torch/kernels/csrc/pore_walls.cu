@@ -1,7 +1,8 @@
 // K8 pore_advance: one fused per-particle pass of the temperature pore --
 // drift and path accrual, the six wall cases in the reference's order, the
 // post-wall recapture -- with the step's momentum/energy ledger, wall hits,
-// solver errors and recapture count.
+// solver errors and recapture count, and on request the missed-case audit's
+// ten counts.
 //
 // Replaces, in the JAX package, the drift at the head of both step
 // functions (argon_monte_carlo_tpu/engine.py:153-156 and :352-357), the
@@ -39,6 +40,16 @@
 // written in the plain version's order, divisions are IEEE divisions, the
 // library is built with -fmad=false, and sqrtf/cosf/sinf are the accurate
 // (non-fast-math) functions PyTorch's own CUDA kernels call.
+//
+// The audit (models/base.py pore_missed_case_audit, its energized set,
+// replacing the reference's models/base.py:12-62 as its engine calls it
+// between the wall pass and the recapture, engine.py:162-165, 363-366):
+// with a `missed` array, each thread evaluates the ten wall-case
+// predicates on its post-wall position against its prior one, before the
+// recapture block, and the counts are warp-summed and added to missed[]
+// with one integer atomic a warp each, as the other counts are.  Without
+// it (a null pointer) nothing of it runs, and the state and ledger are
+// those of a launch without the audit to the bit.
 #include "common.cuh"
 
 namespace {
@@ -54,6 +65,7 @@ enum Param {
 
 constexpr int kTotalsThreads = 1024;
 constexpr int kMaxHorner = 32;
+constexpr int kAuditCases = 10;
 
 struct Particle {
   float x, y, z, vx, vy, vz;
@@ -223,7 +235,8 @@ __global__ void pore_advance_kernel(
     float* __restrict__ paths_out, uint8_t* __restrict__ has_out,
     float* __restrict__ pend_vals_out, uint8_t* __restrict__ pend_mask_out,
     uint8_t* __restrict__ recap_out, float* __restrict__ speed_pre_out,
-    float* __restrict__ block_ledger, int* __restrict__ counts) {
+    float* __restrict__ block_ledger, int* __restrict__ counts,
+    int* __restrict__ missed) {
   __shared__ float c[kNumParams];
   __shared__ float coef[kMaxHorner];
   __shared__ float sh[3][amc::kThreads];
@@ -235,6 +248,7 @@ __global__ void pore_advance_kernel(
   int i = blockIdx.x * blockDim.x + t;
   float mz = 0.0f, e_hot = 0.0f, e_cold = 0.0f;
   int hits = 0, errs = 0, recaptured = 0;
+  int audit[kAuditCases] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   if (i < n) {
     Ctx k{c, coef, num_horner, uniforms, i};
     Particle s;
@@ -365,6 +379,27 @@ __global__ void pore_advance_kernel(
       }
     }
 
+    // AUDIT: [case 1, 2a, 2b, 3a, 3b, 4, 5a, 5b, 6a, 6b] on the post-wall
+    // position, in the reference's predicates (the energized set, insets
+    // included).
+    if (missed != nullptr) {
+      float r2w = r2(s);
+      float zw = s.z;
+      bool in_gap = pz <= c[kGapHiMAr] && pz >= c[kGapLoPAr];
+      bool crossed = prior_r2 <= c[kCrPoreSq] && r2w > c[kCrPoreSq];
+      audit[0] = r2w > c[kROaSq];
+      audit[1] = zw < 0.0f;
+      audit[2] = zw > c[kH];
+      audit[3] = pz >= c[kPlaneCold] && zw < c[kPlaneCold] && r2w > c[kRcSq];
+      audit[4] = pz <= c[kPlaneHot] && zw > c[kPlaneHot] && r2w > c[kRcSq];
+      audit[5] = pz < c[kGapHiMAr] && pz > c[kGapLoPAr] &&
+                 prior_r2 <= c[kCrGapSq] && r2w > c[kCrGapSq];
+      audit[6] = prior_r2 >= c[kCrPoreSq] && zw < c[kGapLoPAr] && in_gap;
+      audit[7] = prior_r2 >= c[kCrPoreSq] && zw > c[kGapHiMAr] && in_gap;
+      audit[8] = crossed && zw <= c[kGapLoPAr] && zw >= c[kPlaneHot];
+      audit[9] = crossed && zw < c[kPlaneCold] && zw > c[kGapHiMAr];
+    }
+
     // RECAPTURE (oob.pore_recapture): z first, then the radial checks on
     // the updated z.
     float x = s.x, y = s.y, z = s.z;
@@ -430,6 +465,12 @@ __global__ void pore_advance_kernel(
     int w = __reduce_add_sync(0xffffffffu, v[q]);
     if ((t & 31) == 0 && w != 0) atomicAdd(&counts[q], w);
   }
+  if (missed != nullptr) {  // uniform over the launch
+    for (int q = 0; q < kAuditCases; ++q) {
+      int w = __reduce_add_sync(0xffffffffu, audit[q]);
+      if ((t & 31) == 0 && w != 0) atomicAdd(&missed[q], w);
+    }
+  }
 }
 
 // One block: each thread sums a contiguous run of block partials in order,
@@ -463,7 +504,9 @@ __global__ void ledger_totals_kernel(const float* __restrict__ block_ledger,
 // params: kNumParams float32 constants (enum Param); horner: num_horner
 // (1..32) coefficients, highest degree first.  Outputs are fresh arrays;
 // ledger (3 f32: momentum_z, energy_hot, energy_cold) and counts (3 i32:
-// wall hits, errors, recaptured).  Scratch: block_ledger (nblocks*3 f32).
+// wall hits, errors, recaptured).  missed: null, or 10 i32 to which the
+// audit's counts are added (the caller zeroes it).  Scratch: block_ledger
+// (nblocks*3 f32).
 AMC_EXPORT int amc_pore_advance(
     const float* pos, const float* vel, const float* paths,
     const uint8_t* has_collided, const float* pend_vals,
@@ -471,7 +514,8 @@ AMC_EXPORT int amc_pore_advance(
     const float* horner, int num_horner, int n, float* pos_out,
     float* vel_out, float* paths_out, uint8_t* has_out, float* pend_vals_out,
     uint8_t* pend_mask_out, uint8_t* recap_out, float* speed_pre_out,
-    float* block_ledger, float* ledger, int* counts, cudaStream_t stream) {
+    float* block_ledger, float* ledger, int* counts, int* missed,
+    cudaStream_t stream) {
   if (num_horner < 1 || num_horner > kMaxHorner) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -482,7 +526,7 @@ AMC_EXPORT int amc_pore_advance(
         pos, vel, paths, has_collided, pend_vals, pend_mask, uniforms, params,
         horner, num_horner, n, pos_out, vel_out, paths_out, has_out,
         pend_vals_out, pend_mask_out, recap_out, speed_pre_out, block_ledger,
-        counts);
+        counts, missed);
   }
   ledger_totals_kernel<<<1, kTotalsThreads, 0, stream>>>(block_ledger,
                                                          nblocks, ledger);

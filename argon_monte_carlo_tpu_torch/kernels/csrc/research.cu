@@ -124,8 +124,10 @@ __launch_bounds__(amc::kThreads) __global__ void search_kernel(
   float speed = sqrtf(s2);
   float ri = fminf(half_cr + speed * dtk, max_reach);
   bool unbounded = speed * dt > unbounded_drift;
-  int cell = amc::assign_cell(x, y, z, nx, layer_base, half_extent, nz, z_lo,
-                              cell_size);
+  // No centre: the reference's re-search bins on a pore grid (the pairs
+  // engine refuses the cube, the one grid with a centre).
+  int cell = amc::assign_cell(x, y, z, 0.0f, 0.0f, nx, layer_base,
+                              half_extent, nz, z_lo, cell_size);
   // Thread o < 27 holds the table row of neighbour column o.
   int my_row = lane < 27 ? neighbors[static_cast<long long>(cell) * 27 + lane]
                          : 0;

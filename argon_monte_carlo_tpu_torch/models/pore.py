@@ -21,7 +21,7 @@ import torch
 from ..config import PoreConfig
 from ..engine import WallLedger, Workload, advance_plain
 from ..init import init_pore
-from ..models.base import apply_tracked
+from ..models.base import apply_tracked, pore_missed_case_audit
 from ..ops import fp
 from ..ops import oob as oob_ops
 from ..ops import walls as wall_ops
@@ -128,7 +128,11 @@ def make_pore_workload(cfg: PoreConfig) -> Workload:
     def fix(state):
         return oob_ops.pore_v1_audit_nudge(state, geom, physics)
 
-    advance = advance_plain(wall_pass, fix, cfg.dt)
+    def audit(state, prior):
+        return pore_missed_case_audit(state, prior, geom, physics,
+                                      energized=False)
+
+    advance = advance_plain(wall_pass, fix, cfg.dt, audit)
     return Workload(
         cfg=cfg,
         init_fn=lambda gen, device: init_pore(cfg, gen, device),
@@ -137,4 +141,5 @@ def make_pore_workload(cfg: PoreConfig) -> Workload:
         advance_plain=advance,
         post_pairs=fix,
         fluid_volume=geom.volume,
+        audit_fn=audit,
     )

@@ -25,7 +25,7 @@ from .. import rng
 from ..config import PoreConfig
 from ..engine import WallLedger, Workload, advance_plain
 from ..init import init_pore
-from ..models.base import apply_tracked
+from ..models.base import apply_tracked, pore_missed_case_audit
 from ..ops import fp
 from ..ops import oob as oob_ops
 from ..ops import pore_pass
@@ -202,7 +202,11 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
     def recapture(state):
         return oob_ops.pore_recapture(state, geom, z_inset)
 
-    plain = advance_plain(wall_pass, recapture, cfg.dt)
+    def audit(state, prior):
+        return pore_missed_case_audit(state, prior, geom, physics,
+                                      energized=True)
+
+    plain = advance_plain(wall_pass, recapture, cfg.dt, audit)
     params = pore_pass.PoreParams(
         values=dict(
             dt=cfg.dt, r_oa=r_oa, cr_oa=cr_oa, cr_oa_rr=cr_oa * cr_oa, h=h,
@@ -224,9 +228,9 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         horner=gap_interp.power,
     )
 
-    def advance(state, measure, uniforms):
+    def advance(state, measure, uniforms, missed=None):
         return pore_pass.pore_advance(state, measure, uniforms, params,
-                                      plain)
+                                      plain, missed=missed)
 
     return Workload(
         cfg=cfg,
@@ -236,4 +240,5 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         advance_plain=plain,
         post_pairs=recapture,
         fluid_volume=geom.volume,
+        audit_fn=audit,
     )

@@ -32,7 +32,8 @@ Each wrapper takes the plain PyTorch version (``*_plain``, same signature
 and outputs) for tensors on the CPU and launches its CUDA kernel for
 tensors on a CUDA device; any other device, or a dtype or layout the
 kernel does not take, raises.  The host grid (``Grid``, ``build_grid``,
-``grid_for_pore``) is numpy and equals the reference's array for array.
+``grid_for_pore``, ``grid_for_cube``) is numpy and equals the reference's
+array for array.
 """
 
 from __future__ import annotations
@@ -178,6 +179,14 @@ def build_grid(cell_size: float, z_lo: float, z_hi: float,
     )
 
 
+def grid_for_cube(geom, cell_size: float, capacity: int) -> Grid:
+    """Uniform grid over the box (collide.py:189-193); binning shifts x and
+    y by the box's centre first (``DeviceGrid.center_x/y``), so the grid,
+    which is centred on the axis, covers the box.  Every cell is active."""
+    r = max(geom.lx, geom.ly) / 2.0
+    return build_grid(cell_size, 0.0, geom.lz, lambda lo, hi: r, capacity)
+
+
 def grid_for_pore(geom, cell_size: float, capacity: int) -> Grid:
     def radius_of_z(lo, hi):
         # Open-air layers (with a one-cell z overlap) use the open-air
@@ -266,8 +275,10 @@ class DeviceGrid:
     ``active_rank`` -- each cell's rank in the active-cell list, -1 for an
     inactive cell and for the dummy cell (reference DeviceGrid.active_rank,
     collide.py:245-250; every cell is active when the host grid has no
-    list) -- and ``run_start``, the runs of K9's cell walk
-    (``cell_runs``)."""
+    list) -- ``run_start``, the runs of K9's cell walk (``cell_runs``),
+    and the xy offset binning subtracts first (``center_x``, ``center_y``:
+    the box's centre for the cube, 0 for the pores; reference
+    collide.py:243-244)."""
 
     nx: torch.Tensor           # (nz,) int32
     layer_base: torch.Tensor   # (nz,) int32
@@ -280,9 +291,12 @@ class DeviceGrid:
     capacity: int
     active_rank: torch.Tensor  # (num_cells + 1,) int32
     run_start: torch.Tensor    # (runs + 1,) int32
+    center_x: float = 0.0
+    center_y: float = 0.0
 
     @staticmethod
-    def from_grid(grid: Grid, dtype, device) -> "DeviceGrid":
+    def from_grid(grid: Grid, dtype, device,
+                  center_xy=(0.0, 0.0)) -> "DeviceGrid":
         def put(a, dt):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                    device=device)
@@ -300,6 +314,8 @@ class DeviceGrid:
             active_rank=put(active_rank_for(grid.num_cells,
                                             grid.active_cells), torch.int32),
             run_start=put(cell_runs(grid.nx, grid.layer_base), torch.int32),
+            center_x=float(center_xy[0]),
+            center_y=float(center_xy[1]),
         )
 
 
@@ -321,8 +337,12 @@ def active_rank_for(num_cells: int, active_cells) -> np.ndarray:
 
 def assign_cells_plain(pos: torch.Tensor, grid: DeviceGrid) -> torch.Tensor:
     """(N,) int32 flat cell id per particle (strays clamp into edge
-    cells), collide.py:324-349."""
-    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    cells), collide.py:324-349: x and y less the grid's centre first (a
+    float32 subtraction of 0 changes no bit, so the pores' ids are the
+    same as without it)."""
+    x = pos[:, 0] - grid.center_x
+    y = pos[:, 1] - grid.center_y
+    z = pos[:, 2]
     iz = torch.clamp(
         torch.floor(fp.div(z - grid.z_lo, grid.cell_size)).to(torch.int32),
         0, grid.nz - 1,
@@ -432,7 +452,8 @@ def bin_and_table(pos: torch.Tensor, grid: DeviceGrid,
     kernels.launch(
         "bin_and_table", dev, p(pos), kernels.optional_ptr(valid), n,
         p(grid.nx), p(grid.layer_base),
-        p(grid.half_extent), grid.nz, grid.z_lo, grid.cell_size, num_cells,
+        p(grid.half_extent), grid.nz, grid.z_lo, grid.cell_size,
+        grid.center_x, grid.center_y, num_cells,
         cap, p(cell_id), p(table), p(pslot), p(overflow), p(counts),
         p(work), p(work[seg_at:]), p(scan), scan.shape[0],
     )

@@ -8,6 +8,11 @@ for CPU tensors.  Both return
 
     (state, measure, WallLedger, recaptured (), recap_w (N,), speed_pre (N,))
 
+and, given a (10,) int32 ``missed``, add the missed-case audit's counts
+(``models/base.pore_missed_case_audit`` on the post-wall state, before the
+recapture) to it in place: the kernel evaluates the predicates itself, the
+plain version runs the audit between its wall pass and its recapture.
+
 The kernel takes every constant of the plain version as a float32 rounded
 once on the host from the same double (``PoreParams``), so the two agree
 bitwise up to the order of the ledger's sums.
@@ -16,7 +21,7 @@ bitwise up to the order of the ledger's sums.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -68,15 +73,15 @@ class PoreParams:
 
 def pore_advance(state: ParticleState, measure: Measurements,
                  uniforms: torch.Tensor, params: PoreParams,
-                 plain: Callable):
-    """K8 (see the module docstring); ``plain(state, measure, uniforms)``
-    runs for CPU tensors.  The staging planes may have more rows than the
-    state (a slab's local and ghost lanes): the kernel stages into the
-    first n rows and the rest is carried over, as in the plain version
-    (``measure.record_completed``)."""
+                 plain: Callable, missed: Optional[torch.Tensor] = None):
+    """K8 (see the module docstring); ``plain(state, measure, uniforms,
+    missed=missed)`` runs for CPU tensors.  The staging planes may have
+    more rows than the state (a slab's local and ghost lanes): the kernel
+    stages into the first n rows and the rest is carried over, as in the
+    plain version (``measure.record_completed``)."""
     pos = state.pos
     if kernels.use_plain(pos):
-        return plain(state, measure, uniforms)
+        return plain(state, measure, uniforms, missed=missed)
     dev = pos.device
     n = pos.shape[0]
     rows = measure.pending_vals.shape[0]
@@ -95,6 +100,8 @@ def pore_advance(state: ParticleState, measure: Measurements,
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
+    if missed is not None:
+        kernels.check(missed, "missed", torch.int32, (10,), dev)
     prm, horner = params.on(dev)
     outs = [torch.empty_like(t) for t, *_ in inputs[:4]]
     # The kernel writes the first n rows of the staging planes in place.
@@ -114,7 +121,7 @@ def pore_advance(state: ParticleState, measure: Measurements,
     kernels.launch(
         "pore_advance", dev, *(p(t) for t, *_ in inputs), p(prm), p(horner),
         horner.numel(), n, *(p(t) for t in outs), p(recap_w), p(speed_pre),
-        p(block_ledger), p(ledger), p(counts),
+        p(block_ledger), p(ledger), p(counts), kernels.optional_ptr(missed),
     )
     state = ParticleState(pos=pos_o, vel=vel_o, paths=paths_o,
                           has_collided=has_o)

@@ -48,7 +48,7 @@ import torch
 
 from .. import kernels
 from ..config import cell_capacity_for, cell_size_for
-from ..engine import Workload, copy_tensors
+from ..engine import Workload, copy_tensors, missed_counts
 from ..ops import collide
 from ..ops import measure as measure_ops
 from ..ops.compact import compact_indices
@@ -406,6 +406,7 @@ class ShardedSimulation:
         cap = plan.shard_capacity
         hcap, mcap = plan.halo_capacity, plan.migration_capacity
         n_shards = plan.n_shards
+        audits = eng.debug_audits and workload.audit_fn is not None
 
         def parked(c, st, valid, fn):
             """Run a wall or recapture stage with the invalid lanes parked
@@ -420,13 +421,17 @@ class ShardedSimulation:
 
         # DRIFT, WALLS and recapture under parking (an invalid lane has
         # zero velocity, so it neither moves nor accrues a path), then the
-        # halo bands.
+        # halo bands.  The missed-case audit runs inside ``advance`` on
+        # the parked lanes, so an invalid lane trips no predicate
+        # (shard.py:397-405).
         work = []
         for s, c in enumerate(slabs):
             st, valid, gid = state[s]
+            sink, missed = missed_counts(c.device, audits)
             st, meas, ledger, oob_walls, _, _ = parked(
                 c, st, valid,
-                lambda x: workload.advance(x, measure[s], uniforms_of(s)))
+                lambda x: workload.advance(x, measure[s], uniforms_of(s),
+                                           missed=sink))
             # Both bands in one call: valid & (z > up_edge) up, valid &
             # (z < down_edge) down, packed on every slab (the reference
             # counts an edge slab's truncation too).
@@ -435,6 +440,7 @@ class ShardedSimulation:
                 c.up_edge, c.down_edge)
             work.append(dict(st=st, valid=valid, gid=gid, meas=meas,
                              ledger=ledger, oob_walls=oob_walls,
+                             missed=missed,
                              up=(up, up_flag), down=(down, down_flag),
                              halo_trunc=d1 + d2))
 
@@ -554,15 +560,18 @@ class ShardedSimulation:
         first = slabs[0].device
         total_f = floats[0]
         total_i = counts[0]
-        for f, i in zip(floats[1:], counts[1:]):
-            total_f = total_f + f.to(first)
-            total_i = total_i + i.to(first)
+        total_missed = work[0]["missed"]
+        for s in range(1, n_shards):
+            total_f = total_f + floats[s].to(first)
+            total_i = total_i + counts[s].to(first)
+            total_missed = total_missed + work[s]["missed"].to(first)
         zero = torch.zeros((), dtype=torch.int32, device=first)
         metrics = StepMetrics(
             momentum_z=total_f[0], energy_hot=total_f[1],
             energy_cold=total_f[2], collisions=total_i[0],
             wall_hits=total_i[1], oob_after_walls=total_i[2],
-            oob_after_pairs=total_i[3], nonfinite=total_i[4],
+            oob_after_pairs=total_i[3], missed_cases=total_missed,
+            nonfinite=total_i[4],
             rebuilt=zero, dirty_count=zero, latent_full=zero,
             teleports=zero, latent_research=zero,
         )

@@ -114,7 +114,10 @@ class StepMetrics:
     """Per-step scalars; ``Simulation.run`` stacks them to (steps,) tensors.
 
     momentum_z / energy_hot / energy_cold are the reference's per-step
-    ledger (Temperature_Pore_MC.py:685-687, 755-758).  The last five are
+    ledger (Temperature_Pore_MC.py:685-687, 755-758).  missed_cases is
+    (10,) int32 a step ((K, 10) stacked): the residual wall-case counts
+    of the missed-case audit, zeros unless ``debug_audits`` is on
+    (reference state.py:149-155).  The last five are
     the pairs engine's (zero in the sweep): whether the step began with a
     rebuild, how many particles were dirty, and the one-step-latency
     diagnostics -- full rebuild emissions consumed this step, recapture
@@ -129,6 +132,7 @@ class StepMetrics:
     wall_hits: torch.Tensor
     oob_after_walls: torch.Tensor
     oob_after_pairs: torch.Tensor
+    missed_cases: torch.Tensor
     nonfinite: torch.Tensor
     rebuilt: torch.Tensor
     dirty_count: torch.Tensor

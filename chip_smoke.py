@@ -36,7 +36,11 @@ exits non-zero without a result line):
    repeated duplicate entries, K7c with some events unlisted and with all
    listed, K3 and K7c also recorded in a CUDA graph and replayed three
    times on changed inputs; K8, the fused drift/walls/recapture pass,
-   over 16 steps of the pairs slice) and of the 24,627-particle cube (K11,
+   over 16 steps of the pairs slice, and with the missed-case audit over
+   8 more: its ten counts against the plain audit, its state and ledger
+   bitwise those of K8 without it, its device time with and without) and
+   of the 24,627-particle cube (K2 on the cube's grid, centred on the box;
+   K11,
    also at ~200k, with every particle in one z-slab, with probe pairs at
    the window's edges, and as one call replayed in a CUDA graph), with the kernel's, the plain version's and, where one exists,
    the library call's time beside the kernel's bound; K2 also with a cell
@@ -65,13 +69,20 @@ exits non-zero without a result line):
    particles and global ids conserved after every epoch, no overflow, halo
    and migrant traffic across every interior face, pair collisions within
    1% of the single-slab sweep's; and the specular pore, one slab, 1M
-   particles for 100 steps, its kinetic energy constant;
+   particles for 100 steps, its kinetic energy constant; the cube on the
+   cell grid (K2, K9) against the cube on all pairs (K11), 100 steps,
+   bitwise; the command line in this process (``cli.main``): the main
+   path at 557,649 molecules for 200 steps with checkpoints, a resume from
+   step 100 whose step-200 checkpoint is bitwise the first run's, the
+   files it writes; short runs with the audit, on 4 slabs and of the cube
+   on cells, each with its wall time;
 9. where the time goes in each slice: untraced step time (CUDA events),
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
    sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
    ``torch.nonzero``; K2 and K12 timed alone; K7, K11, K10 and K5 alone,
-   device time and launches a call.
+   device time and launches a call (K8's with and without the audit, in
+   phase 2).
 
 The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
@@ -2927,6 +2938,246 @@ def check_specular_pore(tag: str, steps: int = 100) -> None:
           f"{tag}")
 
 
+AUDIT_STEPS = 8
+
+
+def check_pore_advance_audit(tag: str, particles: int = PARTICLES,
+                             steps: int = AUDIT_STEPS,
+                             timed: bool = True) -> None:
+    """K8 with the missed-case audit, over ``steps`` steps of the pairs
+    slice at 1M particles after its first 24: the kernel's ten counts
+    exactly equal to the plain audit of the twin's post-wall state, and
+    its state, staging, ledger and counts bitwise equal to K8 without the
+    audit; then K8's device time a call with the audit and without."""
+    cfg = config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    start = 24
+    state, meas, _ = sim.run(start, state=state, measure=meas, generator=gen)
+    n = state.num_particles
+    totals = torch.zeros(10, dtype=torch.int64)
+    for i in range(steps):
+        u = torch.rand((n, 2), generator=gen, device="cuda")
+        off = wl.advance(state, meas, u)
+        got = torch.zeros(10, dtype=torch.int32, device="cuda")
+        on = wl.advance(state, meas, u, missed=got)
+        want = torch.zeros(10, dtype=torch.int32, device="cuda")
+        wl.advance_plain(state, meas, u, missed=want)
+        exact(f"K8 audit counts (step {i})", got, want)
+        for name, a, b in zip(
+                ("pos", "vel", "paths", "has_collided", "pending_vals",
+                 "pending_mask", "momentum_z", "energy_hot", "energy_cold",
+                 "wall_hits", "errs", "recaptured", "recap_w", "speed_pre"),
+                (on[0].pos, on[0].vel, on[0].paths, on[0].has_collided,
+                 on[1].pending_vals, on[1].pending_mask, *on[2], *on[3:]),
+                (off[0].pos, off[0].vel, off[0].paths, off[0].has_collided,
+                 off[1].pending_vals, off[1].pending_mask, *off[2],
+                 *off[3:])):
+            require(torch.equal(a, b),
+                    f"K8 {name} with the audit != without (step {i})")
+        totals += got.cpu().long()
+        state, meas, _ = sim.run(1, state=state, measure=meas,
+                                 start_step=start + i, draw=lambda _: u)
+    cases = dict(zip(amt.models.base.AUDIT_CASES, totals.tolist()))
+    print(f"K8 pore_advance with the audit: {steps} steps at N={n}: the ten "
+          f"counts exact against the plain audit of the twin's post-wall "
+          f"state (summed over the steps: {cases}); state, staging, ledger "
+          f"and counts bitwise equal to K8 without the audit {tag}")
+    if not timed:
+        return
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    missed = torch.zeros(10, dtype=torch.int32, device="cuda")
+    off_us, off_l = device_per_call(lambda: wl.advance(state, meas, u),
+                                    lambda: None)
+    on_us, on_l = device_per_call(
+        lambda: wl.advance(state, meas, u, missed=missed), missed.zero_)
+    print(f"breakdown K8: pore_advance {off_us!r} us of device time a call "
+          f"in {off_l!r} launches without the audit, {on_us!r} us in "
+          f"{on_l!r} with it, at N={n} {tag}")
+
+
+def cube_on_cells(steps_per_epoch: int = 100) -> amt.CubeConfig:
+    """The published cube on the cell grid (a grid centred on the box)."""
+    cfg = cube_config(steps_per_epoch=steps_per_epoch)
+    return dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, broadphase="cells"))
+
+
+def check_k2_cube(tag: str, reps: int = 20) -> None:
+    """K2 on the cube's centred grid at its published 24,627 particles
+    (one drift after init), exact against its twin, with its times."""
+    cfg = cube_on_cells()
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    grid = sim.grid
+    state, _, _ = sim.init()
+    pos = state.pos + cfg.dt * state.vel
+    n = pos.shape[0]
+    require(n == CUBE_PARTICLES, f"cube: {n} particles")
+    require(grid.center_x == cfg.geometry.lx / 2.0
+            and grid.center_y == cfg.geometry.ly / 2.0,
+            "cube grid: not centred on the box")
+    got = check_k2("cube grid, centred", pos, grid)
+    uncentred = dataclasses.replace(grid, center_x=0.0, center_y=0.0)
+    require(not torch.equal(collide.bin_and_table(pos, uncentred)[0], got[0]),
+            "K2: the centre changed no cell id")
+    print(f"K2 bin_and_table on the cube's centred grid: exact at N={n} "
+          f"({grid.num_cells} cells, capacity {grid.capacity}, overflow "
+          f"{int(got[3])}) {tag}")
+    if reps <= 0:
+        return
+    ms = timed_ms(lambda: collide.bin_and_table(pos, grid), reps)
+    plain_ms = timed_ms(lambda: collide.bin_and_table_plain(pos, grid), 3)
+    nbytes = tensor_bytes(pos, got)
+    us, launches = device_per_call(lambda: collide.bin_and_table(pos, grid),
+                                   lambda: None)
+    print(f"K2 bin_and_table on the cube's centred grid: kernel {ms!r} ms "
+          f"(device {us!r} us in {launches!r} launches), plain {plain_ms!r} "
+          f"ms, bound {nbytes / HBM_BYTES_PER_S * 1e3!r} ms (bytes) at N={n} "
+          f"{tag}")
+
+
+def compare_cube_cells_with_allpairs(tag: str, steps: int = 100) -> None:
+    """The published cube on the cell grid (K2, K9) against the cube on
+    the all-pairs search (K11), 100 steps from one seed: both find each
+    particle's lowest-index partner within range, so the states must be
+    bitwise equal and the counts equal."""
+    runs = {}
+    for label, cfg in (("allpairs", cube_config(steps_per_epoch=50)),
+                       ("cells", cube_on_cells(steps_per_epoch=50))):
+        sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+        state, meas, gen = sim.init()
+        kernels.launch_counts.clear()
+        runs[label] = sim.run(steps, state=state, measure=meas,
+                              generator=gen)
+        torch.cuda.synchronize()
+        runs[label] += (dict(kernels.launch_counts),)
+    (sa, ma, meta, _), (sc, mc, metc, cc) = runs["allpairs"], runs["cells"]
+    for f in ("pos", "vel", "paths", "has_collided"):
+        require(torch.equal(getattr(sa, f), getattr(sc, f)),
+                f"cube on cells: {f} differs from allpairs")
+    for f in ("hist", "path_sum", "path_count", "collision_count",
+              "err_count"):
+        require(torch.equal(getattr(ma, f), getattr(mc, f)),
+                f"cube on cells: {f} differs from allpairs")
+    require(torch.equal(meta.collisions, metc.collisions),
+            "cube on cells: per-step collisions differ")
+    require(int(mc.overflow_count) == 0, "cube on cells: cell overflow")
+    for name in ("bin_and_table", "partner_sweep"):
+        require(cc.get(name, 0) == steps,
+                f"cube on cells: {name} launched {cc.get(name, 0)} times")
+    print(f"cube on cells vs allpairs: {steps} steps at N={sc.num_particles}:"
+          f" state bitwise equal, collisions {int(mc.collision_count)} and "
+          f"paths {int(mc.path_count)} equal, overflow 0; cells launched "
+          f"{ {k: cc[k] for k in sorted(cc)} } {tag}")
+
+
+CLI_CHECKED = ("pos", "vel", "paths", "has_collided", "hist", "path_sum",
+               "path_count", "collision_count")
+
+
+def run_cli(label: str, argv, tag: str) -> str:
+    """``cli.main(argv)`` in this process on the card; returns what it
+    printed and prints one line with its wall time."""
+    import contextlib
+    import io as io_module
+
+    from argon_monte_carlo_tpu_torch import cli
+
+    out = io_module.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    require(rc == 0, f"CLI {label}: exit code {rc}")
+    last = [line for line in text.splitlines()
+            if line.startswith(("total collisions", "runtime"))]
+    print(f"CLI {label}: {seconds!r} s wall; {' | '.join(last)} {tag}")
+    return text
+
+
+def check_cli(tag: str) -> None:
+    """The user surface on the card: ``cli.main`` in-process, the main path
+    at its default 557,649 molecules (pairs, K=8) for 200 steps with a
+    checkpoint every 100, then a resume from step 100 (mid-window) into a
+    second directory; their step-200 checkpoints bitwise equal, rows
+    100-199 of the first CSV equal the resumed run's rows, the 8 histogram
+    files parse, metrics carry device_memory.  Then short runs of the
+    audit, the 4-slab sharded sweep and the cube on cells."""
+    import shutil
+    import tempfile
+
+    from argon_monte_carlo_tpu_torch.io import writers
+
+    root = Path(tempfile.mkdtemp(prefix="amc_cli_"))
+    try:
+        first, second = root / "first", root / "second"
+        common = ["--steps-per-epoch", "50", "--checkpoint-every", "100"]
+        run_cli("temperature_pore, 200 steps",
+                ["temperature_pore", "--steps", "200", "--out", str(first)]
+                + common, tag)
+        text = run_cli(
+            "temperature_pore, resumed at step 100 for 100 steps",
+            ["temperature_pore", "--steps", "100", "--out", str(second),
+             "--resume", str(first / "checkpoint_00000100.npz")] + common,
+            tag)
+        require("resumed from" in text, "CLI: no resume line")
+        with np.load(first / "checkpoint_00000200.npz") as a, \
+                np.load(second / "checkpoint_00000200.npz") as b:
+            for f in CLI_CHECKED:
+                require(np.array_equal(a[f], b[f]),
+                        f"CLI: the resumed run's step-200 {f} differs")
+            require(str(a["generator_device"]) == "cuda",
+                    "CLI: the generator state is not the card's")
+            n = a["pos"].shape[0]
+            collisions = int(a["collision_count"])
+        whole = writers.read_momentum_energy_csv(
+            str(first / "momentum_energy.csv"))
+        tail = writers.read_momentum_energy_csv(
+            str(second / "momentum_energy.csv"))
+        require(len(whole["index"]) == 200 and len(tail["index"]) == 100,
+                "CLI: CSV rows")
+        for name in writers.CSV_COLUMNS:
+            require(np.array_equal(whole[name][100:], tail[name]),
+                    f"CLI: CSV {name} rows 100-199 differ from the resumed "
+                    f"run's")
+        for name in writers.AXIS_NAMES:
+            edges = writers.read_reference_histogram(
+                str(first / f"hist_x_axis_{name}_data.txt"))
+            dens = writers.read_reference_histogram(
+                str(first / f"hist_y_axis_{name}_data.txt"))
+            # The files print 8 significant digits (numpy's str).
+            total = float((dens * (edges[1] - edges[0])).sum())
+            require(edges.shape == dens.shape == (200,)
+                    and abs(total - 1.0) < 1e-6,
+                    f"CLI: histogram {name} integrates to {total!r}")
+        records = [json.loads(line) for line in
+                   (first / "metrics.jsonl").read_text().splitlines()]
+        require(len(records) == 4 and all("device_memory" in r
+                                           for r in records),
+                "CLI: metrics.jsonl lacks device_memory")
+        mem = records[-1].get("device_memory")
+        print(f"CLI: N={n}, step-200 checkpoints of the whole and the "
+              f"resumed run bitwise equal in {', '.join(CLI_CHECKED)} "
+              f"({collisions} collisions); CSV rows 100-199 equal; 8 "
+              f"histogram files parse and integrate to 1; device_memory "
+              f"{mem} {tag}")
+        text = run_cli("temperature_pore --debug-audits, 20 steps",
+                       ["temperature_pore", "--debug-audits", "--steps", "20",
+                        "--out", str(root / "audit")], tag)
+        require("total collisions" in text, "CLI: audit run")
+        run_cli("temperature_pore --mesh 4 --narrowphase sweep, 20 steps",
+                ["temperature_pore", "--mesh", "4", "--narrowphase", "sweep",
+                 "--steps", "20", "--out", str(root / "mesh")], tag)
+        run_cli("cube --broadphase cells, 50 steps",
+                ["cube", "--broadphase", "cells", "--steps", "50",
+                 "--out", str(root / "cube")], tag)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def our_kernel_names() -> set:
     """The __global__ function names of the port's CUDA sources and
     headers."""
@@ -3288,7 +3539,9 @@ def main(argv) -> int:
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))
+    check_pore_advance_audit(tag)
     results.update(check_allpairs(tag))
+    check_k2_cube(tag)
     results.update(check_slab(tag))
     check_against_cpu(tag)
     check_against_cpu(tag, narrowphase="pairs", rebuild_interval=5)
@@ -3306,6 +3559,8 @@ def main(argv) -> int:
     shard_counts = run_sharded_slice(tag, sweep_pairs)
     counts.update({name: shard_counts[name] for name in SHARD_KERNELS})
     check_specular_pore(tag)
+    compare_cube_cells_with_allpairs(tag)
+    check_cli(tag)
     breakdowns(tag)
 
     sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS,

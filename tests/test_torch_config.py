@@ -105,19 +105,31 @@ def test_host_grid_equal(target, capacity):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(debug_audits=True), "slice 7"),
-    (dict(cube=True, broadphase="cells"), "slice 7"),
+    (dict(narrowphase="pairs", rebuild_interval=8), "ROADMAP"),
+    (dict(cube=True), "cell grid"),
 ])
 def test_unported_options_raise(kwargs, match):
-    """What the port does not run yet: the audits, and the cube on the cell
-    grid (it needs a grid centred on the box)."""
+    """What the port does not run yet, all in the z-slab engine: its pairs
+    mode (ROADMAP Q1-C) and the sharded cube."""
     kwargs = dict(kwargs)
     cube = kwargs.pop("cube", False)
-    with pytest.raises(NotImplementedError, match=match) as raised:
-        engine = tcfg.EngineConfig(**kwargs)
-        if cube:
-            tcfg.CubeConfig(engine=engine)
-    assert not cube or "centred on the box" in str(raised.value)
+    engine = tcfg.EngineConfig(**kwargs)
+    cfg = (tcfg.CubeConfig(engine=engine) if cube
+           else amt.temperature_pore_config(engine=engine).scaled_to(1000))
+    with pytest.raises(NotImplementedError, match=match):
+        amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
+                              devices=["cpu"])
+
+
+def test_audits_and_the_cube_on_cells_construct():
+    """The options that used to raise: the missed-case audit, and the cube
+    on the cell grid (a grid centred on the box)."""
+    assert tcfg.EngineConfig(debug_audits=True).debug_audits
+    cube = tcfg.CubeConfig(engine=tcfg.EngineConfig(broadphase="cells"))
+    sim = amt.Simulation(amt.make_workload(cube), device="cpu")
+    geom = cube.geometry
+    assert (sim.grid.center_x, sim.grid.center_y) == (geom.lx / 2.0,
+                                                      geom.ly / 2.0)
 
 
 def test_allpairs_options():

@@ -374,3 +374,98 @@ def test_allpairs_wrapper_passes_declared_arguments(monkeypatch):
     with pytest.raises(TypeError):
         tcollide.allpairs_partner_search(torch.zeros((10, 3)).double(), 2.0,
                                          4)
+
+
+# --------------------------------------------------------------------------
+# The cube on the cell grid: a grid centred on the box
+# --------------------------------------------------------------------------
+
+
+def cube_grids(dtype="float64", capacity=24):
+    """The published cube's grid on both sides: host grids and device
+    grids centred on the box."""
+    geom_j, geom_t = JCube(), amt.CubeGeometry()
+    cell = 2.0 * CR
+    jg = jcollide.grid_for_cube(geom_j, cell, capacity)
+    tg = tcollide.grid_for_cube(geom_t, cell, capacity)
+    center = (geom_t.lx / 2.0, geom_t.ly / 2.0)
+    jdg = jcollide.DeviceGrid.from_grid(jg, getattr(jnp, dtype), center)
+    tdg = tcollide.DeviceGrid.from_grid(tg, getattr(torch, dtype), "cpu",
+                                        center)
+    return jg, tg, jdg, tdg
+
+
+def test_grid_for_cube_equals_reference():
+    jg, tg, jdg, tdg = cube_grids()
+    for f in ("cell_size", "z_lo", "nz", "num_cells", "capacity"):
+        assert getattr(jg, f) == getattr(tg, f), f
+    for f in ("nx", "layer_base", "half_extent", "neighbors"):
+        a, b = getattr(jg, f), getattr(tg, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert jg.active_cells is None and tg.active_cells is None
+    assert (tdg.center_x, tdg.center_y) == (jdg.center_x, jdg.center_y)
+    assert tdg.center_x == amt.CubeGeometry().lx / 2.0
+    # The engine builds this grid for the cube on cells.
+    cfg = amt.CubeConfig(engine=amt.EngineConfig(broadphase="cells"))
+    host, dev = amt.engine.build_grids(amt.make_workload(cfg), "cpu")
+    assert (dev.center_x, dev.center_y) == (tdg.center_x, tdg.center_y)
+    assert host.half_extent[0] * 2 >= cfg.geometry.lx
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k2_twin_with_the_centre_matches_reference(dtype):
+    """K2's twin bins like the reference's assign_cells on the centred
+    grid, exactly: particles anywhere in the box, strays outside it, and
+    particles on every cell edge in x and y and one ulp either side."""
+    np_dtype = getattr(np, dtype)
+    jg, tg, jdg, tdg = cube_grids(dtype)
+    geom = amt.CubeGeometry()
+    rng = np.random.default_rng(5)
+    n = 6000
+    pos = rng.uniform(-0.02, 1.02, (n, 3)) * np.array(
+        [geom.lx, geom.ly, geom.lz])
+    edges = (np.arange(int(tg.nx[0]) + 1) * tg.cell_size
+             - tg.half_extent[0] + geom.lx / 2.0).astype(np_dtype)
+    k = rng.integers(0, len(edges), (n // 2, 2))
+    on = edges[k]
+    step = rng.integers(-1, 2, on.shape)
+    on = np.where(step < 0, np.nextafter(on, np_dtype(-np.inf)), on)
+    on = np.where(step > 0, np.nextafter(on, np_dtype(np.inf)), on)
+    pos[: n // 2, :2] = on
+    pos = pos.astype(np_dtype)
+    want = np.asarray(jcollide.assign_cells(jnp.asarray(pos), jdg))
+    got = tcollide.assign_cells_plain(torch.from_numpy(pos), tdg)
+    np.testing.assert_array_equal(got.numpy(), want)
+    cell_id, _, _, overflow = tcollide.bin_and_table_plain(
+        torch.from_numpy(pos), tdg)
+    np.testing.assert_array_equal(cell_id.numpy(), want)
+    # Without the centre the box would sit in one corner of the grid.
+    uncentred = dataclasses.replace(tdg, center_x=0.0, center_y=0.0)
+    assert not torch.equal(
+        tcollide.assign_cells_plain(torch.from_numpy(pos), uncentred), got)
+
+
+def test_cube_cells_matches_allpairs():
+    """tests/test_engine.py:45-66 on the port: the cube on the cell grid
+    with the per-step sweep against its all-pairs search, 40 steps from
+    one seed: positions bitwise equal, the counts equal, no overflow."""
+    common = dict(num_particles_override=4000)
+    cfg_a = amt.CubeConfig(engine=amt.EngineConfig(
+        broadphase="allpairs", dtype="float64", steps_per_epoch=20),
+        **common)
+    cfg_c = amt.CubeConfig(engine=amt.EngineConfig(
+        broadphase="cells", dtype="float64", steps_per_epoch=20,
+        cell_occupancy=6.0, cell_capacity=24), **common)
+    st_a, m_a, met_a = amt.Simulation(amt.make_workload(cfg_a),
+                                      device="cpu").run(num_steps=40)
+    st_c, m_c, met_c = amt.Simulation(amt.make_workload(cfg_c),
+                                      device="cpu").run(num_steps=40)
+    assert torch.equal(st_a.pos, st_c.pos)
+    assert torch.equal(st_a.vel, st_c.vel)
+    assert torch.equal(met_a.collisions, met_c.collisions)
+    for f in ("collision_count", "path_count"):
+        assert int(getattr(m_a, f)) == int(getattr(m_c, f)), f
+    assert torch.equal(m_a.hist, m_c.hist)
+    assert int(m_c.collision_count) > 0
+    assert int(m_c.overflow_count) == 0

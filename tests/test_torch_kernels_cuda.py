@@ -336,6 +336,21 @@ def test_pore_advance_kernel(device):
     assert kernels.launch_counts["pore_advance"] > before
 
 
+def test_pore_advance_kernel_with_the_audit(device):
+    """K8's ten audit counts against the plain audit of the twin's
+    post-wall state, and K8 with the audit bitwise K8 without it."""
+    chip_smoke.check_pore_advance_audit("", particles=TARGET, steps=3,
+                                        timed=False)
+
+
+def test_bin_and_table_kernel_on_the_cube_grid(device):
+    chip_smoke.check_k2_cube("", reps=0)
+
+
+def test_cube_on_cells_matches_allpairs_on_card(device):
+    chip_smoke.compare_cube_cells_with_allpairs("", steps=20)
+
+
 def test_allpairs_partner_kernel(device):
     """K11 at the cube's 24,627 particles, with all of them in one slab,
     with probe pairs at the window's edges and replayed in a CUDA graph:

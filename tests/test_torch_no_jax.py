@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package: both are blocked in a
-fresh interpreter, which then imports every port module and runs two
-steps each of the sweep engine, the pairs engine, the cube, the specular
-pore and the 4-slab sharded sweep on the CPU."""
+fresh interpreter, which then imports every port module (none of which
+imports pandas or matplotlib on import), runs the command line with a
+checkpoint and a resume, and two steps each of the sweep engine, the
+pairs engine, the cube, the specular pore and the 4-slab sharded sweep on
+the CPU."""
 
 import os
 import subprocess
@@ -18,6 +20,17 @@ import importlib, pkgutil
 import argon_monte_carlo_tpu_torch as amt
 for info in pkgutil.walk_packages(amt.__path__, "argon_monte_carlo_tpu_torch."):
     importlib.import_module(info.name)
+assert not any(m.split(".")[0] in ("pandas", "matplotlib")
+               for m in sys.modules), "imported at module level"
+import tempfile
+from argon_monte_carlo_tpu_torch import cli
+out = tempfile.mkdtemp()
+assert cli.main(["temperature_pore", "--particles", "1000", "--steps", "2",
+                 "--checkpoint-every", "2", "--device", "cpu", "--quiet",
+                 "--out", out]) == 0
+assert cli.main(["temperature_pore", "--particles", "1000", "--steps", "2",
+                 "--device", "cpu", "--quiet", "--out", out, "--resume",
+                 out + "/checkpoint_00000002.npz"]) == 0
 cfg = amt.temperature_pore_config().scaled_to(2000)
 sim = amt.Simulation(amt.make_workload(cfg), device="cpu")
 state, measure, metrics = sim.run(num_steps=2)
