@@ -5,9 +5,11 @@ the temperature pore and the specular pore (``PoreConfig``) on the cell
 grid with either narrow phase (the per-step sweep or the Verlet pair list,
 ``EngineConfig(narrowphase="pairs", rebuild_interval=K)``), and the
 specular cube (``CubeConfig``) with the all-pairs broad phase.
-``ShardedSimulation(make_workload(cfg), n_shards=S)`` runs the pores' sweep
-cut into S z-slabs with halo exchange and migration, the slabs dealt over
-the visible cards (all on one card where there is one).  Their kernels
+``ShardedSimulation(make_workload(cfg), n_shards=S)`` runs the same
+workloads on the cell grid (either narrow phase for the pores, the sweep
+for the cube) cut into S z-slabs with halo exchange and migration, the
+slabs dealt over the visible cards (all on one card where there is one).
+Their kernels
 (the fused drift/walls/recapture pass; cell binning and table, partner
 sweep, impulse exchange, histogram flush; rebuild sweep, pair emission,
 compaction, pair test and resolve, dirty re-search; the all-pairs search;

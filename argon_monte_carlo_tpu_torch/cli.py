@@ -71,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="JSONL metrics path (default: <out>/metrics.jsonl)")
         w.add_argument("--mesh", type=int, default=1,
                        help="z-slabs of the sharded engine (1 = one "
-                            "Simulation); the slabs are dealt over the "
+                            "Simulation; either narrow phase; the cube on "
+                            "the cell grid); the slabs are dealt over the "
                             "visible cards")
         w.add_argument("--device", type=str, default="cuda",
                        help="'cuda' (default: the card; an error without "
@@ -91,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
 def make_config(args):
     """The workload's config from parsed flags, with the reference CLI's
     defaults: pairs/K=8 for the pores, the sweep with the all-pairs broad
-    phase for the cube (cli.py:88-126)."""
+    phase for the cube (cli.py:88-126), on the cell grid where ``--mesh``
+    cuts it into slabs."""
     from .config import CubeConfig, EngineConfig, PoreConfig
 
     narrowphase = getattr(args, "narrowphase", None)
@@ -106,7 +108,9 @@ def make_config(args):
                       narrowphase=narrowphase,
                       rebuild_interval=rebuild_interval)
     if args.workload == "cube":
-        eng_kwargs["broadphase"] = args.broadphase or "allpairs"
+        sharded = getattr(args, "mesh", 1) > 1
+        eng_kwargs["broadphase"] = args.broadphase or (
+            "cells" if sharded else "allpairs")
         cfg = CubeConfig(
             num_particles_override=args.particles,
             engine=EngineConfig(**eng_kwargs),
@@ -154,13 +158,9 @@ def main(argv=None) -> int:
             return _refuse("--plot needs matplotlib, which is not installed")
     cfg = make_config(args)
     sharded = args.mesh > 1
-    if sharded and cfg.engine.narrowphase == "pairs":
-        return _refuse(
-            f"--mesh {args.mesh} runs the sweep only: the sharded pairs "
-            "mode is not ported yet (ROADMAP Q1-C); pass --narrowphase sweep")
-    if sharded and args.workload == "cube":
-        return _refuse(f"--mesh {args.mesh}: the sharded engine runs the "
-                       "pore workloads only")
+    if sharded and cfg.engine.broadphase != "cells":
+        return _refuse(f"--mesh {args.mesh} cuts the cell grid into slabs: "
+                       "drop --broadphase allpairs")
 
     os.makedirs(args.out, exist_ok=True)
     logger = metrics_io.MetricsLogger(
@@ -185,12 +185,14 @@ def main(argv=None) -> int:
                     f"{args.resume} holds {lanes} lanes a slab; this run's "
                     f"plan has {sim.plan.shard_capacity} (resume with the "
                     "same --mesh and workload)")
+            window = ckpt_io.load_sharded_pair_window(args.resume,
+                                                      sim.devices)
         else:
             state, measure, gen, start_step = ckpt_io.load_checkpoint(
                 args.resume, device)
             window = ckpt_io.load_pair_window(args.resume, device)
-            if window is not None:
-                sim.resume_pair_window(state, *window)
+        if window is not None:
+            sim.resume_pair_window(state, *window)
         if not args.quiet:
             print(f"resumed from {args.resume} at step {start_step}")
             if ckpt_io.written_by_reference(args.resume):
@@ -237,7 +239,8 @@ def main(argv=None) -> int:
             path = os.path.join(args.out, f"checkpoint_{step:08d}.npz")
             if sharded:
                 ckpt_io.save_sharded_checkpoint(path, state, measure, gen,
-                                                step)
+                                                step,
+                                                pair_window=sim.pair_window())
             else:
                 ckpt_io.save_checkpoint(path, state, measure, gen, step,
                                         pair_window=sim.pair_window())

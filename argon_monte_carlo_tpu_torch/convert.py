@@ -90,10 +90,12 @@ def pairlist_from_numpy(arrays: dict, capacity: int, device="cpu",
     """The port's PairList from the fields of the reference's (a, b,
     cursor, age, mega0, pslot0, hot, pending1, overflow, spill).  mega0's
     planes x, y, z, index-as-float and reach, ``capacity`` slots each,
-    become pos0 (rows, cap, 3), the int32 idx0 and reach0."""
+    become pos0 (rows, cap, 3), the int32 idx0 and reach0; the sharded
+    engine's sixth plane, the global id before the reach, is dropped (the
+    port reads a candidate's id as ``ids[idx0]``)."""
     mega0 = np.asarray(arrays["mega0"])
     rows = mega0.shape[0]
-    planes = mega0.reshape(rows, 5, capacity)
+    planes = mega0.reshape(rows, mega0.shape[1] // capacity, capacity)
     return PairList(
         a=_tensor(arrays["a"], torch.int32, device),
         b=_tensor(arrays["b"], torch.int32, device),
@@ -101,7 +103,7 @@ def pairlist_from_numpy(arrays: dict, capacity: int, device="cpu",
         age=_tensor(arrays["age"], torch.int32, device),
         pos0=_tensor(np.moveaxis(planes[:, :3], 1, 2), dtype, device),
         idx0=_tensor(planes[:, 3], torch.int32, device),
-        reach0=_tensor(planes[:, 4], dtype, device),
+        reach0=_tensor(planes[:, -1], dtype, device),
         pslot0=_tensor(arrays["pslot0"], torch.int32, device),
         hot=_tensor(arrays["hot"], torch.bool, device),
         pending1=_tensor(arrays["pending1"], torch.bool, device),

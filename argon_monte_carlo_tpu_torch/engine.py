@@ -240,20 +240,26 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
     return step
 
 
-def pairs_config_for(workload: Workload) -> pairs_ops.PairConfig:
+def pairs_config_for(workload: Workload,
+                     num_particles: Optional[int] = None
+                     ) -> pairs_ops.PairConfig:
     """PairConfig sized from the physics (engine.py:227-307).
 
     lambda(K) = density * 4/3 pi (cr + 2 v_mean K dt)^3 is the expected
     in-reach candidate count per particle at rebuild; the expected
     cell-table spills at the grid's capacity (each spilled particle stays
-    hot for the window) widen the re-search budget.  Raises ValueError for
-    a workload no top_k emission can cover.
+    hot for the window) widen the re-search budget.  ``num_particles``
+    overrides the population the capacities are sized for (the z-slab
+    engine passes a slab's local and ghost lane count; the density, and so
+    lambda, is the whole run's).  Raises ValueError for a workload no top_k
+    emission can cover.
     """
     cfg = workload.cfg
     eng = cfg.engine
     physics = cfg.physics
     k = eng.rebuild_interval
     n = cfg.num_molecules
+    n_sized = n if num_particles is None else num_particles
     density = n / workload.fluid_volume
     radius = physics.collision_range + 2.0 * physics.v_mean * k * cfg.dt
     lam = density * (4.0 / 3.0) * math.pi * radius**3
@@ -270,9 +276,9 @@ def pairs_config_for(workload: Workload) -> pairs_ops.PairConfig:
         log_p += math.log(occ) - math.log(j)
         if j > cap_cells:
             e_spill_per_cell += (j - cap_cells) * math.exp(log_p)
-    e_spill = (n / max(occ, 1e-9)) * e_spill_per_cell
+    e_spill = (n_sized / max(occ, 1e-9)) * e_spill_per_cell
     spill_hot = int(math.ceil(1.5 * e_spill))
-    pcfg = pairs_ops.default_pair_config(n, k, pair_expectation=lam,
+    pcfg = pairs_ops.default_pair_config(n_sized, k, pair_expectation=lam,
                                          spill_hot=spill_hot)
     # The emission is one-sided: lambda/2 expected emissions per particle
     # against the top_k budget.
@@ -287,6 +293,27 @@ def pairs_config_for(workload: Workload) -> pairs_ops.PairConfig:
             f"narrowphase='sweep'."
         )
     return pcfg
+
+
+def shared_compaction(pending_mask: torch.Tensor, dirty: torch.Tensor,
+                      research_capacity: int):
+    """(shared_idx, dirty_idx, research_dropped) of a pairs step: one
+    N-sized compaction (K6) of the lanes the flush or the re-search needs,
+    shared by both, then the dirty ones among it (K6 again), padded with
+    n; ``research_dropped`` counts the dirty lanes beyond
+    ``research_capacity`` (engine.py:407-441)."""
+    n = dirty.shape[0]
+    shared_cap = max(measure_ops.FLUSH_CAPACITY, n // 64)
+    shared_idx = compact_indices(pending_mask | dirty, shared_cap, n)
+    dirty_at = (shared_idx < n) & dirty[torch.clamp(shared_idx,
+                                                    max=n - 1).long()]
+    dsel = compact_indices(dirty_at, research_capacity, shared_cap)
+    dirty_idx = torch.where(
+        dsel < shared_cap,
+        shared_idx[torch.clamp(dsel, max=shared_cap - 1).long()], n)
+    research_dropped = (torch.sum(dirty, dtype=torch.int32)
+                        - torch.sum(dirty_idx < n, dtype=torch.int32))
+    return shared_idx, dirty_idx, research_dropped
 
 
 def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
@@ -330,21 +357,8 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
         hot = plist.hot | recap_w | recap_p
         latent_full = torch.sum(plist.pending1, dtype=torch.int32)
         dirty = bump | hot | plist.pending1
-        n = state.num_particles
-
-        # One N-sized compaction shared by the flush and the re-search,
-        # then the dirty ones among it.
-        shared_cap = max(measure_ops.FLUSH_CAPACITY, n // 64)
-        shared_idx = compact_indices(measure.pending_mask | dirty,
-                                     shared_cap, n)
-        dirty_at = (shared_idx < n) & dirty[torch.clamp(shared_idx,
-                                                        max=n - 1).long()]
-        dsel = compact_indices(dirty_at, pcfg.research_capacity, shared_cap)
-        dirty_idx = torch.where(
-            dsel < shared_cap,
-            shared_idx[torch.clamp(dsel, max=shared_cap - 1).long()], n)
-        research_dropped = (torch.sum(dirty, dtype=torch.int32)
-                            - torch.sum(dirty_idx < n, dtype=torch.int32))
+        shared_idx, dirty_idx, research_dropped = shared_compaction(
+            measure.pending_mask, dirty, pcfg.research_capacity)
         plist = dataclasses.replace(plist, hot=hot)
         # In place: the list is this step's alone (``hot`` was made above,
         # the rest is the Simulation's carried list, replaced by the one

@@ -29,7 +29,12 @@ falls in the window; at 557,649 molecules one does.
 The sharded file keeps the reference's flat lane layout (slabs
 concatenated into ``(S * capacity, ...)``, ``valid``, ``gid``,
 ``sharded``, the measurements as ``m_<field>`` stacked on a leading
-``(S,)`` axis) and one generator state a slab, ``(S, L)``.
+``(S,)`` axis) and one generator state a slab, ``(S, L)``.  A sharded
+pairs run's file also holds each slab's window (``ops/pairs.
+PairWindow``: the pair list's fields as ``pairs_<field>``, the frozen
+export lists and the ghosts' ids and flags under their own names, each
+stacked on the slab axis) and ``pairs_window_left``, so a resumed run
+migrates and rebuilds on the uninterrupted run's steps.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..ops.pairs import PairList
+from ..ops.pairs import PairList, PairWindow
 from ..state import Measurements, ParticleState
 
 STATE_FIELDS = ("pos", "vel", "paths", "has_collided")
@@ -157,19 +162,57 @@ def load_pair_window(path: str, device="cpu"):
         return plist, int(z["pairs_window_left"])
 
 
+_WINDOW_LISTS = [f.name for f in dataclasses.fields(PairWindow)
+                 if f.name != "plist"]
+
+
 def save_sharded_checkpoint(path: str, state, measure, generators,
-                            step: int) -> str:
+                            step: int, pair_window=None) -> str:
     """A ``ShardedSimulation``'s per-slab lists in the reference's flat
-    layout, with each slab's generator state."""
+    layout, with each slab's generator state; in pairs mode also
+    ``pair_window`` (``ShardedSimulation.pair_window()``: each slab's
+    PairWindow and the steps left in the window)."""
     flat = convert.sharded_state_to_numpy(state, measure)
     names = [f.name for f in dataclasses.fields(Measurements)]
+    arrays = {}
+    if pair_window is not None:
+        windows, window_left = pair_window
+        for f in dataclasses.fields(PairList):
+            arrays[f"pairs_{f.name}"] = np.stack(
+                [getattr(w.plist, f.name).cpu().numpy() for w in windows])
+        for name in _WINDOW_LISTS:
+            arrays[f"pairs_{name}"] = np.stack(
+                [getattr(w, name).cpu().numpy() for w in windows])
+        arrays["pairs_window_left"] = np.asarray(window_left)
     np.savez_compressed(
         path,
         **{k: flat[k] for k in (*STATE_FIELDS, "valid", "gid")},
-        **{f"m_{k}": flat[k] for k in names},
+        **{f"m_{k}": flat[k] for k in names}, **arrays,
         sharded=np.asarray(True), run_key=np.zeros(2, np.uint32),
         step=np.asarray(step), **_generator_arrays(generators))
     return path
+
+
+def load_sharded_pair_window(path: str, devices):
+    """(a PairWindow a slab on ``devices``, steps left in the window)
+    saved with a sharded pairs run's state, or None where the file has
+    none."""
+    with np.load(path) as z:
+        if "pairs_window_left" not in z.files:
+            return None
+        if z["pairs_a"].shape[0] != len(devices):
+            raise ValueError(f"{path}: {z['pairs_a'].shape[0]} slab windows "
+                             f"for {len(devices)} slabs")
+        windows = []
+        for s, dev in enumerate(devices):
+            def put(name):
+                return torch.as_tensor(z[f"pairs_{name}"][s], device=dev)
+
+            plist = PairList(**{f.name: put(f.name)
+                                for f in dataclasses.fields(PairList)})
+            windows.append(PairWindow(plist, **{
+                name: put(name) for name in _WINDOW_LISTS}))
+        return windows, int(z["pairs_window_left"])
 
 
 def load_sharded_checkpoint(path: str, devices):

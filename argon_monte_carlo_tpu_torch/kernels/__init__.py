@@ -49,13 +49,13 @@ _SIGNATURES = {
     "flush_hist": [_P, _P, _I, _I, _I, _F] + [_P] * 8,
     "flush_hist_compacted": [_P, _P, _I, _P, _I, _I, _F] + [_P] * 7,
     "compact": [_P, _I, _I, _I, _P, _P, _P],
-    "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 8
+    "emit_pairs": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 9
                   + [_I, _P],
-    "rebuild_sweep": [_P] * 7 + [_I] * 6 + [_P] * 5,
-    "test_and_resolve": [_P] * 10 + [_I, _I, _I, _F, _F] + [_P] * 6,
+    "rebuild_sweep": [_P] * 9 + [_I] * 11 + [_P] * 5,
+    "test_and_resolve": [_P] * 10 + [_I, _I, _I, _F, _F] + [_P] * 8,
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                         _F] + [_P] * 13,
+                         _F] + [_P] * 14,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 13,
     "allpairs_partner": [_P, _I, _F, _I] + [_P] * 4 + [_I, _P, _P],
     "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 4,

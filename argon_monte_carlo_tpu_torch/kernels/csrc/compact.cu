@@ -138,18 +138,20 @@ __device__ __forceinline__ void fill_ints(int* __restrict__ p, int lo, int hi,
 // The kEmitItems particles from `first`: writes their hot and pending1
 // flags, adds the ones with any candidate to *has and the unswept ones to
 // *uns, and returns their entries' bits (bit q * top_k + k: particle
-// first + q has candidate k; the bits ascend in the list's order).
+// first + q has candidate k; the bits ascend in the list's order).  A lane
+// with valid (optional, the z-slab engine's) false has no entry and no flag
+// (pairs.py:219-244).
 template <bool kVector>
 __device__ __forceinline__ unsigned long long emit_group(
     const int* __restrict__ cands, long long first, int n, int top_k,
     const int* __restrict__ pslot0, int dummy_slot,
     const uint8_t* __restrict__ clipped, const uint8_t* __restrict__ unswept,
-    uint8_t* __restrict__ hot, uint8_t* __restrict__ pending1, int* has,
-    int* uns) {
+    const uint8_t* __restrict__ valid, uint8_t* __restrict__ hot,
+    uint8_t* __restrict__ pending1, int* has, int* uns) {
   const int* rows = cands + first * top_k;
   unsigned long long bits = 0;
   int slot[kEmitItems];
-  bool clip[kEmitItems], un[kEmitItems];
+  bool clip[kEmitItems], un[kEmitItems], live[kEmitItems];
   bool vector = kVector && first + kEmitItems <= n;
   if (vector) {
     const int4* rows4 = reinterpret_cast<const int4*>(rows);
@@ -167,6 +169,10 @@ __device__ __forceinline__ unsigned long long emit_group(
     slot[0] = s4.x; slot[1] = s4.y; slot[2] = s4.z; slot[3] = s4.w;
     clip[0] = c4.x; clip[1] = c4.y; clip[2] = c4.z; clip[3] = c4.w;
     un[0] = u4.x; un[1] = u4.y; un[2] = u4.z; un[3] = u4.w;
+    uchar4 v4 = valid != nullptr
+                    ? *reinterpret_cast<const uchar4*>(valid + first)
+                    : make_uchar4(1, 1, 1, 1);
+    live[0] = v4.x; live[1] = v4.y; live[2] = v4.z; live[3] = v4.w;
   } else {
     for (int q = 0; q < kEmitItems; ++q) {
       long long i = first + q;
@@ -177,11 +183,17 @@ __device__ __forceinline__ unsigned long long emit_group(
       slot[q] = in ? pslot0[i] : 0;
       clip[q] = in && clipped[i];
       un[q] = in && unswept[i];
+      live[q] = in && (valid == nullptr || valid[i]);
     }
   }
   unsigned long long row_mask = (1ull << top_k) - 1;  // top_k <= 16
   bool hot_q[kEmitItems], full_q[kEmitItems];
   for (int q = 0; q < kEmitItems; ++q) {
+    if (!live[q]) {
+      bits &= ~(row_mask << (q * top_k));
+      clip[q] = un[q] = false;
+      slot[q] = 0;
+    }
     unsigned long long row = (bits >> (q * top_k)) & row_mask;
     *has += row != 0;
     *uns += un[q];
@@ -215,10 +227,11 @@ __launch_bounds__(amc::kThreads) __global__ void emit_pairs_kernel(
     const uint8_t* __restrict__ clipped, const uint8_t* __restrict__ unswept,
     const int* __restrict__ cell_overflow,
     const int* __restrict__ old_overflow, const int* __restrict__ old_spill,
-    int m_cap, int ntiles, int nblocks, int* __restrict__ a,
-    int* __restrict__ b, int* __restrict__ cursor, uint8_t* __restrict__ hot,
-    uint8_t* __restrict__ pending1, int* __restrict__ overflow,
-    int* __restrict__ spill, unsigned long long* __restrict__ scratch) {
+    const uint8_t* __restrict__ valid, int m_cap, int ntiles, int nblocks,
+    int* __restrict__ a, int* __restrict__ b, int* __restrict__ cursor,
+    uint8_t* __restrict__ hot, uint8_t* __restrict__ pending1,
+    int* __restrict__ overflow, int* __restrict__ spill,
+    unsigned long long* __restrict__ scratch) {
   __shared__ int s_total;
   __shared__ bool s_last;
   unsigned long long* uns_word = scratch + 1 + ntiles;
@@ -234,7 +247,7 @@ __launch_bounds__(amc::kThreads) __global__ void emit_pairs_kernel(
       first[g] = static_cast<long long>(ticket) * kEmitTile +
                  g * kEmitStride + threadIdx.x * kEmitItems;
       bits[g] = emit_group<kVector>(cands, first[g], n, top_k, pslot0,
-                                    dummy_slot, clipped, unswept, hot,
+                                    dummy_slot, clipped, unswept, valid, hot,
                                     pending1, &has, &uns);
     }
     // The list's order is group-major in a tile: a scan a group.
@@ -337,14 +350,16 @@ AMC_EXPORT int amc_compact(const uint8_t* mask, int len, int size, int fill,
 // K5.  scratch holds scratch_words zero 64-bit words of this stream (at
 // least 2 + ceil(n / 1024): the look-back's and the unswept count's) and is
 // left zero; with fewer, nothing is launched and cudaErrorInvalidValue is
-// returned.  top_k is 1 to 16.  One launch, the same arguments whenever
-// the same tensors are emitted: safe to record in a CUDA graph.
+// returned.  top_k is 1 to 16; valid may be null (every lane holds a
+// particle).  One launch, the same arguments whenever the same tensors are
+// emitted: safe to record in a CUDA graph.
 AMC_EXPORT int amc_emit_pairs(
     const int* cands, int n, int top_k, const int* pslot0, int dummy_slot,
     const uint8_t* clipped, const uint8_t* unswept, const int* cell_overflow,
     const int* old_overflow, const int* old_spill, int m_cap, int* a, int* b,
     int* cursor, uint8_t* hot, uint8_t* pending1, int* overflow, int* spill,
-    unsigned long long* scratch, int scratch_words, cudaStream_t stream) {
+    const uint8_t* valid, unsigned long long* scratch, int scratch_words,
+    cudaStream_t stream) {
   int ntiles = max(amc::blocks_for(n, kEmitTile), 1);
   if (top_k < 1 || top_k > kMaxTopK || scratch_words < ntiles + 2) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -357,13 +372,14 @@ AMC_EXPORT int amc_emit_pairs(
   uintptr_t narrow = reinterpret_cast<uintptr_t>(clipped) |
                      reinterpret_cast<uintptr_t>(unswept) |
                      reinterpret_cast<uintptr_t>(hot) |
-                     reinterpret_cast<uintptr_t>(pending1);
+                     reinterpret_cast<uintptr_t>(pending1) |
+                     reinterpret_cast<uintptr_t>(valid);
   auto kernel = (wide & 15u) == 0 && (narrow & 3u) == 0
                     ? emit_pairs_kernel<true>
                     : emit_pairs_kernel<false>;
   kernel<<<nblocks, amc::kThreads, 0, stream>>>(
       cands, n, top_k, pslot0, dummy_slot, clipped, unswept, cell_overflow,
-      old_overflow, old_spill, m_cap, ntiles, nblocks, a, b, cursor, hot,
-      pending1, overflow, spill, scratch);
+      old_overflow, old_spill, valid, m_cap, ntiles, nblocks, a, b, cursor,
+      hot, pending1, overflow, spill, scratch);
   return static_cast<int>(cudaGetLastError());
 }

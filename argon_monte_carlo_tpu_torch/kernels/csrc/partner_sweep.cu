@@ -1,5 +1,6 @@
-// K9 partner_sweep: each particle's lowest-index partner j != i within the
-// search radius, over the 27 neighbour cells of its own cell row.
+// K9 partner_sweep: each particle's lowest-index (with ids, lowest-id)
+// partner j != i within the search radius, over the 27 neighbour cells of
+// its own cell row.
 //
 // Replaces the deleted Pallas kernel _sweep_kernel / pallas_partner_search
 // (argon_monte_carlo_tpu/ops/pallas_sweep.py:255-400, pallas_call at :327,
@@ -34,12 +35,18 @@
 // built with -fmad=false so nothing is contracted into an FMA.
 //
 // The z-slab engine's arguments (collide.py:433-442, 559-563, 955-959):
-// ids (optional) replaces the lane index in the self-exclusion, so a
-// particle never pairs with its own ghost copy, while the partner stays the
-// lowest lane index (the id is read only for a candidate already in range);
-// valid (optional) gives a padding lane no partner; a particle whose own
-// cell lies outside [cell_start, cell_start + cell_width) gets none either
-// (its neighbour rows are staged wherever they lie).  Null pointers and the
+// ids (optional, the slab's global ids) replaces the lane index in the
+// self-exclusion, so a particle never pairs with its own ghost copy, and in
+// the order of the candidates: the partner is the candidate of the lowest
+// id (the lowest lane among equal ids), the minimum taken over (id, lane)
+// packed into 64 bits, the id read only for a candidate already in range.
+// The two slabs holding a pair across a face number their lanes
+// differently, so only an order both share lets them make the same match;
+// by global id it is the one-card rule (the reference orders by lane,
+// collide.py:876, and its sharded cube drifts in energy for it).  valid
+// (optional) gives a padding lane no partner; a particle whose own cell
+// lies outside [cell_start, cell_start + cell_width) gets none either (its
+// neighbour rows are staged wherever they lie).  Null pointers and the
 // window [0, num_cells) are the single-slab sweep.
 #include "cell_walk.cuh"
 
@@ -56,10 +63,12 @@ __launch_bounds__(amc::kWalkThreads) __global__ void partner_walk_kernel(
     const int* __restrict__ ids, const uint8_t* __restrict__ valid, int n,
     int num_cells, int cap, int cell_start, int cell_width, float r2,
     int* __restrict__ partner) {
+  const unsigned long long kNone = ~0ull;
   extern __shared__ float4 dyn[];
   __shared__ amc::RunIndex index;
   float4* cand = dyn;
-  int* best_all = reinterpret_cast<int*>(dyn + amc::kStagedRows * cap);
+  unsigned long long* best_all =
+      reinterpret_cast<unsigned long long*>(dyn + amc::kStagedRows * cap);
 
   int c0 = run_start[blockIdx.x];
   int len = run_start[blockIdx.x + 1] - c0;
@@ -79,8 +88,8 @@ __launch_bounds__(amc::kWalkThreads) __global__ void partner_walk_kernel(
   // The cell's own particles: staged row warp + 1 of group 4 (dz = dy = 0).
   int own_n = index.count[4 * amc::kRunRows + warp + 1];
   const float4* own = cand + amc::group_base(4, cap) + index.start[4][warp + 1];
-  int* best = best_all + warp * cap;
-  for (int a = lane; a < own_n; a += 32) best[a] = amc::kNoPartner;
+  unsigned long long* best = best_all + warp * cap;
+  for (int a = lane; a < own_n; a += 32) best[a] = kNone;
   __syncwarp();
 
   // Candidate q of the cell, 0 <= q < total, is slot q + shift[g] of the
@@ -116,8 +125,14 @@ __launch_bounds__(amc::kWalkThreads) __global__ void partner_walk_kernel(
         int i = __float_as_int(o.w);
         // The id is read only for a candidate in range: a gather for every
         // candidate made the sweep 1.4x slower.
-        bool other = ids != nullptr ? ids[j] != ids[i] : j != i;
-        if (other) atomicMin(&best[a], j);
+        int key = ids != nullptr ? ids[j] : j;
+        bool other = ids != nullptr ? key != ids[i] : j != i;
+        if (other) {
+          atomicMin(&best[a],
+                    (static_cast<unsigned long long>(
+                         static_cast<unsigned>(key)) << 32) |
+                        static_cast<unsigned>(j));
+        }
       }
     }
   }
@@ -125,8 +140,8 @@ __launch_bounds__(amc::kWalkThreads) __global__ void partner_walk_kernel(
   for (int a = lane; a < own_n; a += 32) {
     int i = __float_as_int(own[a].w);
     if (valid != nullptr && !valid[i]) continue;
-    int b = best[a];
-    partner[i] = b < amc::kNoPartner ? b : -1;
+    unsigned long long b = best[a];
+    partner[i] = b != kNone ? static_cast<int>(b & 0xffffffffu) : -1;
   }
 }
 
@@ -151,14 +166,15 @@ AMC_EXPORT int amc_partner_sweep(const float* pos, const int* table,
   }
   if (n > 0 && num_runs > 0) {
     size_t bytes = amc::run_stage_bytes(cap) +
-                   sizeof(int) * amc::kRunCells * static_cast<size_t>(cap);
+                   sizeof(unsigned long long) * amc::kRunCells *
+                       static_cast<size_t>(cap);
     cudaError_t rc = cudaFuncSetAttribute(
         partner_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (rc != cudaSuccess) return static_cast<int>(rc);
     partner_walk_kernel<<<num_runs, amc::kWalkThreads, bytes, stream>>>(
-        pos, table, neighbors, run_start, ids, valid, n, num_cells, cap,
-        cell_start, cell_width, r2, partner);
+        pos, table, neighbors, run_start, ids, valid, n, num_cells,
+        cap, cell_start, cell_width, r2, partner);
   }
   return static_cast<int>(cudaGetLastError());
 }

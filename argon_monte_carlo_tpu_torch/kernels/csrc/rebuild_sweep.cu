@@ -43,6 +43,19 @@
 //      or its left neighbour's entry).  Lists are padded with -1 on the way
 //      out.  Cells off the active list and empty cells do nothing; a run
 //      without any working cell leaves before staging.
+//
+// The z-slab engine's arguments (collide.py:453-622 with one_sided and
+// half_shell, ops/pairs.py:182-189), written simply: ids (optional) replaces
+// the index in the own-cell rule, read only for a candidate in range (the
+// candidates stay lane indices); valid (optional) takes a padding lane out
+// as an emitter and as a candidate (read only for a candidate in range); the
+// emitting cells are [cell_start, cell_start + cell_width) and, with
+// use_active, those of active rank active_start <= rank < active_start +
+// active_width, a listed particle elsewhere being unswept only with
+// use_active (Emitters below).  Null pointers, the window [0, num_cells)
+// and every active rank are the single-card sweep.  A slab's window is a
+// few layers of the grid: the walk still launches a block a run of the
+// whole grid, and the runs outside leave at once.
 #include "cell_walk.cuh"
 
 namespace {
@@ -51,12 +64,26 @@ constexpr int kMaxTopK = 16;
 constexpr int kShellLo = 4;  // first (dz, dy) group of the half shell
 constexpr int kShellGroups = amc::kGroups - kShellLo;
 
+// Which cells emit (ops/collide.py _emitters).
+struct Emitters {
+  const int* active_rank;
+  int cell_start, cell_width, active_start, active_width, use_active;
+
+  __device__ __forceinline__ bool operator()(int cell) const {
+    if (cell < cell_start || cell - cell_start >= cell_width) return false;
+    if (!use_active) return true;
+    int r = active_rank[cell];
+    return r >= active_start && r - active_start < active_width;
+  }
+};
+
 __global__ void pack_and_fill_kernel(
     const float* __restrict__ pos, const float* __restrict__ reach,
     const int* __restrict__ table, const int* __restrict__ pslot,
-    const int* __restrict__ active_rank, int slots, int n, int num_cells,
-    int cap, int top_k, float* __restrict__ pos0, float* __restrict__ reach0,
-    int* __restrict__ cands, uint8_t* __restrict__ unswept) {
+    const uint8_t* __restrict__ valid, Emitters emits, int slots, int n,
+    int num_cells, int cap, int top_k, float* __restrict__ pos0,
+    float* __restrict__ reach0, int* __restrict__ cands,
+    uint8_t* __restrict__ unswept) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < slots) {
     int j = table[t];
@@ -68,10 +95,10 @@ __global__ void pack_and_fill_kernel(
   }
   if (t < n) {
     int s = pslot[t];
-    bool listed = s < num_cells * cap;
+    bool listed = s < num_cells * cap && (valid == nullptr || valid[t]);
     int cell = listed ? s / cap : num_cells;
-    bool covered = listed && active_rank[cell] >= 0;
-    unswept[t] = listed && !covered;
+    bool covered = listed && emits(cell);
+    unswept[t] = emits.use_active && listed && !covered;
     if (!covered) {
       int* out = cands + static_cast<long long>(t) * top_k;
       for (int k = 0; k < top_k; ++k) out[k] = -1;
@@ -82,8 +109,9 @@ __global__ void pack_and_fill_kernel(
 __launch_bounds__(amc::kWalkThreads) __global__ void rebuild_walk_kernel(
     const float* __restrict__ pos, const float* __restrict__ reach,
     const int* __restrict__ table, const int* __restrict__ neighbors,
-    const int* __restrict__ run_start, const int* __restrict__ active_rank,
-    int n, int num_cells, int cap, int top_k, int* __restrict__ cands) {
+    const int* __restrict__ run_start, const int* __restrict__ ids,
+    const uint8_t* __restrict__ valid, Emitters emits, int n, int num_cells,
+    int cap, int top_k, int* __restrict__ cands) {
   const unsigned kFull = 0xffffffffu;
   extern __shared__ float4 dyn[];
   __shared__ amc::RunIndex index;
@@ -97,8 +125,8 @@ __launch_bounds__(amc::kWalkThreads) __global__ void rebuild_walk_kernel(
   int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;
   int cell = c0 + warp;
-  // A cell with work: on the active list and its row not empty.
-  bool work = warp < len && active_rank[cell] >= 0 &&
+  // A cell with work: an emitting cell and its row not empty.
+  bool work = warp < len && emits(cell) &&
               table[static_cast<long long>(cell) * cap] < n;
   if (!__syncthreads_or(work)) return;
 
@@ -148,8 +176,12 @@ __launch_bounds__(amc::kWalkThreads) __global__ void rebuild_walk_kernel(
       float d2 = dx * dx + dy * dy;
       d2 = d2 + dz * dz;
       float th = cand_reach[own_at + a] + rj;
-      bool hit = active && d2 < th * th &&
-                 (!own_cell || j > __float_as_int(o.w));
+      bool hit = active && d2 < th * th;
+      if (hit && own_cell) {
+        int i = __float_as_int(o.w);
+        hit = ids != nullptr ? ids[j] > ids[i] : j > i;
+      }
+      if (hit && valid != nullptr) hit = valid[j];
       unsigned hits = __ballot_sync(kFull, hit);
       while (hits != 0) {
         int jb = __shfl_sync(kFull, j, __ffs(hits) - 1);
@@ -167,6 +199,7 @@ __launch_bounds__(amc::kWalkThreads) __global__ void rebuild_walk_kernel(
   __syncwarp();
   for (int e = lane; e < own_n * top_k; e += 32) {
     int i = __float_as_int(cand[own_at + e / top_k].w);
+    if (valid != nullptr && !valid[i]) continue;  // its row is all -1
     int v = list[e];
     cands[static_cast<long long>(i) * top_k + e % top_k] =
         v < amc::kIntBig ? v : -1;
@@ -178,21 +211,25 @@ __launch_bounds__(amc::kWalkThreads) __global__ void rebuild_walk_kernel(
 // table is K2's (num_cells + 1, cap) table; active_rank is (num_cells + 1,)
 // with -1 for inactive cells and the dummy cell; run_start holds
 // num_runs + 1 cell ids, run r being [run_start[r], run_start[r + 1]), at
-// most run_cells cells of one x-row (ops/collide.py cell_runs).  Outputs:
-// pos0 (num_cells + 1, cap, 3), reach0 (num_cells + 1, cap), cands
-// (n, top_k), unswept (n,).  Two launches.
+// most run_cells cells of one x-row (ops/collide.py cell_runs).  ids and
+// valid may be null; the emitting cells are the window's (see the head of
+// this file).  Outputs: pos0 (num_cells + 1, cap, 3), reach0
+// (num_cells + 1, cap), cands (n, top_k), unswept (n,).  Two launches.
 AMC_EXPORT int amc_rebuild_sweep(
     const float* pos, const float* reach, const int* table, const int* pslot,
-    const int* neighbors, const int* active_rank, const int* run_start, int n,
-    int num_cells, int cap, int top_k, int num_runs, int run_cells,
-    float* pos0, float* reach0, int* cands, uint8_t* unswept,
-    cudaStream_t stream) {
+    const int* neighbors, const int* active_rank, const int* run_start,
+    const int* ids, const uint8_t* valid, int n, int num_cells, int cap,
+    int top_k, int num_runs, int run_cells, int cell_start, int cell_width,
+    int active_start, int active_width, int use_active, float* pos0,
+    float* reach0, int* cands, uint8_t* unswept, cudaStream_t stream) {
   if (top_k < 1 || top_k > kMaxTopK || run_cells != amc::kRunCells) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Emitters emits{active_rank, cell_start, cell_width, active_start,
+                 active_width, use_active};
   int slots = (num_cells + 1) * cap;
   pack_and_fill_kernel<<<amc::blocks_for(max(slots, n)), amc::kThreads, 0,
-                         stream>>>(pos, reach, table, pslot, active_rank,
+                         stream>>>(pos, reach, table, pslot, valid, emits,
                                    slots, n, num_cells, cap, top_k, pos0,
                                    reach0, cands, unswept);
   if (n > 0 && num_runs > 0) {
@@ -205,7 +242,7 @@ AMC_EXPORT int amc_rebuild_sweep(
         static_cast<int>(bytes));
     if (rc != cudaSuccess) return static_cast<int>(rc);
     rebuild_walk_kernel<<<num_runs, amc::kWalkThreads, bytes, stream>>>(
-        pos, reach, table, neighbors, run_start, active_rank, n,
+        pos, reach, table, neighbors, run_start, ids, valid, emits, n,
         num_cells, cap, top_k, cands);
   }
   return static_cast<int>(cudaGetLastError());

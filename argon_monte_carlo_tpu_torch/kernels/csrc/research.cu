@@ -49,6 +49,11 @@
 //      holds the grand total and the flag sums: it writes cursor, overflow
 //      and the coverage-lost flag (the entries the full list turned away,
 //      cap_dropped, follow from the total in closed form).
+// The z-slab engine's ids (optional, pairs.py:532-538): "not itself" is
+// ids[j] != ids[d], a particle and its ghost being two lanes; ids[j] is read
+// only for a slot in reach (the reference keeps a global-id plane beside the
+// rebuild-time planes; a slab's lanes keep their ids for the whole window,
+// so ids[idx0] is the same number).
 // No atomics, no tickets and no scratch that outlives the call: the same
 // arguments replay correctly in a CUDA graph, and the output is the same in
 // every run.
@@ -102,8 +107,8 @@ __launch_bounds__(amc::kThreads) __global__ void search_kernel(
     const float* __restrict__ half_extent, int nz, float z_lo,
     float cell_size, int cap, int rk, float half_cr, float dtk,
     float max_reach, float unbounded_drift, float dt, float cr2,
-    int* __restrict__ cands, int* __restrict__ meta,
-    int* __restrict__ latent_per) {
+    const int* __restrict__ ids, int* __restrict__ cands,
+    int* __restrict__ meta, int* __restrict__ latent_per) {
   const unsigned kFull = 0xffffffffu;
   int lane = threadIdx.x & 31;
   int k = blockIdx.x * (amc::kThreads / 32) + (threadIdx.x >> 5);
@@ -124,6 +129,7 @@ __launch_bounds__(amc::kThreads) __global__ void search_kernel(
   float speed = sqrtf(s2);
   float ri = fminf(half_cr + speed * dtk, max_reach);
   bool unbounded = speed * dt > unbounded_drift;
+  int my_id = ids != nullptr ? ids[d] : d;
   // No centre: the reference's re-search bins on a pore grid (the pairs
   // engine refuses the cube, the one grid with a centre).
   int cell = amc::assign_cell(x, y, z, 0.0f, 0.0f, nx, layer_base,
@@ -158,7 +164,7 @@ __launch_bounds__(amc::kThreads) __global__ void search_kernel(
     for (int u = 0; u < kSearchBatch; ++u) {
       bool hit = false;
       bool within = false;
-      if (j[u] < n && j[u] != d) {
+      if (j[u] < n && (ids != nullptr || j[u] != d)) {
         float dx = x - cx[u];
         float dy = y - cy[u];
         float dz = z - cz[u];
@@ -166,6 +172,7 @@ __launch_bounds__(amc::kThreads) __global__ void search_kernel(
         d2 = d2 + dz * dz;
         float th = ri + cr[u];
         hit = d2 < th * th;
+        if (hit && ids != nullptr) hit = ids[j[u]] != my_id;
         within = hit && d2 < cr2;
       }
       unsigned hits = __ballot_sync(kFull, hit);
@@ -249,7 +256,7 @@ __launch_bounds__(amc::kThreads) __global__ void append_kernel(
 }  // namespace
 
 // In place: reach0, hot, a, b.  Outputs: cursor_out, overflow_out, lost,
-// latent_per (e,).  Scratch: cands (e * rk), meta (e).
+// latent_per (e,).  Scratch: cands (e * rk), meta (e).  ids may be null.
 AMC_EXPORT int amc_research_dirty(
     const float* pos, const float* vel, const int* dirty_idx, int e, int n,
     const uint8_t* bump, const int* pslot0, const float* pos0,
@@ -260,7 +267,7 @@ AMC_EXPORT int amc_research_dirty(
     float unbounded_drift, float dt, float cr2, const int* cursor,
     const int* overflow, float* reach0, uint8_t* hot, int* a, int* b,
     int* cursor_out, int* overflow_out, uint8_t* lost, int* latent_per,
-    int* cands, int* meta, cudaStream_t stream) {
+    int* cands, int* meta, const int* ids, cudaStream_t stream) {
   if (rk < 1 || rk > kMaxResearchTopK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -272,7 +279,7 @@ AMC_EXPORT int amc_research_dirty(
                     stream>>>(
         pos, vel, dirty_idx, e, n, pos0, reach0, idx0, neighbors, nx,
         layer_base, half_extent, nz, z_lo, cell_size, cap, rk, half_cr, dtk,
-        max_reach, unbounded_drift, dt, cr2, cands, meta, latent_per);
+        max_reach, unbounded_drift, dt, cr2, ids, cands, meta, latent_per);
   }
   append_kernel<<<max(amc::blocks_for(e), 1), amc::kThreads, 0, stream>>>(
       dirty_idx, e, cands, meta, rk, append_cap, m_cap, cursor, overflow, a,

@@ -43,6 +43,13 @@
 //      collision_count).
 //   3. reset: choice back to INT_BIG at every event's endpoints, so the
 //      scratch is INT_BIG between calls and no N-sized fill is needed.
+// The z-slab engine's arguments (pairs.py:300-309, 340-346, 415-428),
+// written simply: with ids (optional) the choice holds the partner's global
+// id instead of its lane, and the claim above orders a pair by id (the ids
+// of the lanes an entry names are distinct, so the argument is the same);
+// with local_mask (optional) every lane's state is updated, as the owner of
+// a ghost updates it, but only a local lane is staged, and a pair is counted
+// when its lane of the lower id is local: once over the slabs.
 // The scratches (look-back words, choice, event list) belong to one stream
 // and are kept so by the kernels themselves; nothing about a call comes
 // from the host, so the launches replay correctly in a CUDA graph.  No
@@ -54,6 +61,11 @@ namespace {
 
 constexpr int kEntries = 4;  // entries a thread of the test, one int4 load
 constexpr int kTile = amc::kThreads * kEntries;
+
+// The key the choice orders partners by: the global id, or the lane.
+__device__ __forceinline__ int key_of(const int* __restrict__ ids, int i) {
+  return ids != nullptr ? ids[i] : i;
+}
 
 __device__ __forceinline__ bool collides(const float* __restrict__ pos,
                                          int i, int j, int n, float cr2) {
@@ -73,7 +85,7 @@ __launch_bounds__(amc::kThreads) __global__ void test_compact_kernel(
     const int* __restrict__ b, int m, int n, float cr2, int e_cap,
     int ntiles, unsigned long long* __restrict__ scan,
     int* __restrict__ ev_a, int* __restrict__ ev_b, int* __restrict__ events,
-    int* choice, uint8_t* __restrict__ collided,
+    int* choice, const int* __restrict__ ids, uint8_t* __restrict__ collided,
     int* __restrict__ n_collisions, int* __restrict__ overflow_count) {
   long long gid = static_cast<long long>(blockIdx.x) * blockDim.x +
                   threadIdx.x;
@@ -120,8 +132,8 @@ __launch_bounds__(amc::kThreads) __global__ void test_compact_kernel(
     if (rank < e_cap) {
       ev_a[rank] = ia[k];
       ev_b[rank] = ib[k];
-      atomicMin(&choice[ia[k]], ib[k]);
-      atomicMin(&choice[ib[k]], ia[k]);
+      atomicMin(&choice[ia[k]], key_of(ids, ib[k]));
+      atomicMin(&choice[ib[k]], key_of(ids, ia[k]));
     }
     ++rank;
   }
@@ -135,16 +147,17 @@ __launch_bounds__(amc::kThreads) __global__ void test_compact_kernel(
   if (last) amc::release_tiles(scan, ntiles);
 }
 
-// record_completed with the pre-collision velocity v, then end_paths along
-// the new velocity u (the reference's order of operations).
+// record_completed with the pre-collision velocity v (a local lane only),
+// then end_paths along the new velocity u (the reference's order of
+// operations).
 __device__ __forceinline__ void end_path(
     int i, float vx, float vy, float vz, float ux, float uy, float uz,
     float t, float* __restrict__ paths, uint8_t* __restrict__ has_collided,
     float* __restrict__ pend_vals, uint8_t* __restrict__ pend_mask,
-    uint8_t* __restrict__ collided) {
+    const uint8_t* __restrict__ local, uint8_t* __restrict__ collided) {
   float* pth = paths + 4 * i;
   float p0 = pth[0], p1 = pth[1], p2 = pth[2], p3 = pth[3];
-  if (has_collided[i]) {
+  if (has_collided[i] && (local == nullptr || local[i])) {
     float s2 = vx * vx + vy * vy;
     s2 = s2 + vz * vz;
     float* out = pend_vals + 4 * i;
@@ -170,7 +183,8 @@ __device__ __forceinline__ bool resolve_pair(
     int i, int j, float cr, float cr2, float* __restrict__ pos,
     float* __restrict__ vel, float* __restrict__ paths,
     uint8_t* __restrict__ has_collided, float* __restrict__ pend_vals,
-    uint8_t* __restrict__ pend_mask, uint8_t* __restrict__ collided) {
+    uint8_t* __restrict__ pend_mask, const uint8_t* __restrict__ local,
+    uint8_t* __restrict__ collided) {
   float ax = pos[3 * i], ay = pos[3 * i + 1], az = pos[3 * i + 2];
   float avx = vel[3 * i], avy = vel[3 * i + 1], avz = vel[3 * i + 2];
   float bx = pos[3 * j], by = pos[3 * j + 1], bz = pos[3 * j + 2];
@@ -212,36 +226,44 @@ __device__ __forceinline__ bool resolve_pair(
   vel[3 * j + 1] = nby;
   vel[3 * j + 2] = nbz;
   end_path(i, avx, avy, avz, nax, nay, naz, t, paths, has_collided,
-           pend_vals, pend_mask, collided);
+           pend_vals, pend_mask, local, collided);
   end_path(j, bvx, bvy, bvz, nbx, nby, nbz, t, paths, has_collided,
-           pend_vals, pend_mask, collided);
+           pend_vals, pend_mask, local, collided);
   return true;
 }
 
 __global__ void resolve_kernel(
     const int* __restrict__ ev_a, const int* __restrict__ ev_b,
-    const int* __restrict__ events, int* choice, float cr, float cr2,
+    const int* __restrict__ events, int* choice, const int* __restrict__ ids,
+    const uint8_t* __restrict__ local, float cr, float cr2,
     float* __restrict__ pos, float* __restrict__ vel,
     float* __restrict__ paths, uint8_t* __restrict__ has_collided,
     float* __restrict__ pend_vals, uint8_t* __restrict__ pend_mask,
     uint8_t* __restrict__ collided, int* __restrict__ n_collisions,
     int* __restrict__ collision_count) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
-  bool resolved = false;
+  bool counted = false;
   if (k < *events) {
     int i = ev_a[k];
     int j = ev_b[k];
-    int lo = min(i, j);
-    int hi = max(i, j);
-    // choice[hi] == lo is never rewritten in this launch (only a pair's
-    // lower index is claimed, and hi's own pair would be (lo, hi)), so the
-    // claim on choice[lo] alone decides which candidate resolves the pair.
-    if (choice[hi] == lo && atomicCAS(&choice[lo], hi, amc::kIntBig) == hi) {
-      resolved = resolve_pair(i, j, cr, cr2, pos, vel, paths, has_collided,
-                              pend_vals, pend_mask, collided);
+    int ki = key_of(ids, i);
+    int kj = key_of(ids, j);
+    int lo = ki < kj ? i : j;  // the lane of the lower key
+    int hi = ki < kj ? j : i;
+    int klo = min(ki, kj);
+    int khi = max(ki, kj);
+    // choice[hi] == klo is never rewritten in this launch (only a pair's
+    // lane of the lower key is claimed, and hi's own pair would be
+    // (lo, hi)), so the claim on choice[lo] alone decides which candidate
+    // resolves the pair.
+    if (choice[hi] == klo &&
+        atomicCAS(&choice[lo], khi, amc::kIntBig) == khi &&
+        resolve_pair(i, j, cr, cr2, pos, vel, paths, has_collided, pend_vals,
+                     pend_mask, local, collided)) {
+      counted = local == nullptr || local[lo];
     }
   }
-  int count = __syncthreads_count(resolved);
+  int count = __syncthreads_count(counted);
   if (threadIdx.x == 0 && count > 0) {
     atomicAdd(n_collisions, count);
     atomicAdd(collision_count, count);
@@ -264,7 +286,8 @@ __global__ void reset_choice_kernel(const int* __restrict__ ev_a,
 // In place: pos, vel, paths, has_collided, pend_vals, pend_mask,
 // collision_count (+= resolved pairs) and overflow_count (+= colliding
 // entries beyond e_cap).  Outputs: collided (n,) and n_collisions (the
-// resolved pairs).  Scratch of this stream, kept by the kernels: scan
+// resolved pairs).  ids and local_mask may be null (the single-card
+// engine).  Scratch of this stream, kept by the kernels: scan
 // (1 + ceil(m / 1024) words, zero between calls), choice (n ints, INT_BIG
 // between calls), events (1 + 2 * e_cap ints: the number kept, then the
 // kept entries' a and b).
@@ -273,8 +296,8 @@ AMC_EXPORT int amc_test_and_resolve(
     float* pend_vals, uint8_t* pend_mask, int* collision_count,
     int* overflow_count, const int* a, const int* b, int n, int m, int e_cap,
     float cr, float cr2, uint8_t* collided, int* n_collisions,
-    unsigned long long* scan, int* choice, int* events,
-    cudaStream_t stream) {
+    unsigned long long* scan, int* choice, int* events, const int* ids,
+    const uint8_t* local_mask, cudaStream_t stream) {
   int ntiles = max(amc::blocks_for(m, kTile), 1);
   int* ev_a = events + 1;
   int* ev_b = ev_a + e_cap;
@@ -282,17 +305,18 @@ AMC_EXPORT int amc_test_and_resolve(
        15u) == 0) {
     test_compact_kernel<true><<<ntiles, amc::kThreads, 0, stream>>>(
         pos, a, b, m, n, cr2, e_cap, ntiles, scan, ev_a, ev_b, events, choice,
-        collided, n_collisions, overflow_count);
+        ids, collided, n_collisions, overflow_count);
   } else {
     test_compact_kernel<false><<<ntiles, amc::kThreads, 0, stream>>>(
         pos, a, b, m, n, cr2, e_cap, ntiles, scan, ev_a, ev_b, events, choice,
-        collided, n_collisions, overflow_count);
+        ids, collided, n_collisions, overflow_count);
   }
   if (e_cap > 0) {
     int blocks = amc::blocks_for(e_cap);
     resolve_kernel<<<blocks, amc::kThreads, 0, stream>>>(
-        ev_a, ev_b, events, choice, cr, cr2, pos, vel, paths, has_collided,
-        pend_vals, pend_mask, collided, n_collisions, collision_count);
+        ev_a, ev_b, events, choice, ids, local_mask, cr, cr2, pos, vel, paths,
+        has_collided, pend_vals, pend_mask, collided, n_collisions,
+        collision_count);
     reset_choice_kernel<<<blocks, amc::kThreads, 0, stream>>>(ev_a, ev_b,
                                                              events, choice);
   }

@@ -24,9 +24,12 @@ z-sorted blocks, the kernel's z-slabs), in place of K2 and K9.
 The z-slab engine (``parallel/shard.py``) runs K2, K9 and K10 over a slab's
 local and ghost lanes together, with their optional arguments: ``valid``
 (K2, K9: a lane that holds no particle), ``ids`` (K9: a particle and its
-ghost are two lanes with one id), ``cell_window`` (K9: the slab's own
-cells) and ``local_mask`` (K10: ghosts take part in the match, only local
-lanes are updated).  Without them each wrapper launches what it always did.
+ghost are two lanes with one id, and the candidates are ordered by global
+id, so the two slabs holding a pair match it alike),
+``cell_window`` (K9: the slab's own cells) and ``local_mask`` (K10: ghosts
+take part in the match, only local lanes are updated).  Its pairs mode
+runs K1 with ``ids``, ``valid`` and the slab's cell and active windows.
+Without them each wrapper launches what it always did.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, same signature
 and outputs) for tensors on the CPU and launches its CUDA kernel for
@@ -62,7 +65,7 @@ ALLPAIRS_SLAB_ROWS = 16
 _K11_COUNTS: dict = {}
 _K11_OFFSETS: dict = {}
 _K11_ROWS: dict = {}
-# K9's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 4 bytes a slot
+# K9's shared memory is 9 * (RUN_CELLS + 2) * 16 + RUN_CELLS * 8 bytes a slot
 # of capacity, K1's 5 * (RUN_CELLS + 2) * 20 + RUN_CELLS * 4 * top_k (top_k
 # up to 16), of the 227 KB a block can have.
 _MAX_WALK_CAPACITY = 128
@@ -479,13 +482,18 @@ def partner_sweep_plain(pos: torch.Tensor, table: torch.Tensor,
     block stays small.  d^2 is formed as (dx*dx + dy*dy) + dz*dz with
     dx = x_i - x_j, the reference's order.
 
-    The z-slab engine's arguments (collide.py:433-442): ``ids`` (N,) int32
-    replaces the index in the self-exclusion (a candidate with the
-    particle's own id is skipped; the partner is still the lowest lane
-    index); a lane with ``valid`` False gets -1; ``cell_window`` =
-    (start, width) gives -1 to a particle whose own cell lies outside
-    [start, start + width) (its neighbour cells are read wherever they
-    lie).
+    The z-slab engine's arguments (collide.py:433-442): ``ids`` (N,) int32,
+    the global ids, replaces the index in the self-exclusion (a candidate
+    with the particle's own id is skipped) and in the order of the
+    candidates: the partner is the lane of the lowest id (the lowest lane
+    among equal ids).  The two slabs that hold a pair across a face number
+    their lanes differently, so only an order both share lets them reach
+    the same match (the reference orders by lane, collide.py:876, and its
+    sharded cube drifts in energy for it); by global id it is the one-card
+    rule, and on lanes in id order the reference's.  A lane with ``valid``
+    False gets -1; ``cell_window`` = (start, width) gives -1 to a particle
+    whose own cell lies outside [start, start + width) (its neighbour cells
+    are read wherever they lie).
     """
     n = pos.shape[0]
     cap = grid.capacity
@@ -498,26 +506,36 @@ def partner_sweep_plain(pos: torch.Tensor, table: torch.Tensor,
     ids_pad = torch.cat([index if ids is None else ids,
                          torch.full((1,), -2, dtype=torch.int32,
                                     device=pos.device)])
-    out = torch.empty(n, dtype=torch.int32, device=pos.device)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        s = pslot[lo:hi].long()
-        listed = s < dummy
-        if valid is not None:
-            listed = listed & valid[lo:hi]
-        if cell_window is not None:
-            start, width = cell_window
-            listed = listed & (s // cap >= start) & (s // cap < start + width)
-        cell = torch.where(listed, s // cap, 0)
-        cand = table[grid.neighbors[cell].long()].reshape(hi - lo, 27 * cap)
+    # Only the listed particles (a slot, valid, own cell in the window)
+    # can have a partner: the rest keep -1 and are not searched.
+    slot = pslot.long()
+    listed = slot < dummy
+    if valid is not None:
+        listed = listed & valid
+    if cell_window is not None:
+        start, width = cell_window
+        cell = slot // cap
+        listed = listed & (cell >= start) & (cell < start + width)
+    lanes = torch.nonzero(listed).squeeze(1)
+    # Columns past the last one any row fills hold only sentinels.
+    filled = (table < n) * torch.arange(1, cap + 1, device=pos.device)
+    cols = max(int(filled.amax()), 1)
+    rows = table[:, :cols]
+    out = torch.full((n,), -1, dtype=torch.int32, device=pos.device)
+    for lo in range(0, lanes.shape[0], chunk):
+        i = lanes[lo:lo + chunk]
+        cand = rows[grid.neighbors[slot[i] // cap].long()].reshape(
+            i.shape[0], 27 * cols)
         cl = cand.long()
-        d = pos[lo:hi, None, :] - pos_pad[cl]
+        d = pos[i, None, :] - pos_pad[cl]
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
         d2 = d2 + d[..., 2] * d[..., 2]
-        hit = (d2 < r2) & (cand < n) & (ids_pad[cl] != ids_pad[lo:hi, None])
+        hit = (d2 < r2) & (cand < n) & (ids_pad[cl] != ids_pad[i, None])
+        if ids is not None:
+            key = torch.where(hit, ids_pad[cl], _NO_PARTNER)
+            hit = hit & (key == key.amin(dim=1, keepdim=True))
         best = torch.where(hit, cand, _NO_PARTNER).amin(dim=1)
-        best = torch.where(listed & (best < _NO_PARTNER), best, -1)
-        out[lo:hi] = best.to(torch.int32)
+        out[i] = torch.where(best < _NO_PARTNER, best, -1).to(torch.int32)
     return out
 
 
@@ -677,10 +695,36 @@ def rebuild_planes_plain(pos: torch.Tensor, reach: torch.Tensor,
     return pos0, reach0
 
 
+def _emitters(cell: torch.Tensor, listed: torch.Tensor, grid: DeviceGrid,
+              cell_window, active_window):
+    """(emits, unswept) of K1 for particles in cells ``cell`` with a slot
+    (``listed``): without a window every listed particle of an active cell
+    emits and one in an inactive cell is unswept; with ``active_window`` =
+    (a0, width) only the cells of active rank a0 <= rank < a0 + width emit
+    and every other listed particle is unswept (collide.py:942-954); with
+    ``cell_window`` alone = (start, width), the cells start <= c < start +
+    width, and nothing is unswept (collide.py:955-960)."""
+    if active_window is not None:
+        a0, width = int(active_window[0]), int(active_window[1])
+        rank = grid.active_rank[cell].long()
+        emits = listed & (rank >= a0) & (rank - a0 < width)
+        return emits, listed & ~emits
+    if cell_window is not None:
+        start, width = int(cell_window[0]), int(cell_window[1])
+        emits = listed & (cell >= start) & (cell < start + width)
+        return emits, torch.zeros_like(listed)
+    emits = listed & (grid.active_rank[cell] >= 0)
+    return emits, listed & ~emits
+
+
 def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
                         table: torch.Tensor, pslot: torch.Tensor,
                         grid: DeviceGrid, top_k: int,
-                        chunk: int = 1 << 14):
+                        chunk: int = 1 << 14,
+                        ids: torch.Tensor | None = None,
+                        valid: torch.Tensor | None = None,
+                        cell_window: tuple | None = None,
+                        active_window: tuple | None = None):
     """Plain version of K1.  Returns (cands (N, top_k) int32 ascending,
     -1 padded; unswept (N,) bool; pos0; reach0).
 
@@ -691,6 +735,13 @@ def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
     slot emits nothing; one in an inactive cell emits nothing and is
     unswept.  Works through the particles in chunks so the (chunk, 14*cap)
     candidate block stays small.
+
+    The z-slab engine's arguments (collide.py:453-622 with one_sided and
+    half_shell, as ops/pairs.py:182-189 calls it): ``ids`` (N,) int32
+    replaces the index in the own-cell rule (higher global id only; the
+    candidates stay lane indices); a lane with ``valid`` False emits
+    nothing and is nobody's candidate; ``cell_window`` and
+    ``active_window`` choose the emitting cells (``_emitters``).
     """
     n = pos.shape[0]
     cap = grid.capacity
@@ -700,13 +751,22 @@ def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
     cands = torch.full((n, top_k), -1, dtype=torch.int32, device=dev)
     unswept = torch.zeros(n, dtype=torch.bool, device=dev)
     big = torch.full((), _NO_PARTNER, dtype=torch.int32, device=dev)
+    index = torch.arange(n, dtype=torch.int32, device=dev)
+    key = index if ids is None else ids
+    key_pad = torch.cat([key, torch.full((1,), -2, dtype=torch.int32,
+                                         device=dev)])
+    ok_pad = torch.ones(n + 1, dtype=torch.bool, device=dev)
+    if valid is not None:
+        ok_pad[:n] = valid
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         s = pslot[lo:hi].long()
         listed = s < dummy
+        if valid is not None:
+            listed = listed & valid[lo:hi]
         cell = torch.where(listed, s // cap, grid.num_cells)
-        covered = listed & (grid.active_rank[cell] >= 0)
-        unswept[lo:hi] = listed & ~covered
+        covered, unswept[lo:hi] = _emitters(cell, listed, grid, cell_window,
+                                            active_window)
         rows = grid.neighbors[torch.where(covered, cell, 0)][:, _HALF_SHELL]
         rows = rows.long()
         idx = table[rows].reshape(hi - lo, -1)
@@ -714,10 +774,12 @@ def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
         d2 = d2 + d[..., 2] * d[..., 2]
         th = reach[lo:hi, None] + reach0[rows].reshape(hi - lo, -1)
-        own = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+        own = key[lo:hi, None]
         lanes = torch.arange(idx.shape[1], device=dev)[None, :]
-        id_ok = (lanes >= cap) | (idx > own)
-        hit = (d2 < th * th) & (idx < n) & id_ok & covered[:, None]
+        cl = idx.long()
+        id_ok = (lanes >= cap) | (key_pad[cl] > own)
+        hit = ((d2 < th * th) & (idx < n) & id_ok & ok_pad[cl]
+               & covered[:, None])
         masked = torch.where(hit, idx, big)
         k = min(top_k, masked.shape[1])
         best = torch.sort(masked, dim=1).values[:, :k]
@@ -727,14 +789,23 @@ def rebuild_sweep_plain(pos: torch.Tensor, reach: torch.Tensor,
 
 def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
                   table: torch.Tensor, pslot: torch.Tensor,
-                  grid: DeviceGrid, top_k: int):
+                  grid: DeviceGrid, top_k: int,
+                  ids: torch.Tensor | None = None,
+                  valid: torch.Tensor | None = None,
+                  cell_window: tuple | None = None,
+                  active_window: tuple | None = None):
     """K1 (see ``rebuild_sweep_plain``); CUDA kernel for CUDA tensors.
     The kernel walks the table by cells (``grid.run_start``), as K9 does:
     ``table`` and ``pslot`` must come from ``bin_and_table`` on this grid,
     so that a particle with a slot is listed in its cell's row, rows are
-    ascending and filled from the front, and the dummy row is empty."""
+    ascending and filled from the front, and the dummy row is empty.  The
+    slab arguments are the twin's; without them the kernel runs as the
+    single-card sweep."""
     if kernels.use_plain(pos):
-        return rebuild_sweep_plain(pos, reach, table, pslot, grid, top_k)
+        return rebuild_sweep_plain(pos, reach, table, pslot, grid, top_k,
+                                   ids=ids, valid=valid,
+                                   cell_window=cell_window,
+                                   active_window=active_window)
     dev = pos.device
     n = pos.shape[0]
     cap = grid.capacity
@@ -755,16 +826,29 @@ def rebuild_sweep(pos: torch.Tensor, reach: torch.Tensor,
                   (grid.num_cells, 27), dev)
     kernels.check(grid.active_rank, "grid.active_rank", i32, (rows,), dev)
     kernels.check(grid.run_start, "grid.run_start", i32, (runs + 1,), dev)
+    if ids is not None:
+        kernels.check(ids, "ids", i32, (n,), dev)
+    if valid is not None:
+        kernels.check(valid, "valid", torch.bool, (n,), dev)
+    # (cell start, width, active start, width, whether the active rank
+    # decides): the twin's three modes (``_emitters``).
+    if active_window is not None:
+        window = (0, grid.num_cells, int(active_window[0]),
+                  int(active_window[1]), 1)
+    elif cell_window is not None:
+        window = (int(cell_window[0]), int(cell_window[1]), 0, 0, 0)
+    else:
+        window = (0, grid.num_cells, 0, rows, 1)
     pos0 = torch.empty((rows, cap, 3), dtype=f32, device=dev)
     reach0 = torch.empty((rows, cap), dtype=f32, device=dev)
     cands = torch.empty((n, top_k), dtype=i32, device=dev)
     unswept = torch.empty(n, dtype=torch.bool, device=dev)
-    p = kernels.ptr
+    p, opt = kernels.ptr, kernels.optional_ptr
     kernels.launch(
         "rebuild_sweep", dev, p(pos), p(reach), p(table), p(pslot),
-        p(grid.neighbors), p(grid.active_rank), p(grid.run_start), n,
-        grid.num_cells, cap, top_k, runs, RUN_CELLS, p(pos0), p(reach0),
-        p(cands), p(unswept),
+        p(grid.neighbors), p(grid.active_rank), p(grid.run_start), opt(ids),
+        opt(valid), n, grid.num_cells, cap, top_k, runs, RUN_CELLS, *window,
+        p(pos0), p(reach0), p(cands), p(unswept),
     )
     return cands, unswept, pos0, reach0
 

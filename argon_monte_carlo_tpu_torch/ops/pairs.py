@@ -26,6 +26,12 @@ CUDA tensors.  K3 and K4, and their twins, update the step's own tensors
 in place (the state and staging, the pair list) and return them: a
 caller that needs its inputs afterwards passes copies.  K5 writes a fresh
 list: the rebuild leaves the old one to whoever still holds it.
+
+The z-slab engine (``parallel/shard.py``, pairs mode) runs the same
+functions on a slab's local and ghost lanes with their optional slab
+arguments -- ``rebuild`` with global ids, valid lanes and the slab's cell
+windows, K3 with ids and a local mask, K4 with ids; without them each
+runs as on one card.
 """
 
 from __future__ import annotations
@@ -78,6 +84,11 @@ class PairList:
     hot: (N,) re-search every step; pending1: (N,) one-shot re-search of
     full rebuild emissions; overflow / spill: () counters the engine folds
     into the measurements every step.
+
+    In the z-slab engine the entries and ``idx0`` are lanes of a slab's
+    local and ghost lanes, which keep their global ids for the window; a
+    candidate's id is then ``ids[idx0]``, so the list keeps no id plane
+    (the reference's sixth plane, pairs.py:117-126).
     """
 
     a: torch.Tensor
@@ -113,6 +124,26 @@ class PairList:
             pending1=torch.zeros(n, dtype=torch.bool, device=device),
             overflow=i32(0), spill=i32(0),
         )
+
+
+@dataclasses.dataclass
+class PairWindow:
+    """One slab's context for a window of the z-slab engine's pairs mode
+    (reference parallel/shard.py:737-743): the pair list over its local
+    and ghost lanes, the frozen export lists (lanes of this slab within
+    two cells of its upper and lower face, ``n`` padding, and their
+    flags), and the ghosts' global ids and flags, from below (``_b``) and
+    from above (``_a``)."""
+
+    plist: PairList
+    up_idx: torch.Tensor      # (hcap,) int32
+    up_flag: torch.Tensor     # (hcap,) bool
+    dn_idx: torch.Tensor
+    dn_flag: torch.Tensor
+    gid_b: torch.Tensor       # (hcap,) int32, -3 where no ghost
+    flag_b: torch.Tensor      # (hcap,) bool
+    gid_a: torch.Tensor
+    flag_a: torch.Tensor
 
 
 def default_pair_config(n: int, rebuild_interval: int,
@@ -176,27 +207,42 @@ def reach_radii(vel: torch.Tensor, cr: float, dt: float, k_steps: int,
 
 
 def rebuild(state: ParticleState, grid: collide.DeviceGrid, pcfg: PairConfig,
-            cr: float, dt: float, old: PairList) -> PairList:
+            cr: float, dt: float, old: PairList,
+            ids: torch.Tensor | None = None,
+            valid_lanes: torch.Tensor | None = None,
+            cell_window: tuple | None = None,
+            active_window: tuple | None = None) -> PairList:
     """The full sweep at per-particle reach: a fresh pair list.  A particle
     dropped from a full cell, or binned into a cell off the active list,
     goes hot (re-searched with its fresh position every step) instead of
-    being lost, and is counted in ``spill``."""
+    being lost, and is counted in ``spill``.
+
+    ``ids``, ``valid_lanes``, ``cell_window`` and ``active_window`` are the
+    z-slab engine's (pairs.py:143-206), on a slab's local and ghost lanes
+    together: K2 bins only the valid lanes, K1 sweeps the slab's cells and
+    orders its own-cell rule by global id, and K5 leaves the lanes without a
+    particle out; the entries stay lane indices."""
     reach, clipped = reach_radii(state.vel, cr, dt, pcfg.rebuild_interval,
                                  0.5 * grid.cell_size)
-    _, table, pslot, cell_overflow = collide.bin_and_table(state.pos, grid)
+    _, table, pslot, cell_overflow = collide.bin_and_table(
+        state.pos, grid, valid=valid_lanes)
     cands, unswept, pos0, reach0 = collide.rebuild_sweep(
-        state.pos, reach, table, pslot, grid, pcfg.top_k)
+        state.pos, reach, table, pslot, grid, pcfg.top_k, ids=ids,
+        valid=valid_lanes, cell_window=cell_window,
+        active_window=active_window)
     return rebuild_finish(cands, cell_overflow, pslot, table, pos0, reach0,
-                          unswept, clipped, old, grid, pcfg)
+                          unswept, clipped, old, grid, pcfg, valid_lanes)
 
 
 def rebuild_finish(cands, cell_overflow, pslot0, idx0, pos0, reach0,
                    unswept, clipped, old: PairList,
-                   grid: collide.DeviceGrid, pcfg: PairConfig) -> PairList:
+                   grid: collide.DeviceGrid, pcfg: PairConfig,
+                   valid_lanes: torch.Tensor | None = None) -> PairList:
     """Rebuild epilogue (pairs.py:208-277): candidate rows -> PairList."""
     a, b, cursor, hot, pending1, overflow, spill = emit_pairs(
         cands, pslot0, clipped, unswept, cell_overflow, old.overflow,
-        old.spill, grid.num_cells * grid.capacity, pcfg.pair_capacity)
+        old.spill, grid.num_cells * grid.capacity, pcfg.pair_capacity,
+        valid_lanes)
     return PairList(
         a=a, b=b, cursor=cursor,
         age=torch.zeros((), dtype=torch.int32, device=a.device),
@@ -206,7 +252,8 @@ def rebuild_finish(cands, cell_overflow, pslot0, idx0, pos0, reach0,
 
 
 def emit_pairs_plain(cands, pslot0, clipped, unswept, cell_overflow,
-                     old_overflow, old_spill, dummy_slot: int, m_cap: int):
+                     old_overflow, old_spill, dummy_slot: int, m_cap: int,
+                     valid_lanes=None):
     """Plain version of K5: (a, b, cursor, hot, pending1, overflow, spill).
 
     Entries (i, c) for every candidate, particle-major and ascending within
@@ -215,8 +262,17 @@ def emit_pairs_plain(cands, pslot0, clipped, unswept, cell_overflow,
     ``overflow`` grows by the reference's own formula
     max(count - m_cap, 0) + max(has - m_cap, 0).  hot = clipped |
     table-dropped | unswept; pending1 marks a full top_k row.
+
+    ``valid_lanes`` (N,) bool, the z-slab engine's (pairs.py:219-244): a
+    lane that holds no particle has no entry, is not hot, not pending and
+    not counted in ``spill``.
     """
     n, top_k = cands.shape
+    if valid_lanes is not None:
+        cands = torch.where(valid_lanes[:, None], cands, -1)
+        clipped = clipped & valid_lanes
+        unswept = unswept & valid_lanes
+        pslot0 = torch.where(valid_lanes, pslot0, 0)
     valid = cands >= 0
     has = valid.any(dim=1)
     pidx = compact_indices_plain(has, m_cap, n)
@@ -241,7 +297,7 @@ def emit_pairs_plain(cands, pslot0, clipped, unswept, cell_overflow,
 
 
 def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
-               old_spill, dummy_slot: int, m_cap: int):
+               old_spill, dummy_slot: int, m_cap: int, valid_lanes=None):
     """K5 (see ``emit_pairs_plain``); CUDA kernel for CUDA tensors: one
     single-pass launch (the entries' scan on ``lookback.cuh``, which gives
     the reference's list even when truncated: the first m_cap entries come
@@ -249,11 +305,12 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
     grid).  Four allocations, the outputs (a and b share one); the
     look-back scratch is K6's, kept for each stream of each device and
     left zero by the kernel, so as with K6 a launch replays in a CUDA graph
-    after one call on the capturing stream.  ``top_k`` is 1 to 16."""
+    after one call on the capturing stream.  ``top_k`` is 1 to 16;
+    ``valid_lanes`` is the twin's."""
     if kernels.use_plain(cands):
         return emit_pairs_plain(cands, pslot0, clipped, unswept,
                                 cell_overflow, old_overflow, old_spill,
-                                dummy_slot, m_cap)
+                                dummy_slot, m_cap, valid_lanes)
     dev = cands.device
     n, top_k = cands.shape
     i32, b8 = torch.int32, torch.bool
@@ -266,6 +323,8 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
     kernels.check(pslot0, "pslot0", i32, (n,), dev)
     kernels.check(clipped, "clipped", b8, (n,), dev)
     kernels.check(unswept, "unswept", b8, (n,), dev)
+    if valid_lanes is not None:
+        kernels.check(valid_lanes, "valid_lanes", b8, (n,), dev)
     for t, name in ((cell_overflow, "cell_overflow"),
                     (old_overflow, "old_overflow"), (old_spill, "old_spill")):
         kernels.check(t, name, i32, (), dev)
@@ -280,7 +339,8 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
         "emit_pairs", dev, p(cands), n, top_k, p(pslot0), dummy_slot,
         p(clipped), p(unswept), p(cell_overflow), p(old_overflow),
         p(old_spill), m_cap, p(ab[0]), p(ab[1]), p(counters[0]), p(hot),
-        p(pending1), p(counters[1]), p(counters[2]), p(scan), scan.shape[0],
+        p(pending1), p(counters[1]), p(counters[2]),
+        kernels.optional_ptr(valid_lanes), p(scan), scan.shape[0],
     )
     return ab[0], ab[1], counters[0], hot, pending1, counters[1], counters[2]
 
@@ -292,7 +352,9 @@ def emit_pairs(cands, pslot0, clipped, unswept, cell_overflow, old_overflow,
 
 def test_and_resolve_plain(state: ParticleState, measure: Measurements,
                            a: torch.Tensor, b: torch.Tensor, cr: float,
-                           event_capacity: int):
+                           event_capacity: int,
+                           ids: torch.Tensor | None = None,
+                           local_mask: torch.Tensor | None = None):
     """Plain version of K3.  Returns (state, measure, n_collisions (),
     collided (N,) bool); ``state``'s four tensors and ``measure``'s
     ``pending_vals``, ``pending_mask``, ``collision_count`` and
@@ -306,6 +368,14 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
     maths and order as K10).  Duplicate and reversed entries write
     identical values.  Completed paths are staged with the pre-collision
     velocity and path accumulators reset along the new velocity.
+
+    The z-slab engine's arguments (pairs.py:300-309, 340-346, 415-428):
+    with ``ids`` (N,) int32 the choice is the lowest *global id*, so the
+    two slabs holding a pair across a face make the same match (the ids of
+    the lanes an entry names are distinct); with ``local_mask`` (N,) bool
+    the state of every lane is updated (a ghost mirrors its owner bit for
+    bit), but only local lanes are staged, and a pair is counted once, on
+    the slab whose local lane holds the lower id.
     """
     n = state.pos.shape[0]
     m = a.shape[0]
@@ -325,12 +395,18 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
         torch.sum(colliding, dtype=torch.int32) - event_capacity, min=0)
 
     big = torch.full((), INT_BIG, dtype=torch.int32, device=dev)
+    if ids is None:
+        key_a, key_b = ea, eb
+    else:
+        ids_pad = torch.cat([ids, big[None]])
+        key_a, key_b = ids_pad[ea.long()], ids_pad[eb.long()]
     choice = torch.full((n + 1,), INT_BIG, dtype=torch.int32, device=dev)
-    choice.scatter_reduce_(0, ea.long(), torch.where(evalid, eb, big),
+    choice.scatter_reduce_(0, ea.long(), torch.where(evalid, key_b, big),
                            "amin")
-    choice.scatter_reduce_(0, eb.long(), torch.where(evalid, ea, big),
+    choice.scatter_reduce_(0, eb.long(), torch.where(evalid, key_a, big),
                            "amin")
-    mutual = evalid & (choice[ea.long()] == eb) & (choice[eb.long()] == ea)
+    mutual = (evalid & (choice[ea.long()] == key_b)
+              & (choice[eb.long()] == key_a))
 
     sa = torch.clamp(ea, max=n - 1).long()
     sb = torch.clamp(eb, max=n - 1).long()
@@ -362,13 +438,24 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
     t_n[ia] = t[ok]
     t_n[ib] = t[ok]
 
+    mask_meas = mask_n if local_mask is None else mask_n & local_mask
     staged = measure_ops.record_completed(
-        measure, state.paths, state.has_collided, vel, t_n, mask_n)
+        measure, state.paths, state.has_collided, vel, t_n, mask_meas)
     vel_out = vel.clone()
     vel_out[ia], vel_out[ib] = new_vel_a[ok], new_vel_b[ok]
     ended = measure_ops.end_paths(state, mask_n, t_n, vel_out,
                                   zero_residual=False)
-    n_collisions = torch.sum(mask_n, dtype=torch.int32) // 2
+    if local_mask is None:
+        n_collisions = torch.sum(mask_n, dtype=torch.int32) // 2
+    else:
+        # The partner's id of each resolved lane.
+        partner_key = torch.full((n,), INT_BIG, dtype=torch.int32,
+                                 device=dev)
+        partner_key[ia], partner_key[ib] = key_b[ok], key_a[ok]
+        own_key = (torch.arange(n, dtype=torch.int32, device=dev)
+                   if ids is None else ids)
+        n_collisions = torch.sum(
+            mask_n & local_mask & (own_key < partner_key), dtype=torch.int32)
     # In place, once everything is computed from the inputs.
     pos[ia], pos[ib] = new_pos_a[ok], new_pos_b[ok]
     vel.copy_(vel_out)
@@ -383,7 +470,8 @@ def test_and_resolve_plain(state: ParticleState, measure: Measurements,
 
 def test_and_resolve(state: ParticleState, measure: Measurements,
                      a: torch.Tensor, b: torch.Tensor, cr: float,
-                     event_capacity: int):
+                     event_capacity: int, ids: torch.Tensor | None = None,
+                     local_mask: torch.Tensor | None = None):
     """K3 (see ``test_and_resolve_plain``); CUDA kernels for CUDA tensors,
     three launches in one call: the test with the compaction and the
     choice, the resolve with the staging, and the reset of the choice
@@ -391,11 +479,12 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
     ``collided`` mask and ``n_collisions``.  The scratch is kept for each
     stream of each device and restored by the kernels (the look-back
     words are K6's, ``ops/compact.lookback_scratch``); as with K6, make
-    one call on a stream before recording one in a CUDA graph there."""
+    one call on a stream before recording one in a CUDA graph there.
+    ``ids`` and ``local_mask`` are the twin's."""
     pos = state.pos
     if kernels.use_plain(pos):
         return test_and_resolve_plain(state, measure, a, b, cr,
-                                      event_capacity)
+                                      event_capacity, ids, local_mask)
     dev = pos.device
     n, m = pos.shape[0], a.shape[0]
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
@@ -411,6 +500,10 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
+    if ids is not None:
+        kernels.check(ids, "ids", i32, (n,), dev)
+    if local_mask is not None:
+        kernels.check(local_mask, "local_mask", b8, (n,), dev)
     collided = torch.empty(n, dtype=b8, device=dev)
     n_collisions = torch.empty((), dtype=i32, device=dev)
     scan = lookback_scratch(dev, -(-m // K3_TILE))
@@ -420,7 +513,8 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
     kernels.launch(
         "test_and_resolve", dev, *(p(t) for t, *_ in inputs), n, m,
         event_capacity, cr, cr * cr, p(collided), p(n_collisions), p(scan),
-        p(choice), p(events),
+        p(choice), p(events), kernels.optional_ptr(ids),
+        kernels.optional_ptr(local_mask),
     )
     return state, measure, n_collisions, collided
 
@@ -433,7 +527,8 @@ def test_and_resolve(state: ParticleState, measure: Measurements,
 def research_dirty_plain(state: ParticleState, plist: PairList,
                          dirty_idx: torch.Tensor, bump: torch.Tensor,
                          grid: collide.DeviceGrid, pcfg: PairConfig,
-                         cr: float, dt: float):
+                         cr: float, dt: float,
+                         ids: torch.Tensor | None = None):
     """Plain version of K4.  Returns (plist, lost () bool, latent_per (E,)
     int32).
 
@@ -454,6 +549,13 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     Padded lanes and particles without a rebuild slot write nothing (the
     reference writes them into particle 0 and the dummy row, which nothing
     reads back).
+
+    With ``ids`` (N,) int32, the z-slab engine's, "not itself" compares
+    global ids (pairs.py:532-538): a particle and its ghost are two lanes.
+    The reference keeps a global-id plane beside the rebuild-time planes;
+    here the candidate's id is ``ids[idx0]``, the same number, because a
+    slab's lanes keep their ids for the whole window (ghosts are frozen at
+    the rebuild and migration waits for the next one).
     """
     n = state.pos.shape[0]
     cap = grid.capacity
@@ -482,19 +584,32 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
     hot = plist.hot
     hot[safe[valid & (clipped_i | newly)]] = True
 
-    # Search the 27 neighbour rows of the current cell.
-    cell = collide.assign_cells_plain(pos_i, grid).long()
-    rows = grid.neighbors[cell].long()                       # (E, 27)
-    idx = plist.idx0[rows].reshape(e, 27 * cap)
-    d = pos_i[:, None, :] - plist.pos0[rows].reshape(e, 27 * cap, 3)
+    # Search the 27 neighbour rows of the current cell, for the lanes
+    # that hold a particle (a padding lane finds nothing).
+    live = torch.nonzero(valid).flatten()
+    me = dirty_idx[live]
+    cell = collide.assign_cells_plain(pos_i[live], grid).long()
+    rows = grid.neighbors[cell].long()                       # (L, 27)
+    idx = plist.idx0[rows].reshape(-1, 27 * cap)
+    d = pos_i[live, None, :] - plist.pos0[rows].reshape(-1, 27 * cap, 3)
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
     d2 = d2 + d[..., 2] * d[..., 2]
-    th = reach_i[:, None] + reach0[rows].reshape(e, 27 * cap)
-    hit = ((d2 < th * th) & (idx != dirty_idx[:, None]) & valid[:, None]
-           & (idx >= 0) & (idx < n))
-    latent_per = torch.sum(hit & (d2 < cr * cr), dim=1, dtype=torch.int32)
+    th = reach_i[live, None] + reach0[rows].reshape(-1, 27 * cap)
+    if ids is None:
+        not_self = idx != me[:, None]
+    else:
+        ids_pad = torch.cat([ids, torch.full((1,), -1, dtype=torch.int32,
+                                             device=dev)])
+        not_self = (ids_pad[torch.clamp(idx, 0, n).long()]
+                    != ids[me.long()][:, None])
+    hit = (d2 < th * th) & not_self & (idx >= 0) & (idx < n)
+    latent_per = torch.zeros(e, dtype=torch.int32, device=dev)
+    latent_per[live] = torch.sum(hit & (d2 < cr * cr), dim=1,
+                                 dtype=torch.int32)
     masked = torch.where(hit, idx, INT_BIG)
-    cands = torch.sort(masked, dim=1).values[:, :rk]
+    cands = torch.full((e, rk), INT_BIG, dtype=idx.dtype, device=dev)
+    k = min(rk, masked.shape[1])
+    cands[live, :k] = torch.sort(masked, dim=1).values[:, :k]
     res_overflow = torch.sum((cands[:, -1] < INT_BIG) & valid,
                              dtype=torch.int32)
 
@@ -528,16 +643,16 @@ def research_dirty_plain(state: ParticleState, plist: PairList,
 def research_dirty(state: ParticleState, plist: PairList,
                    dirty_idx: torch.Tensor, bump: torch.Tensor,
                    grid: collide.DeviceGrid, pcfg: PairConfig, cr: float,
-                   dt: float):
+                   dt: float, ids: torch.Tensor | None = None):
     """K4 (see ``research_dirty_plain``); CUDA kernels for CUDA tensors,
     three launches: the bumps, the search (a warp a dirty lane) and the
     append, so every bump lands before any search reads ``reach0``.  The
     kernels update the list's ``reach0``, ``hot``, ``a`` and ``b`` in
-    place, as the twin does."""
+    place, as the twin does; ``ids`` is the twin's."""
     pos = state.pos
     if kernels.use_plain(pos):
         return research_dirty_plain(state, plist, dirty_idx, bump, grid,
-                                    pcfg, cr, dt)
+                                    pcfg, cr, dt, ids)
     dev = pos.device
     n = pos.shape[0]
     e = dirty_idx.shape[0]
@@ -564,6 +679,8 @@ def research_dirty(state: ParticleState, plist: PairList,
         (grid.layer_base, "grid.layer_base", i32, (grid.nz,)),
         (grid.half_extent, "grid.half_extent", f32, (grid.nz,)),
     ]
+    if ids is not None:
+        checks.append((ids, "ids", i32, (n,)))
     for t, name, dt_, shape in checks:
         kernels.check(t, name, dt_, shape, dev)
     reach0, hot, a, b = plist.reach0, plist.hot, plist.a, plist.b
@@ -583,7 +700,7 @@ def research_dirty(state: ParticleState, plist: PairList,
         dt * pcfg.rebuild_interval, max_reach, max_reach - 0.5 * cr, dt,
         cr * cr, p(plist.cursor), p(plist.overflow), p(reach0), p(hot), p(a),
         p(b), p(ints[0]), p(ints[1]), p(lost), p(latent_per),
-        p(ints[2 + 2 * e:]), p(ints[2 + e:]),
+        p(ints[2 + 2 * e:]), p(ints[2 + e:]), kernels.optional_ptr(ids),
     )
     plist = dataclasses.replace(plist, a=a, b=b, reach0=reach0, hot=hot,
                                 cursor=ints[0], overflow=ints[1])

@@ -1,9 +1,10 @@
 """z-slab domain-decomposed engine: S slabs, one process, a device a slab.
 
-Port of ``argon_monte_carlo_tpu.parallel.shard`` in sweep mode.  The pore
-is 1D-dominant along z, so each slab owns a contiguous z range with a
-particle buffer of fixed capacity.  One step of every slab, in the
-reference's order (shard.py:378-546):
+Port of ``argon_monte_carlo_tpu.parallel.shard``.  The pore is
+1D-dominant along z, so each slab owns a contiguous z range with a
+particle buffer of fixed capacity; the cube is cut the same way, on the
+box's centred cell grid.  One step of the sweep (``narrowphase="sweep"``)
+on every slab, in the reference's order (shard.py:378-546):
 
 1. invalid lanes are parked at a safe interior point, the workload's
    ``advance`` runs (drift, wall cases, recapture; K8 for the temperature
@@ -12,10 +13,14 @@ reference's order (shard.py:378-546):
    radius`` of a slab face are packed (K12, up and down) and handed to the
    neighbouring slab;
 3. *pair collisions* over local and ghost lanes together: K2 with
-   ``valid``, K9 with the global ids, ``valid`` and the slab's cell window,
-   K10 with ``local_mask``.  The halo is two search radii deep, so both
-   slabs see the whole neighbourhood of a boundary particle and reach the
-   same match; the impulse formula is symmetric, so a pair across a face is
+   ``valid``, K9 with the global ids (as the identity and as the order of
+   the candidates), ``valid`` and the slab's cell window, K10 with
+   ``local_mask``.  The halo is two search radii deep, so both slabs see
+   the whole neighbourhood of a boundary particle, and as both choose each
+   particle's partner of the lowest global id -- the one-card rule -- they
+   reach the same match (the reference takes the lowest lane, which the
+   two slabs number differently, and its sharded cube drifts in energy for
+   it); the impulse formula is symmetric, so a pair across a face is
    resolved on both sides with no result exchanged.  Each pair is counted
    once, on the slab whose lane holds the lower global id;
 4. the post-pairs recapture under parking and the exact dense histogram
@@ -33,8 +38,25 @@ slab, and measurements one ``Measurements`` a slab; the per-step ledger is
 summed over the slabs in slab order on the first slab's device, so a run is
 repeatable to the bit.
 
-``narrowphase="pairs"`` (the sharded Verlet list, shard.py:569-994) is not
-ported yet.
+The pairs mode (``narrowphase="pairs"``, the sharded Verlet list,
+shard.py:569-1121) keeps the lanes of a slab fixed for a window of
+``rebuild_interval`` steps.  At each window boundary (``_pairs_rebuild``):
+the crossers the window accumulated migrate (K12 packs them, K6 finds the
+free lanes, as the sweep's merge does); each slab freezes the lists of its
+lanes within two cells of a face (K12's index form) and hands their
+positions, velocities and global ids to the neighbour as ghosts; and the
+pair list is rebuilt on the local and ghost lanes together (K2 with
+``valid``, K1 with the global ids and the slab's cell windows, K5 with the
+valid lanes).  Each step (``_pairs_step``): K8 under parking; the ghosts
+are refreshed through the frozen lists, with the owner's wall-bump and
+wall-recapture flags; K3 tests the listed pairs with the global ids (both
+slabs holding a pair across a face make the same match and apply the
+same update, so a ghost mirrors its owner bit for bit) and stages and
+counts local lanes only; the post-pairs recapture runs on all lanes; the
+dirty lanes are compacted with the flush's (K6) and re-searched (K4,
+"not itself" by global id); the compacted flush (K7c); the local lanes
+are written back.  The ghosts' state is recomputed from the owners every
+step, so nothing but the frozen lists outlives a step.
 """
 
 from __future__ import annotations
@@ -47,12 +69,13 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..config import cell_capacity_for, cell_size_for
-from ..engine import Workload, copy_tensors, missed_counts
+from ..engine import (Workload, build_grids, copy_tensors, missed_counts,
+                      pairs_config_for, shared_compaction)
 from ..ops import collide
 from ..ops import measure as measure_ops
+from ..ops import pairs as pairs_ops
 from ..ops.compact import compact_indices
-from ..ops.pack import SENTINEL, pack_band_pair
+from ..ops.pack import SENTINEL, pack_band_pair, pack_indices
 from ..state import Measurements, ParticleState, StepMetrics
 from .mesh import make_devices
 
@@ -64,7 +87,8 @@ SEED_STRIDE = 65_536
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
     """Host-side decomposition plan (static per run); every field equals
-    the reference's (shard.py:53-84)."""
+    the reference's (shard.py:53-84) but the cube's ``halo_capacity``,
+    which also holds a step's drift (``make_shard_plan``)."""
 
     n_shards: int
     slab_z: np.ndarray        # (n_shards+1,) slab faces, on cell-layer edges
@@ -90,6 +114,8 @@ class ShardPlan:
 def _volume_profile(geom, z_edges):
     """Fluid cross-section area integrated over each z interval."""
     def area(z):
+        if not hasattr(geom, "total_height"):  # the cube
+            return geom.lx * geom.ly
         if z < geom.open_air_height or z >= geom.cold_top:
             return math.pi * geom.open_air_radius**2
         if geom.gap_bottom <= z < geom.gap_top:
@@ -153,6 +179,15 @@ def make_shard_plan(workload: Workload, n_shards: int,
     max_area = vol.max() / cs  # widest cross-section
     band = density * max_area * halo_width
     halo_capacity = int(np.ceil((band * 4.0 + 64.0) / 8.0) * 8)
+    # The sweep's bands reach halo_width past the farthest particle that
+    # crossed a face in the step (ShardedSimulation._reach_edges), so they
+    # hold that step's z-drift too: 6 sigma of |v_z| dt with sigma =
+    # v_rms / sqrt(3).  The pores drift a fraction of a collision range a
+    # step and keep the reference's capacity; the cube drifts several.
+    drift = 6.0 * physics.v_mean / math.sqrt(3.0) * cfg.dt
+    band_drift = density * max_area * (halo_width + drift)
+    halo_capacity = max(halo_capacity,
+                        int(np.ceil((band_drift * 1.5 + 64.0) / 8.0) * 8))
     # Crossings a step ~= density * area * mean |v_z| * dt; be generous.
     v_scale = 5.0 * physics.a_shape
     crossings = density * max_area * v_scale * cfg.dt
@@ -176,6 +211,10 @@ def make_shard_plan(workload: Workload, n_shards: int,
     k_steps = max(eng.rebuild_interval, 1)
     pairs_migration_capacity = int(
         np.ceil((crossings * 8.0 * k_steps + 64.0) / 8.0) * 8)
+    if hasattr(geom, "total_height"):
+        park = (0.0, 0.0, geom.total_height / 2.0)
+    else:  # the cube's centre
+        park = (geom.lx / 2.0, geom.ly / 2.0, geom.lz / 2.0)
 
     return ShardPlan(
         n_shards=n_shards,
@@ -186,7 +225,7 @@ def make_shard_plan(workload: Workload, n_shards: int,
         halo_capacity=halo_capacity,
         migration_capacity=migration_capacity,
         halo_width=float(halo_width),
-        park=(0.0, 0.0, geom.total_height / 2.0),
+        park=park,
         pairs_band_width=float(pairs_band),
         pairs_cell_start=np.asarray(starts_p, np.int32),
         pairs_cell_window=max(widths_p),
@@ -216,29 +255,31 @@ class SlabConstants:
     no_migrants: tuple
     ghost_paths: torch.Tensor  # (2 * hcap, 4) zeros
     ghost_false: torch.Tensor  # (2 * hcap,) False
+    # hcap and the migrants' capacity are the mode's (``_capacities``).
 
 
-def _empty_band(names, capacity: int, dtype, device):
+def _empty_band(names, capacity: int, dtype, device, gid: int = 0):
     """What a slab without a neighbour on one side receives (the
     reference's zeros from ``ppermute``, then ``ghost_fix``): no slot
-    filled, far positions."""
+    filled, far positions, ids ``gid``."""
     shapes = {"pos": ((3,), dtype), "vel": ((3,), dtype),
               "paths": ((4,), dtype), "hc": ((), torch.bool),
-              "gid": ((), torch.int32)}
+              "gid": ((), torch.int32), "fl": ((), torch.uint8)}
+    fill = {"pos": SENTINEL, "gid": gid}
     buf = {}
     for name in names:
         shape, dt = shapes[name]
-        buf[name] = torch.full((capacity,) + shape,
-                               SENTINEL if name == "pos" else 0, dtype=dt,
-                               device=device)
+        buf[name] = torch.full((capacity,) + shape, fill.get(name, 0),
+                               dtype=dt, device=device)
     return buf, torch.zeros(capacity, dtype=torch.bool, device=device)
 
 
 def _to_device(band, device):
-    """The exchange: a packed band on the receiving slab's device (the
-    same tensors where the sender lives there too)."""
+    """The exchange: a packed band, (buf, flag or None), on the receiving
+    slab's device (the same tensors where the sender lives there too)."""
     buf, flag = band
-    return {k: v.to(device) for k, v in buf.items()}, flag.to(device)
+    return ({k: v.to(device) for k, v in buf.items()},
+            None if flag is None else flag.to(device))
 
 
 def _scatter_rows(base: torch.Tensor, target: torch.Tensor,
@@ -254,8 +295,19 @@ def _scatter_rows(base: torch.Tensor, target: torch.Tensor,
     return out[:-1]
 
 
+def _take(rows: torch.Tensor, idx: torch.Tensor, flag: torch.Tensor,
+          fill) -> torch.Tensor:
+    """``rows`` at the lanes of an export list, ``fill`` where its slot is
+    empty (shard.py:700-708, 807-819)."""
+    got = rows[torch.clamp(idx, max=rows.shape[0] - 1).long()]
+    keep = flag.view((-1,) + (1,) * (rows.dim() - 1))
+    return torch.where(keep, got, torch.full((), fill, dtype=rows.dtype,
+                                             device=rows.device))
+
+
 class ShardedSimulation:
-    """Multi-slab counterpart of ``engine.Simulation`` (sweep mode).
+    """Multi-slab counterpart of ``engine.Simulation``: the pores with
+    either narrow phase and the cube with the sweep, on the cell grid.
 
     ``devices`` lists the devices the slabs are dealt over (default: every
     visible CUDA device, and it raises where there is none; the tests pass
@@ -267,6 +319,11 @@ class ShardedSimulation:
     own device, seeded with ``seed * SEED_STRIDE + 1 + s``.
     ``run(draw=...)`` replaces the draw, so a test can feed the reference's
     uniforms.
+
+    In pairs mode the engine carries each slab's ``PairWindow`` and the
+    steps left in the window across epochs and runs, as ``Simulation``
+    carries its pair list, and drops them when ``run`` gets a state other
+    than the one it last returned (shard.py:1049-1121).
     """
 
     def __init__(self, workload: Workload, n_shards: Optional[int] = None,
@@ -275,41 +332,56 @@ class ShardedSimulation:
         self.cfg = workload.cfg
         cfg = self.cfg
         eng = cfg.engine
-        if eng.narrowphase == "pairs":
-            raise NotImplementedError(
-                "ShardedSimulation runs narrowphase='sweep'; the sharded "
-                "pairs mode is not ported yet (ROADMAP queue 1: next)")
         if eng.hist_flush_interval != 1:
             raise ValueError(
                 "ShardedSimulation always flushes histograms every step "
                 "(exact dense scatter); set hist_flush_interval=1 "
                 f"(got {eng.hist_flush_interval})")
-        if eng.broadphase != "cells" or not hasattr(cfg.geometry,
-                                                    "total_height"):
+        if eng.broadphase != "cells":
             raise NotImplementedError(
-                "ShardedSimulation runs the pore workloads on the cell "
-                "grid (broadphase='cells')")
+                "ShardedSimulation runs on the cell grid "
+                "(broadphase='cells')")
         # The devices as named, before any of them is touched, then the
         # ones taken by default (the visible CUDA devices).
         kernels.require_float32(eng.dtype, devices or [])
         self.dtype = eng.torch_dtype
         self.devices = make_devices(n_shards, devices)
         kernels.require_float32(eng.dtype, self.devices)
-        args = (eng, cfg.physics, cfg.num_molecules, workload.fluid_volume)
-        self.host_grid = collide.grid_for_pore(
-            cfg.geometry, cell_size_for(*args), cell_capacity_for(*args))
-        self._grids = {
-            dev: collide.DeviceGrid.from_grid(self.host_grid, self.dtype, dev)
-            for dev in set(self.devices)}
+        # The pairs grid has the tighter capacity, the cube's is centred on
+        # the box (shard.py:315-337), as on one card.
+        self._grids = {}
+        for dev in dict.fromkeys(self.devices):
+            self.host_grid, self._grids[dev] = build_grids(workload, dev)
         self.plan = make_shard_plan(workload, len(self.devices),
                                     self.host_grid)
+        self._pairs_mode = eng.narrowphase == "pairs"
+        self._windows = None
+        self._window_left = 0
+        self._last_state_out = None
+        if self._pairs_mode:
+            plan = self.plan
+            self.pcfg = pairs_config_for(
+                workload, num_particles=plan.shard_capacity
+                + 2 * plan.pairs_halo_capacity)
 
     # ------------------------------------------------------------------
+    def _capacities(self) -> tuple[int, int]:
+        """(ghost lanes a side, migrant slots a side) of the mode: the
+        pairs mode's are its window's (shard.py:617-618)."""
+        plan = self.plan
+        if self._pairs_mode:
+            return plan.pairs_halo_capacity, plan.pairs_migration_capacity
+        return plan.halo_capacity, plan.migration_capacity
+
     def slab_constants(self) -> list[SlabConstants]:
         """Per-slab constants for the plan as it stands now."""
         plan = self.plan
         dtype = self.dtype
-        hcap, mcap = plan.halo_capacity, plan.migration_capacity
+        hcap, mcap = self._capacities()
+        # The pairs mode's ghosts carry the owner's dirty flags, and a
+        # missing one the reference's id -3 (shard.py:706, 715).
+        halo = (("pos", "vel", "gid", "fl") if self._pairs_mode
+                else ("pos", "vel", "gid"))
         # float64 on the host, the run's dtype on the device (shard.py:364):
         # the init split compares in float64, the migration in the dtype.
         slab_z = torch.as_tensor(plan.slab_z, dtype=dtype)
@@ -324,7 +396,8 @@ class ShardedSimulation:
                 z_lo=z_lo, z_hi=z_hi,
                 up_edge=z_hi - plan.halo_width,
                 down_edge=z_lo + plan.halo_width,
-                no_halo=_empty_band(("pos", "vel", "gid"), hcap, dtype, dev),
+                no_halo=_empty_band(halo, hcap, dtype, dev,
+                                    gid=-3 if self._pairs_mode else 0),
                 no_migrants=_empty_band(("pos", "vel", "paths", "hc", "gid"),
                                         mcap, dtype, dev),
                 ghost_paths=torch.zeros((2 * hcap, 4), dtype=dtype,
@@ -371,9 +444,8 @@ class ShardedSimulation:
 
     def zero_measurements(self) -> list[Measurements]:
         """One Measurements a slab, its staging sized for the slab's local
-        and ghost lanes together (shard.py:1040-1046)."""
-        plan = self.plan
-        lanes = plan.shard_capacity + 2 * plan.halo_capacity
+        and ghost lanes together (shard.py:1038-1046)."""
+        lanes = self.plan.shard_capacity + 2 * self._capacities()[0]
         return [Measurements.zeros(self.cfg.engine.num_bins, self.dtype,
                                    num_particles=lanes, device=dev)
                 for dev in self.devices]
@@ -394,8 +466,119 @@ class ShardedSimulation:
         return state, self.zero_measurements(), generators
 
     # ------------------------------------------------------------------
+    def _parked(self, c: SlabConstants, st: ParticleState,
+                valid: torch.Tensor, fn):
+        """Run a wall or recapture stage with the invalid lanes parked at a
+        safe interior point, then give them the far sentinel back
+        (shard.py:369-376)."""
+        lanes = valid[:, None]
+        out = fn(dataclasses.replace(
+            st, pos=torch.where(lanes, st.pos, c.park)))
+        st = out[0]
+        return (dataclasses.replace(
+            st, pos=torch.where(lanes, st.pos, c.far)),) + out[1:]
+
+    def _pack_migrants(self, s: int, c: SlabConstants, st: ParticleState,
+                       valid: torch.Tensor, gid: torch.Tensor,
+                       capacity: int):
+        """The migrants of slab s, both directions in one call: valid &
+        (z >= z_hi) up, valid & (z < z_lo) down, none across an outer
+        face (shard.py:477-491).  Returns (state with the leavers far and
+        at rest, the lanes that stay, up (buf, flag), down (buf, flag),
+        the migrants that did not fit)."""
+        last = self.plan.n_shards - 1
+        payload = {"pos": st.pos, "vel": st.vel, "paths": st.paths,
+                   "hc": st.has_collided, "gid": gid}
+        (up, up_flag, d_up), (down, down_flag, d_down), valid = \
+            pack_band_pair(payload, valid, capacity,
+                           c.z_hi if s < last else None,
+                           c.z_lo if s > 0 else None, up_inclusive=True,
+                           rest=True)
+        lanes = valid[:, None]
+        st = dataclasses.replace(
+            st, pos=torch.where(lanes, st.pos, c.far),
+            vel=torch.where(lanes, st.vel, torch.zeros_like(c.far)))
+        return st, valid, (up, up_flag), (down, down_flag), d_up + d_down
+
+    def _merge_migrants(self, c: SlabConstants, st: ParticleState,
+                        valid: torch.Tensor, gid: torch.Tensor, lo, hi,
+                        capacity: int):
+        """The migrants from below (``lo``) and above (``hi``), each
+        (buf, flag), merged into the free lanes in ascending lane order
+        (the reference's stable argsort(valid), shard.py:493-512).  Returns
+        (state, valid, gid, the migrants that found no free lane)."""
+        cap = self.plan.shard_capacity
+        lo, lo_flag = _to_device(lo, c.device)
+        hi, hi_flag = _to_device(hi, c.device)
+        flag = torch.cat([lo_flag, hi_flag])
+        # The free lanes in ascending order, padded with cap: an incoming
+        # particle whose rank finds no free lane gets the target cap and
+        # is dropped.
+        free = compact_indices(~valid, 2 * capacity, cap)
+        rank = torch.cumsum(flag.to(torch.int32), dim=0) - 1
+        target = torch.where(flag, free[torch.clamp(rank, min=0).long()],
+                             cap).long()
+        place = flag & (target < cap)
+
+        def merged(base, name):
+            return _scatter_rows(base, target,
+                                 torch.cat([lo[name], hi[name]]))
+
+        st = ParticleState(pos=merged(st.pos, "pos"),
+                           vel=merged(st.vel, "vel"),
+                           paths=merged(st.paths, "paths"),
+                           has_collided=merged(st.has_collided, "hc"))
+        return (st, _scatter_rows(valid, target, place), merged(gid, "gid"),
+                torch.sum(flag & ~place, dtype=torch.int32))
+
+    def _metrics(self, slabs, floats, counts, missed, rebuilt=None):
+        """The step's ledger over all slabs: summed in slab order on the
+        first slab's device; with ``rebuilt`` (the pairs mode) also its
+        four counters."""
+        first = slabs[0].device
+        total_f, total_i, total_missed = floats[0], counts[0], missed[0]
+        for s in range(1, len(slabs)):
+            total_f = total_f + floats[s].to(first)
+            total_i = total_i + counts[s].to(first)
+            total_missed = total_missed + missed[s].to(first)
+        zero = torch.zeros((), dtype=torch.int32, device=first)
+        extra = dict(rebuilt=zero, dirty_count=zero, latent_full=zero,
+                     teleports=zero, latent_research=zero)
+        if rebuilt is not None:
+            extra = dict(rebuilt=rebuilt, dirty_count=total_i[5],
+                         latent_full=total_i[6], teleports=total_i[7],
+                         latent_research=total_i[8])
+        return StepMetrics(
+            momentum_z=total_f[0], energy_hot=total_f[1],
+            energy_cold=total_f[2], collisions=total_i[0],
+            wall_hits=total_i[1], oob_after_walls=total_i[2],
+            oob_after_pairs=total_i[3], missed_cases=total_missed,
+            nonfinite=total_i[4], **extra)
+
+    def _reach_edges(self, slabs, work, width: float):
+        """Each slab's (up_edge, down_edge) of the sweep's halo bands: the
+        plan's, moved to ``width`` below the lowest particle of the slab
+        above and ``width`` above the highest one of the slab below where
+        those lie past the face (0-d tensors on the slab's device)."""
+        def extreme(w, fn, empty):
+            z = torch.where(w["valid"], w["st"].pos[:, 2], empty)
+            return fn(z)
+
+        out = []
+        for s, c in enumerate(slabs):
+            up, down = c.up_edge, c.down_edge
+            if s + 1 < len(slabs):
+                low = extreme(work[s + 1], torch.amin, SENTINEL)
+                up = torch.minimum(up, low.to(c.device) - width)
+            if s > 0:
+                high = extreme(work[s - 1], torch.amax, -SENTINEL)
+                down = torch.maximum(down, high.to(c.device) + width)
+            out.append((up, down))
+        return out
+
     def _step(self, slabs, state, measure, uniforms_of: Callable):
-        """One step of every slab; returns (state, measure, StepMetrics)."""
+        """One sweep step of every slab; returns (state, measure,
+        StepMetrics)."""
         plan = self.plan
         cfg = self.cfg
         eng = cfg.engine
@@ -404,26 +587,15 @@ class ShardedSimulation:
         search_radius = cr + eng.skin
         hist_hi = eng.hist_range[1]
         cap = plan.shard_capacity
-        hcap, mcap = plan.halo_capacity, plan.migration_capacity
+        hcap, mcap = self._capacities()
         n_shards = plan.n_shards
         audits = eng.debug_audits and workload.audit_fn is not None
-
-        def parked(c, st, valid, fn):
-            """Run a wall or recapture stage with the invalid lanes parked
-            at a safe interior point, then give them the far sentinel
-            back (shard.py:369-376)."""
-            lanes = valid[:, None]
-            out = fn(dataclasses.replace(
-                st, pos=torch.where(lanes, st.pos, c.park)))
-            st = out[0]
-            return (dataclasses.replace(
-                st, pos=torch.where(lanes, st.pos, c.far)),) + out[1:]
+        parked = self._parked
 
         # DRIFT, WALLS and recapture under parking (an invalid lane has
-        # zero velocity, so it neither moves nor accrues a path), then the
-        # halo bands.  The missed-case audit runs inside ``advance`` on
-        # the parked lanes, so an invalid lane trips no predicate
-        # (shard.py:397-405).
+        # zero velocity, so it neither moves nor accrues a path).  The
+        # missed-case audit runs inside ``advance`` on the parked lanes, so
+        # an invalid lane trips no predicate (shard.py:397-405).
         work = []
         for s, c in enumerate(slabs):
             st, valid, gid = state[s]
@@ -432,17 +604,28 @@ class ShardedSimulation:
                 c, st, valid,
                 lambda x: workload.advance(x, measure[s], uniforms_of(s),
                                            missed=sink))
-            # Both bands in one call: valid & (z > up_edge) up, valid &
-            # (z < down_edge) down, packed on every slab (the reference
-            # counts an edge slab's truncation too).
-            (up, up_flag, d1), (down, down_flag, d2) = pack_band_pair(
-                {"pos": st.pos, "vel": st.vel, "gid": gid}, valid, hcap,
-                c.up_edge, c.down_edge)
             work.append(dict(st=st, valid=valid, gid=gid, meas=meas,
                              ledger=ledger, oob_walls=oob_walls,
-                             missed=missed,
-                             up=(up, up_flag), down=(down, down_flag),
-                             halo_trunc=d1 + d2))
+                             missed=missed))
+        # The halo bands, both in one call: valid & (z > up_edge) up,
+        # valid & (z < down_edge) down, packed on every slab (the reference
+        # counts an edge slab's truncation too).  A slab's particles that
+        # crossed a face this step are still its own in the pair phase, so
+        # a band reaches halo_width past the receiving slab's farthest
+        # particle when that lies beyond the face: the reference's fixed
+        # edges leave such a crosser's partners unseen by its owner while
+        # their own slab resolves the pair (the cube drifts several
+        # collision ranges a step, and the reference's sharded cube loses
+        # energy for it); the pores' crossers stay within the fixed bands.
+        reach = self._reach_edges(slabs, work, plan.halo_width)
+        for s, c in enumerate(slabs):
+            w = work[s]
+            up_edge, down_edge = reach[s]
+            (up, up_flag, d1), (down, down_flag, d2) = pack_band_pair(
+                {"pos": w["st"].pos, "vel": w["st"].vel, "gid": w["gid"]},
+                w["valid"], hcap, up_edge, down_edge)
+            w.update(up=(up, up_flag), down=(down, down_flag),
+                     halo_trunc=d1 + d2)
 
         # PAIR COLLISIONS over local + ghost lanes, the post-pairs
         # recapture, the flush, and the migrants packed.
@@ -482,65 +665,31 @@ class ShardedSimulation:
             # fixed compaction width, and the dense path is exact.
             meas = measure_ops.flush_hist(meas, eng.num_bins, hist_hi,
                                           capacity=cap + 2 * hcap)
-
-            # The migrants, both directions in one call: valid & (z >=
-            # z_hi) up, valid & (z < z_lo) down, none across an outer
-            # face; the call also returns the lanes that stay.
-            payload = {"pos": st.pos, "vel": st.vel, "paths": st.paths,
-                       "hc": st.has_collided, "gid": gid}
-            (up, up_flag, d3), (down, down_flag, d4), valid = pack_band_pair(
-                payload, valid, mcap,
-                c.z_hi if s < n_shards - 1 else None,
-                c.z_lo if s > 0 else None, up_inclusive=True, rest=True)
-            lanes = valid[:, None]
-            st = dataclasses.replace(
-                st, pos=torch.where(lanes, st.pos, c.far),
-                vel=torch.where(lanes, st.vel, torch.zeros_like(c.far)))
+            st, valid, out_up, out_down, lost = self._pack_migrants(
+                s, c, st, valid, gid, mcap)
             w.update(st=st, valid=valid, meas=meas, overflow=overflow,
                      pair_count=pair_count, oob_pairs=oob_pairs,
-                     out_up=(up, up_flag), out_down=(down, down_flag),
-                     lost=d3 + d4)
+                     out_up=out_up, out_down=out_down, lost=lost)
 
         # MERGE the incoming migrants into free lanes, then the counters.
-        new_state, new_measure, floats, counts = [], [], [], []
+        new_state, new_measure, floats, counts, missed = [], [], [], [], []
         for s, c in enumerate(slabs):
             w = work[s]
-            st, valid, gid, meas = w["st"], w["valid"], w["gid"], w["meas"]
-            lo, lo_flag = _to_device(
-                work[s - 1]["out_up"] if s > 0 else c.no_migrants, c.device)
-            hi, hi_flag = _to_device(
+            st, valid, gid, lost = self._merge_migrants(
+                c, w["st"], w["valid"], w["gid"],
+                work[s - 1]["out_up"] if s > 0 else c.no_migrants,
                 work[s + 1]["out_down"] if s < n_shards - 1
-                else c.no_migrants,
-                c.device)
-            flag = torch.cat([lo_flag, hi_flag])
-            # The free lanes in ascending order (the reference's stable
-            # argsort(valid)), padded with cap: an incoming particle whose
-            # rank finds no free lane gets the target cap and is dropped.
-            free = compact_indices(~valid, 2 * mcap, cap)
-            rank = torch.cumsum(flag.to(torch.int32), dim=0) - 1
-            target = torch.where(flag, free[torch.clamp(rank, min=0).long()],
-                                 cap).long()
-            place = flag & (target < cap)
-
-            def merged(base, name):
-                return _scatter_rows(base, target,
-                                     torch.cat([lo[name], hi[name]]))
-
-            st = ParticleState(pos=merged(st.pos, "pos"),
-                               vel=merged(st.vel, "vel"),
-                               paths=merged(st.paths, "paths"),
-                               has_collided=merged(st.has_collided, "hc"))
-            gid = merged(gid, "gid")
-            valid = _scatter_rows(valid, target, place)
+                else c.no_migrants, mcap)
             # Particles lost (migrants that did not fit the buffer or
             # found no free lane) go to overflow_count; halo truncation
             # only hides a particle from the neighbour's pair search and
             # is kept apart (shard.py:513-525).
-            lost = torch.sum(flag & ~place, dtype=torch.int32) + w["lost"]
             ledger = w["ledger"]
+            meas = w["meas"]
             meas = dataclasses.replace(
                 meas,
-                overflow_count=meas.overflow_count + w["overflow"] + lost,
+                overflow_count=(meas.overflow_count + w["overflow"] + lost
+                                + w["lost"]),
                 halo_trunc_count=meas.halo_trunc_count + w["halo_trunc"],
                 err_count=meas.err_count + ledger.errs,
                 collision_count=(meas.collision_count + w["pair_count"]
@@ -554,28 +703,229 @@ class ShardedSimulation:
                 w["pair_count"] + ledger.wall_hits, ledger.wall_hits,
                 w["oob_walls"], w["oob_pairs"],
                 self._nonfinite(st, valid)]))
+            missed.append(w["missed"])
+        return new_state, new_measure, self._metrics(slabs, floats, counts,
+                                                     missed)
 
-        # The ledger over all slabs: summed in slab order on the first
-        # slab's device.
+    # ------------------------------------------------------------------
+    def _pairs_rebuild(self, slabs, state, measure):
+        """The window boundary of the pairs mode (shard.py:645-744), in
+        phases over the slabs: the crossers migrate, each slab freezes its
+        export lists and captures its ghosts, and the pair list is rebuilt
+        on its local and ghost lanes.  Returns (state, measure, the
+        PairWindow of each slab)."""
+        plan = self.plan
+        cfg = self.cfg
+        hcap, mcap = self._capacities()
+        last = plan.n_shards - 1
+        band = plan.pairs_band_width
+        dtype = self.dtype
+
+        packed = [self._pack_migrants(s, c, st, valid, gid, mcap)
+                  for s, (c, (st, valid, gid)) in enumerate(zip(slabs,
+                                                                state))]
+        merged, exports = [], []
+        for s, c in enumerate(slabs):
+            st, valid, _, _, lost = packed[s]
+            st, valid, gid, unplaced = self._merge_migrants(
+                c, st, valid, state[s][2],
+                packed[s - 1][2] if s > 0 else c.no_migrants,
+                packed[s + 1][3] if s < last else c.no_migrants, mcap)
+            # The export lists, frozen for the window: the lanes within a
+            # band of two cells of a face with a neighbour.
+            z = st.pos[:, 2]
+            nobody = torch.zeros_like(valid)
+            up_idx, up_flag, t_up = pack_indices(
+                valid & (z > c.z_hi - band) if s < last else nobody, hcap)
+            dn_idx, dn_flag, t_dn = pack_indices(
+                valid & (z < c.z_lo + band) if s > 0 else nobody, hcap)
+            meas = measure[s]
+            meas = dataclasses.replace(
+                meas,
+                overflow_count=meas.overflow_count + lost + unplaced,
+                halo_trunc_count=meas.halo_trunc_count + t_up + t_dn)
+            merged.append((st, valid, gid, meas))
+
+            def export(idx, flag):
+                return ({"pos": _take(st.pos, idx, flag, SENTINEL),
+                         "vel": _take(st.vel, idx, flag, 0.0),
+                         "gid": _take(gid, idx, flag, -3)}, flag)
+
+            exports.append(dict(up=export(up_idx, up_flag),
+                                down=export(dn_idx, dn_flag),
+                                lists=(up_idx, up_flag, dn_idx, dn_flag)))
+
+        new_state, new_measure, windows = [], [], []
+        for s, c in enumerate(slabs):
+            st, valid, gid, meas = merged[s]
+            gb, flag_b = _to_device(
+                exports[s - 1]["up"] if s > 0 else c.no_halo, c.device)
+            ga, flag_a = _to_device(
+                exports[s + 1]["down"] if s < last else c.no_halo, c.device)
+            valid_c = torch.cat([valid, flag_b, flag_a])
+            comb = ParticleState(
+                pos=torch.cat([st.pos, gb["pos"], ga["pos"]]),
+                vel=torch.cat([st.vel, gb["vel"], ga["vel"]]),
+                paths=None, has_collided=None)
+            old = (self._windows[s].plist if self._windows is not None
+                   else pairs_ops.PairList.init(
+                       valid_c.shape[0], c.grid, self.pcfg, dtype,
+                       c.device))
+            active = (None if plan.pairs_active_start is None
+                      else (int(plan.pairs_active_start[s]),
+                            plan.pairs_active_window))
+            plist = pairs_ops.rebuild(
+                comb, c.grid, self.pcfg, cfg.physics.collision_range,
+                cfg.dt, old, ids=torch.cat([gid, gb["gid"], ga["gid"]]),
+                valid_lanes=valid_c,
+                cell_window=(int(plan.pairs_cell_start[s]),
+                             plan.pairs_cell_window),
+                active_window=active)
+            windows.append(pairs_ops.PairWindow(
+                plist, *exports[s]["lists"], gid_b=gb["gid"], flag_b=flag_b,
+                gid_a=ga["gid"], flag_a=flag_a))
+            new_state.append((st, valid, gid))
+            new_measure.append(meas)
+        return new_state, new_measure, windows
+
+    def _pairs_step(self, slabs, state, measure, uniforms_of: Callable,
+                    rebuilt: bool):
+        """One step of the pairs mode on every slab (shard.py:771-974);
+        updates ``self._windows`` and returns (state, measure,
+        StepMetrics)."""
+        plan = self.plan
+        cfg = self.cfg
+        eng = cfg.engine
+        workload = self.workload
+        pcfg = self.pcfg
+        cr, dt = cfg.physics.collision_range, cfg.dt
+        hist_hi = eng.hist_range[1]
+        cap = plan.shard_capacity
+        last = plan.n_shards - 1
+        audits = eng.debug_audits and workload.audit_fn is not None
+        parked = self._parked
+
+        # DRIFT, WALLS and recapture of the local lanes under parking, then
+        # the exports through the frozen lists: post-wall state and the
+        # owner's dirty flags (bit 0 the speed changed, bit 1 recaptured).
+        work = []
+        for s, c in enumerate(slabs):
+            st, valid, gid = state[s]
+            win = self._windows[s]
+            sink, missed = missed_counts(c.device, audits)
+            st, meas, ledger, oob_walls, recap_w, speed_pre = parked(
+                c, st, valid,
+                lambda x: workload.advance(x, measure[s], uniforms_of(s),
+                                           missed=sink))
+            recap_w = recap_w & valid
+            wall_bump = (measure_ops.speed(st.vel) != speed_pre) & valid
+            flags = wall_bump.to(torch.uint8) | (recap_w.to(torch.uint8) << 1)
+
+            def export(idx, flag):
+                return {"pos": _take(st.pos, idx, flag, SENTINEL),
+                        "vel": _take(st.vel, idx, flag, 0.0),
+                        "fl": _take(flags, idx, flag, 0)}
+
+            work.append(dict(st=st, meas=meas, ledger=ledger,
+                             oob_walls=oob_walls, missed=missed,
+                             recap_w=recap_w, wall_bump=wall_bump,
+                             up=export(win.up_idx, win.up_flag),
+                             down=export(win.dn_idx, win.dn_flag)))
+
+        new_state, new_measure, floats, counts, missed = [], [], [], [], []
+        for s, c in enumerate(slabs):
+            w = work[s]
+            st, meas, ledger = w["st"], w["meas"], w["ledger"]
+            _, valid, gid = state[s]
+            win = self._windows[s]
+            plist = win.plist
+            gb, _ = _to_device((work[s - 1]["up"], None) if s > 0
+                               else c.no_halo, c.device)
+            ga, _ = _to_device((work[s + 1]["down"], None) if s < last
+                               else c.no_halo, c.device)
+            gid_c = torch.cat([gid, win.gid_b, win.gid_a])
+            valid_c = torch.cat([valid, win.flag_b, win.flag_a])
+            local_c = torch.cat([valid, c.ghost_false])
+            fb, fa = win.flag_b[:, None], win.flag_a[:, None]
+            comb = ParticleState(
+                pos=torch.cat([st.pos, torch.where(fb, gb["pos"], c.far),
+                               torch.where(fa, ga["pos"], c.far)]),
+                vel=torch.cat([st.vel, gb["vel"], ga["vel"]]),
+                paths=torch.cat([st.paths, c.ghost_paths]),
+                has_collided=torch.cat([st.has_collided, c.ghost_false]))
+            n = comb.num_particles
+
+            # PAIR COLLISIONS on the listed lanes, in place on comb and the
+            # staging; the match by global id, staged and counted locally.
+            comb, meas, pair_count, collided = pairs_ops.test_and_resolve(
+                comb, meas, plist.a, plist.b, cr, pcfg.event_capacity,
+                ids=gid_c, local_mask=local_c)
+            # POST-PAIRS RECAPTURE on every lane: deterministic, so a
+            # ghost is recaptured as its owner is.
+            pos_pre = comb.pos
+            comb, _ = parked(c, comb, valid_c, workload.post_pairs)
+            recap_p = torch.any(comb.pos != pos_pre, dim=-1)
+            oob_pairs = torch.sum(recap_p[:cap] & valid, dtype=torch.int32)
+
+            # DIRTY lanes: a ghost's wall flags are its owner's.
+            bump = torch.cat([w["wall_bump"], (gb["fl"] & 1).bool(),
+                              (ga["fl"] & 1).bool()])
+            recap_w = torch.cat([w["recap_w"], (gb["fl"] >> 1).bool(),
+                                 (ga["fl"] >> 1).bool()])
+            bump = (bump | collided) & valid_c
+            teleported = recap_w | recap_p
+            hot = plist.hot | (teleported & valid_c)
+            latent_full = torch.sum(plist.pending1 & local_c,
+                                    dtype=torch.int32)
+            dirty = (bump | hot | plist.pending1) & valid_c
+
+            shared_idx, dirty_idx, research_dropped = shared_compaction(
+                meas.pending_mask, dirty, pcfg.research_capacity)
+            plist = dataclasses.replace(plist, hot=hot)
+            plist, research_lost, latent_per = pairs_ops.research_dirty(
+                comb, plist, dirty_idx, bump, c.grid, pcfg, cr, dt,
+                ids=gid_c)
+            counted = (dirty_idx < n) & local_c[torch.clamp(
+                dirty_idx, max=n - 1).long()]
+            latent_research = torch.sum(
+                torch.where(counted, latent_per, 0), dtype=torch.int32)
+            force = research_lost | (research_dropped > 0)
+            meas = measure_ops.flush_hist_compacted(meas, shared_idx,
+                                                    eng.num_bins, hist_hi)
+            meas = dataclasses.replace(
+                meas,
+                overflow_count=(meas.overflow_count + plist.overflow
+                                + research_dropped),
+                hot_spill_count=meas.hot_spill_count + plist.spill,
+                err_count=meas.err_count + ledger.errs,
+                collision_count=meas.collision_count + ledger.wall_hits)
+            zero = torch.zeros((), dtype=torch.int32, device=c.device)
+            plist = dataclasses.replace(
+                plist, pending1=torch.zeros_like(plist.pending1),
+                age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
+                overflow=zero, spill=zero)
+            self._windows[s] = dataclasses.replace(win, plist=plist)
+
+            # WRITE BACK the local lanes.
+            st = ParticleState(pos=comb.pos[:cap], vel=comb.vel[:cap],
+                               paths=comb.paths[:cap],
+                               has_collided=comb.has_collided[:cap])
+            new_state.append((st, valid, gid))
+            new_measure.append(meas)
+            floats.append(torch.stack([ledger.momentum_z, ledger.energy_hot,
+                                       ledger.energy_cold]))
+            counts.append(torch.stack([
+                pair_count + ledger.wall_hits, ledger.wall_hits,
+                w["oob_walls"], oob_pairs, self._nonfinite(st, valid),
+                torch.sum(dirty, dtype=torch.int32), latent_full,
+                torch.sum(teleported & local_c, dtype=torch.int32),
+                latent_research]))
+            missed.append(w["missed"])
         first = slabs[0].device
-        total_f = floats[0]
-        total_i = counts[0]
-        total_missed = work[0]["missed"]
-        for s in range(1, n_shards):
-            total_f = total_f + floats[s].to(first)
-            total_i = total_i + counts[s].to(first)
-            total_missed = total_missed + work[s]["missed"].to(first)
-        zero = torch.zeros((), dtype=torch.int32, device=first)
-        metrics = StepMetrics(
-            momentum_z=total_f[0], energy_hot=total_f[1],
-            energy_cold=total_f[2], collisions=total_i[0],
-            wall_hits=total_i[1], oob_after_walls=total_i[2],
-            oob_after_pairs=total_i[3], missed_cases=total_missed,
-            nonfinite=total_i[4],
-            rebuilt=zero, dirty_count=zero, latent_full=zero,
-            teleports=zero, latent_research=zero,
-        )
-        return new_state, new_measure, metrics
+        return new_state, new_measure, self._metrics(
+            slabs, floats, counts, missed,
+            rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
+                               device=first))
 
     def _nonfinite(self, st: ParticleState, valid: torch.Tensor):
         """Non-finite elements over the valid lanes (shard.py:253-267)."""
@@ -586,6 +936,39 @@ class ShardedSimulation:
                    for t in (st.pos, st.vel, st.paths))
 
     # ------------------------------------------------------------------
+    def pair_window(self):
+        """(the PairWindow of each slab, steps left in the window) for a
+        checkpoint, or None (the sweep, or no window open)."""
+        if not self._pairs_mode or self._windows is None:
+            return None
+        return self._windows, self._window_left
+
+    def resume_pair_window(self, state, windows, window_left: int):
+        """Carry ``windows`` (a PairWindow a slab), with ``window_left``
+        steps left, into the next ``run`` from ``state``, as if this engine
+        had returned that state: a resumed run then rebuilds and migrates
+        on the uninterrupted run's steps."""
+        if not self._pairs_mode:
+            raise ValueError("resume_pair_window: narrowphase='sweep' "
+                             "carries no pair list")
+        if len(windows) != self.plan.n_shards:
+            raise ValueError(f"resume_pair_window: {len(windows)} windows "
+                             f"for {self.plan.n_shards} slabs")
+        lanes = self.plan.shard_capacity + 2 * self.plan.pairs_halo_capacity
+        for s, (win, dev) in enumerate(zip(windows, self.devices)):
+            want = pairs_ops.PairList.init(lanes, self._grids[dev],
+                                           self.pcfg, self.dtype, "meta")
+            for f in dataclasses.fields(want):
+                got = getattr(win.plist, f.name).shape
+                if got != getattr(want, f.name).shape:
+                    raise ValueError(
+                        f"resume_pair_window: slab {s}'s {f.name} of shape "
+                        f"{tuple(got)}, this run's is "
+                        f"{tuple(getattr(want, f.name).shape)}")
+        self._windows = list(windows)
+        self._window_left = int(window_left)
+        self._last_state_out = state
+
     def run(self, num_steps: Optional[int] = None, seed=None, state=None,
             measure=None, generators=None, start_step: int = 0,
             draw: Optional[Callable[[int, int], torch.Tensor]] = None,
@@ -602,9 +985,14 @@ class ShardedSimulation:
             num_steps = self.cfg.num_timesteps
         if state is None:
             state, measure, generators = self.init(seed)
-        # The dense flush (K7) updates a slab's measurements in place: the
-        # run carries its own copies and never writes a tensor its caller
-        # passed in.
+        if state is not self._last_state_out:
+            # A fresh or foreign state: the carried windows describe
+            # another trajectory.
+            self._windows = None
+            self._window_left = 0
+        # The flushes (K7) and K3 update a slab's measurements in place:
+        # the run carries its own copies and never writes a tensor its
+        # caller passed in.
         state = [(copy_tensors(st), valid.clone(), gid.clone())
                  for st, valid, gid in state]
         measure = [copy_tensors(m) for m in measure]
@@ -627,8 +1015,19 @@ class ShardedSimulation:
         while step_index < end:
             steps = []
             for i in range(step_index, min(step_index + spe, end)):
-                state, measure, metrics = self._step(
-                    slabs, state, measure, lambda s, i=i: draw(s, i))
+                uniforms = lambda s, i=i: draw(s, i)  # noqa: E731
+                if self._pairs_mode:
+                    rebuilt = self._window_left <= 0 or self._windows is None
+                    if rebuilt:
+                        state, measure, self._windows = self._pairs_rebuild(
+                            slabs, state, measure)
+                        self._window_left = self.pcfg.rebuild_interval
+                    state, measure, metrics = self._pairs_step(
+                        slabs, state, measure, uniforms, rebuilt)
+                    self._window_left -= 1
+                else:
+                    state, measure, metrics = self._step(slabs, state,
+                                                         measure, uniforms)
                 steps.append(metrics)
             epoch = StepMetrics.stack(steps)
             epochs.append(epoch)
@@ -636,6 +1035,7 @@ class ShardedSimulation:
                 epoch_callback(epoch)
             step_index += len(steps)
         stacked = StepMetrics.concat(epochs) if epochs else None
+        self._last_state_out = state
         return state, measure, stacked
 
     def finalize_measure(self, measure: list[Measurements]) -> Measurements:

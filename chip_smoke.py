@@ -13,7 +13,8 @@ exits non-zero without a result line):
    (one ``nvcc`` process a source, all started together); then the ledger
    gate: the main path (pairs, K=8) at the reference scale, 557,649
    molecules for 250 steps, its per-step ledger against the JAX package's
-   in ``parity_momentum_energy.csv`` by the reference's z-test;
+   in ``parity_momentum_energy.csv`` by the reference's z-test; and the
+   same gate on the sharded pairs mode, 4 slabs of the one card;
 2. each kernel against its plain PyTorch version on the same tensors on the
    card, at the shapes of the 1M-particle temperature pore (the sweep's
    K2, K9, K10, K7, K2 and K9 also at cell capacity 8 so that cells
@@ -49,9 +50,14 @@ exits non-zero without a result line):
    positions; K12 (band and index packing, and both directions of an
    exchange in one launch) at the band sizes of the 1M pore cut in 4
    z-slabs, with room, truncated, empty and graph-replayed, and K2, K9 and
-   K10 with their z-slab arguments on one slab's local and ghost lanes;
-3. the sweep slice, the pairs slice, the cube and the 4-slab sharded sweep
-   on the card against the same slices on the CPU (the plain versions,
+   K10 with their z-slab arguments on one slab's local and ghost lanes (K9
+   also ordering its candidates by global id, the sharded sweep's form);
+   K1, K5, K3 and K4 with theirs (global ids, valid lanes, the slab's
+   windows, the local mask) on the arguments the sharded pairs mode hands
+   them for one of 4 slabs of the 1M pore, captured from its run;
+3. the sweep slice, the pairs slice, the cube, the 4-slab sharded sweep
+   and the 4-slab sharded pairs mode on the card against the same slices
+   on the CPU (the plain versions,
    which the CPU tests hold to the JAX package) at a small size, from one
    state with one set of uniforms;
 4. the pairs engine against the sweep engine on the card at 1M particles,
@@ -68,23 +74,35 @@ exits non-zero without a result line):
    at 1M particles with all four slabs on the one card, 300 steps:
    particles and global ids conserved after every epoch, no overflow, halo
    and migrant traffic across every interior face, pair collisions within
-   1% of the single-slab sweep's; and the specular pore, one slab, 1M
+   1% of the single-slab sweep's; the sharded pairs mode the same way
+   (K=8; no overflow after the first window, pair collisions within 1% of
+   the sharded sweep's, every kernel launched as its steps and rebuilds
+   ask); the sharded cube (24,627 particles on cells, 4 slabs, 500
+   steps: kinetic energy within 1e-5, the mean free path within 5% of
+   the one-card cube's) and the reference's mean-free-path check on 4
+   slabs; the specular pore, one slab, 1M
    particles for 100 steps, its kinetic energy constant; the cube on the
    cell grid (K2, K9) against the cube on all pairs (K11), 100 steps,
    bitwise; the command line in this process (``cli.main``): the main
    path at 557,649 molecules for 200 steps with checkpoints, a resume from
    step 100 whose step-200 checkpoint is bitwise the first run's, the
-   files it writes; short runs with the audit, on 4 slabs and of the cube
-   on cells, each with its wall time;
+   files it writes; short runs with the audit, on 4 slabs, of the cube on
+   cells and on 4 slabs, each with its wall time; the sharded pairs mode
+   at 200k on 4 slabs resumed mid-window, its step-40 checkpoint bitwise
+   the whole run's;
 9. where the time goes in each slice: untraced step time (CUDA events),
    device time and device operations a step (``torch.profiler``), host
    time of the step and of its per-particle stage (``cProfile``); the
-   sharded sweep at 1, 2 and 4 slabs; K6's wrapper beside
+   sharded sweep and the sharded pairs mode at 1, 2 and 4 slabs and the
+   sharded cube on 4; K6's wrapper beside
    ``torch.nonzero``; K2 and K12 timed alone; K7, K11, K10 and K5 alone,
    device time and launches a call (K8's with and without the audit, in
    phase 2).
 
-The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
+The line before the last is the kernels line: each kernel's launches on
+its main path, and on every path in ``path_launches``, beside its times
+and bound (K1, K5, K3 and K4 also in their slab forms).  The last line is
+``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script stops before printing any result.
 ``python3 chip_smoke.py --breakdown`` runs phases 0, 1 and 9 only; a copy
 of the script placed beside another checkout's package reads that
@@ -179,6 +197,11 @@ SHARD_KERNELS = {
     "pack_band_pair": dict(
         source="argon_monte_carlo_tpu_torch/kernels/csrc/pack.cu",
         replaces="argon_monte_carlo_tpu/parallel/shard.py:210"),
+    # The sharded pairs mode freezes its export lists with K12's index
+    # form, at every window boundary.
+    "pack_indices": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/pack.cu",
+        replaces="argon_monte_carlo_tpu/parallel/shard.py:232"),
 }
 SLABS = 4
 CUBE_STEPS = 500
@@ -1255,15 +1278,16 @@ def with_duplicates(plist, pos, cr: float):
     return a, b, k
 
 
-def check_k3_case(label, state, meas, a, b, cr, e_cap):
+def check_k3_case(label, state, meas, a, b, cr, e_cap, **slab):
     """K3 and its twin, each on its own copy of the inputs: masks,
     counts, staging and counters exact, state within 2 ulp, and the
-    kernel's state and measurements the tensors it was given.  Returns
+    kernel's state and measurements the tensors it was given; ``slab``
+    holds the z-slab arguments (ids, local_mask) where given.  Returns
     (kernel outputs, max abs error, ulps)."""
     gs, gm = own(state), own(meas)
-    got = pairs_ops.test_and_resolve(gs, gm, a, b, cr, e_cap)
+    got = pairs_ops.test_and_resolve(gs, gm, a, b, cr, e_cap, **slab)
     want = pairs_ops.test_and_resolve_plain(own(state), own(meas), a, b, cr,
-                                            e_cap)
+                                            e_cap, **slab)
     (ks, km, kc, kmask), (ws, wm, wc, wmask) = got, want
     same_tensors(ks, gs, f"K3 ({label})")
     same_tensors(km, gm, f"K3 ({label})")
@@ -1901,41 +1925,50 @@ def ledger_z_test(ref, ours) -> tuple:
     return float(z), float(ratio), bool(z < LEDGER_Z and lo < ratio < hi)
 
 
-def check_ledger_gate(tag: str) -> None:
+def check_ledger_gate(tag: str, n_shards=None) -> None:
     """The main path at the reference scale (temperature_pore_config() at
     its default 557,649 molecules, float32, cells, pairs with K=8, a
-    histogram flush every step, seed 17) for 250 steps on the card; its
-    momentum_z, energy_cold and energy_hot rows against the JAX package's
-    ledger in parity_momentum_energy.csv by the reference's z-test.  The
-    two runs draw from different generators, so they agree statistically,
-    not step by step."""
+    histogram flush every step, seed 17) for 250 steps on the card -- on
+    one card, or with ``n_shards`` the sharded pairs mode with every slab
+    on the card; its momentum_z, energy_cold and energy_hot rows against
+    the JAX package's ledger in parity_momentum_energy.csv by the
+    reference's z-test.  The two runs draw from different generators, so
+    they agree statistically, not step by step."""
     ref = read_ledger_csv(Path(__file__).resolve().parent / LEDGER_CSV)
     cfg = amt.temperature_pore_config(engine=amt.EngineConfig(
         dtype="float32", broadphase="cells", hist_flush_interval=1, **PAIRS))
     require(cfg.seed == SEED, f"ledger gate: config seed {cfg.seed}")
-    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    if n_shards is None:
+        sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+        label = "ledger gate"
+    else:
+        sim = amt.ShardedSimulation(amt.make_workload(cfg),
+                                    n_shards=n_shards)
+        label = f"ledger gate, {n_shards} slabs"
     t0 = time.perf_counter()
     state, meas, metrics = sim.run(num_steps=LEDGER_STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    n = state.num_particles
+    meas = sim.finalize_measure(meas)
+    n = cfg.num_molecules
     parts, failed = [], []
     for col, field in LEDGER_COLUMNS:
         ours = getattr(metrics, field).double().cpu().numpy()
         require(len(ours) == LEDGER_STEPS and len(ref[col]) == LEDGER_STEPS,
-                f"ledger gate: {len(ours)} steps against {len(ref[col])}")
+                f"{label}: {len(ours)} steps against {len(ref[col])}")
         z, ratio, ok = ledger_z_test(ref[col], ours)
         parts.append(f"{col} z={z!r} std ratio={ratio!r}")
         if not ok:
             failed.append(col)
-    print(f"ledger gate: {'; '.join(parts)} (bounds z < {LEDGER_Z}, std "
+    print(f"{label}: {'; '.join(parts)} (bounds z < {LEDGER_Z}, std "
           f"ratio in {LEDGER_STD_RATIO[0]}-{LEDGER_STD_RATIO[1]}) {tag}")
-    print(f"ledger gate: N={n} steps={LEDGER_STEPS} seed={cfg.seed} pairs "
+    print(f"{label}: N={n} steps={LEDGER_STEPS} seed={cfg.seed} pairs "
           f"K={sim.pcfg.rebuild_interval}, "
           f"collisions={int(meas.collision_count)} "
-          f"err={int(meas.err_count)} overflow={int(meas.overflow_count)}, "
-          f"{seconds!r} s against {LEDGER_CSV} {tag}")
-    require(not failed, f"ledger gate: {failed} outside the z-test's bounds")
+          f"err={int(meas.err_count)} overflow={int(meas.overflow_count)} "
+          f"halo_trunc={int(meas.halo_trunc_count)}, {seconds!r} s against "
+          f"{LEDGER_CSV} {tag}")
+    require(not failed, f"{label}: {failed} outside the z-test's bounds")
 
 
 # --------------------------------------------------------------------------
@@ -2045,6 +2078,19 @@ def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
         err, maybe_timed(lambda: wl.advance(state, meas, u), reps),
         maybe_timed(lambda: wl.advance_plain(state, meas, u), min(reps, 3)),
         io, 60 * n)}
+    # The bound restated for a form in place, as K3, K7 and K10's were:
+    # pos, vel, paths and has_collided read (41 bytes a particle), pos and
+    # paths written (the drift moves every particle: 28), recap_w and
+    # speed_pre written (5); a wall case's lanes also write vel,
+    # has_collided and their staging (30 bytes) and, energized, read their
+    # uniforms (8).
+    hits = sum(cases.values()) // steps
+    in_place = n * (41 + 28 + 5) + 30 * hits + 8 * energized // steps
+    out["pore_advance"]["bound_in_place_ms"] = (
+        in_place / HBM_BYTES_PER_S * 1e3)
+    print(f"K8 pore_advance: bound in place {in_place / HBM_BYTES_PER_S * 1e3!r}"
+          f" ms (bytes: {in_place} at N={n}, {hits} wall-case lanes a step); "
+          f"as it writes now {out['pore_advance']['bound_ms']!r} ms {tag}")
     if reps > 0:
         print_times(out, n, tag)
     return out
@@ -2324,7 +2370,7 @@ def run_cube_slice(tag: str, k11_ms: float) -> dict:
           f"{peak / 2**30!r} GiB {tag}")
     print(f"cube slice: launches {counts} {tag}")
     check_mfp(tag)
-    return counts
+    return counts, mfp
 
 
 def check_mfp(tag: str) -> None:
@@ -2547,9 +2593,17 @@ def check_pack(case, tag: str, reps: int) -> dict:
         0.0, maybe_timed(lambda: pack.pack_band_pair(*pair_args), reps),
         maybe_timed(lambda: pack.pack_band_pair_plain(*pair_args), reps),
         io, 0.0, maybe_timed(library, reps))}
+    # The index form as the sharded pairs mode freezes its export lists:
+    # the mask read, every slot's index and flag written, dropped.
+    mask = case.halo_up
+    out["pack_indices"] = result(
+        0.0, maybe_timed(lambda: pack.pack_indices(mask, cap), reps),
+        maybe_timed(lambda: pack.pack_indices_plain(mask, cap), reps),
+        n + 5 * cap + 4, 0.0,
+        maybe_timed(lambda: torch.nonzero(mask).flatten()[:cap], reps))
     if reps > 0:
-        print_times(out, n, f"(both halo bands, one call) {tag}")
-        mask = case.halo_up
+        print_times(out, n, f"(both halo bands, one call; the index form "
+                    f"on the up band) {tag}")
         one = {"pack_band": result(
             0.0, timed_ms(lambda: pack.pack_band(fields, mask, cap), reps),
             timed_ms(lambda: pack.pack_band_plain(fields, mask, cap), reps),
@@ -2643,6 +2697,13 @@ def check_slab_kernels(case, tag: str, reps: int) -> None:
           f"exact; {int(has.sum())} lanes with a partner, "
           f"{int((has[:cap] & (partner[:cap] >= cap)).sum())} local lanes "
           f"whose partner is a ghost {tag}")
+    # Candidates ordered by global id; at three collision ranges too, where
+    # most lanes have several.
+    wide = collide.partner_sweep(pos, table, pslot, grid, 3.0 * r, **kw)
+    exact("K9 partner (ids, valid, cell_window, radius 3 cr)", wide,
+          collide.partner_sweep_plain(pos, table, pslot, grid, 3.0 * r, **kw))
+    print(f"K9 partner_sweep ids=, radius 3 cr: exact; "
+          f"{int((wide >= 0).sum())} lanes with a partner {tag}")
 
     u = torch.rand((n, 6), generator=case.gen, device="cuda")
     ghost = ~local
@@ -2898,6 +2959,469 @@ def run_sharded_slice(tag: str, sweep_pairs: int) -> dict:
           f"{per_epoch[0]!r} s, init {init_s!r} s, peak memory "
           f"{peak / 2**30!r} GiB {tag}")
     print(f"sharded slice: launches {counts} {tag}")
+    return counts, pairs
+
+
+# --------------------------------------------------------------------------
+# The sharded pairs mode and the sharded cube
+# --------------------------------------------------------------------------
+
+
+def snapshot(x):
+    """``x`` with every tensor cloned: tensors, dataclasses of tensors
+    (fields that are None stay), tuples and lists of them; anything else
+    as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(snapshot(y) for y in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: snapshot(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+    return x
+
+
+def capture_slab_calls(sim, state, meas, gens, steps: int = 2) -> dict:
+    """Run the sharded pairs engine ``steps`` steps from ``state``,
+    recording a snapshot of the arguments of every call to K1-K5's
+    entries (``pairs_ops.rebuild``, ``test_and_resolve``,
+    ``research_dirty``) as (args, kwargs), slab after slab in call
+    order."""
+    names = ("rebuild", "test_and_resolve", "research_dirty")
+    calls = {name: [] for name in names}
+    saved = {name: getattr(pairs_ops, name) for name in names}
+
+    def wrap(name):
+        def call(*args, **kw):
+            calls[name].append((snapshot(args), snapshot(kw)))
+            return saved[name](*args, **kw)
+        return call
+
+    try:
+        for name in names:
+            setattr(pairs_ops, name, wrap(name))
+        sim.run(steps, state=state, measure=meas, generators=gens)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(pairs_ops, name, fn)
+    return calls
+
+
+def emitting(pslot, grid, valid, active_window) -> torch.Tensor:
+    """The particles K1 lets emit (a slot in a cell of the slab's window);
+    the plain version's rule (ops/collide._emitters)."""
+    cap = grid.capacity
+    listed = (pslot < grid.num_cells * cap) & valid
+    cell = torch.where(listed, pslot // cap, grid.num_cells).long()
+    return collide._emitters(cell, listed, grid, None, active_window)[0]
+
+
+def check_sharded_pairs_kernels(tag: str, particles: int = PARTICLES,
+                                reps: int = 20) -> dict:
+    """K1, K5, K3 and K4 with their z-slab arguments against their plain
+    versions on the card, on the arguments the sharded pairs engine hands
+    them for the fullest interior one of 4 slabs of the 1M pore: K2, K1
+    and K5 at its first rebuild (its local and ghost lanes, their global
+    ids and valid lanes, its cell window and active slice), K3 and K4 at
+    its second step.  Integers exact, floats within 2 ulp; timed beside
+    their bounds from these inputs.  Returns each kernel's slab-form
+    result."""
+    sim = sharded_sim(particles, **PAIRS)
+    state, meas, gens = sim.init(SEED)
+    s = max(range(1, SLABS - 1), key=lambda k: int(state[k][1].sum()))
+    calls = capture_slab_calls(sim, state, meas, gens)
+    require(all(len(v) == 2 * SLABS or (k == "rebuild" and len(v) == SLABS)
+                for k, v in calls.items()),
+            f"sharded pairs calls: { {k: len(v) for k, v in calls.items()} }")
+    out = {}
+
+    # K2 + K1 + K5 at the rebuild.
+    (comb, grid, pcfg, cr, dt, _), kw = calls["rebuild"][s]
+    ids, valid = kw["ids"], kw["valid_lanes"]
+    n, cap = valid.shape[0], sim.plan.shard_capacity
+    reach, clipped = pairs_ops.reach_radii(
+        comb.vel, cr, dt, pcfg.rebuild_interval, 0.5 * grid.cell_size)
+    got = collide.bin_and_table(comb.pos, grid, valid=valid)
+    for name, a, b in zip(("cell_id", "table", "pslot", "overflow"), got,
+                          collide.bin_and_table_plain(comb.pos, grid,
+                                                      valid=valid)):
+        exact(f"K2 {name} (sharded pairs rebuild)", a, b)
+    _, table, pslot, overflow = got
+    k1 = (comb.pos, reach, table, pslot, grid, pcfg.top_k)
+    k1_kw = dict(ids=ids, valid=valid, cell_window=kw["cell_window"],
+                 active_window=kw["active_window"])
+    got = collide.rebuild_sweep(*k1, **k1_kw)
+    want = collide.rebuild_sweep_plain(*k1, **k1_kw)
+    for name, a, b in zip(("cands", "unswept", "pos0", "reach0"), got,
+                          want):
+        exact(f"K1 {name} (slab)", a, b)
+    cands, unswept = got[0], got[1]
+    to_ghost = int(((cands[:cap] >= cap)).sum())
+    emit = emitting(pslot, grid, valid, kw["active_window"])
+    require(int((cands >= 0).sum()) > 0 and to_ghost > 0,
+            f"K1 (slab): {int((cands >= 0).sum())} candidates, {to_ghost} "
+            f"from a local lane to a ghost")
+    print(f"K1 rebuild_sweep ids=, valid=, active_window="
+          f"{kw['active_window']}: exact on {n} lanes ({int(valid.sum())} "
+          f"valid, {int(valid[cap:].sum())} ghosts), {int(emit.sum())} "
+          f"emitting, {int((cands >= 0).sum())} candidates ({to_ghost} local "
+          f"-> ghost), {int((cands[:, -1] >= 0).sum())} full rows, "
+          f"{int(unswept.sum())} unswept {tag}")
+    tests = neighbor_slots(table, torch.where(
+        emit, pslot, grid.num_cells * grid.capacity), grid, n, slice(13, 27))
+    out["rebuild_sweep"] = result(
+        0.0, maybe_timed(lambda: collide.rebuild_sweep(*k1, **k1_kw), reps),
+        maybe_timed(lambda: collide.rebuild_sweep_plain(*k1, **k1_kw),
+                    min(reps, 3)),
+        tensor_bytes(k1[:4], grid.neighbors, grid.active_rank, ids, valid,
+                     got), PAIR_TEST_OPS * tests)
+    zero = torch.zeros((), dtype=torch.int32, device=cands.device)
+    k5 = (cands, pslot, clipped, unswept, overflow, zero, zero,
+          grid.num_cells * grid.capacity, pcfg.pair_capacity, valid)
+    got5 = pairs_ops.emit_pairs(*k5)
+    for name, a, b in zip(("a", "b", "cursor", "hot", "pending1", "overflow",
+                           "spill"), got5, pairs_ops.emit_pairs_plain(*k5)):
+        exact(f"K5 {name} (valid_lanes)", a, b)
+    require(not bool(got5[3][~valid].any()) and int(got5[2]) > 0,
+            "K5 (valid_lanes): an invalid lane hot, or no entry")
+    print(f"K5 emit_pairs valid_lanes=: exact; cursor={int(got5[2])} "
+          f"hot={int(got5[3].sum())} pending1={int(got5[4].sum())} "
+          f"overflow={int(got5[5])} spill={int(got5[6])} {tag}")
+    out["emit_pairs"] = result(
+        0.0, maybe_timed(lambda: pairs_ops.emit_pairs(*k5), reps),
+        maybe_timed(lambda: pairs_ops.emit_pairs_plain(*k5), min(reps, 5)),
+        tensor_bytes(k5[:7], valid, got5))
+
+    # K3 at the second step of the window.
+    (st, ms, a, b, cr, e_cap), kw3 = calls["test_and_resolve"][SLABS + s]
+    (ks, km, kc, kmask), err, ulps = check_k3_case(
+        "slab", st, ms, a, b, cr, e_cap, **kw3)
+    local = kw3["local_mask"]
+    require(int(kc) > 0, "K3 (slab): no pair counted")
+    print(f"K3 test_and_resolve ids=, local_mask=: {int(kc)} pairs counted "
+          f"here, {int(kmask.sum())} lanes resolved "
+          f"({int(kmask[~local].sum())} ghosts); mask, count, staging and "
+          f"counters exact, state {ulps} ulp from plain (bound 2), in place "
+          f"{tag}")
+    t3s, t3m = own(st), own(ms)
+
+    def reset3():
+        refill(t3s, st)
+        refill(t3m, ms)
+
+    timing = (None, None)
+    if reps > 0:
+        k3_ms, _, _ = net_ms(lambda: pairs_ops.test_and_resolve(
+            t3s, t3m, a, b, cr, e_cap, **kw3), reset3, reps)
+        timing = (k3_ms, timed_ms(lambda: pairs_ops.test_and_resolve_plain(
+            own(st), own(ms), a, b, cr, e_cap, **kw3), min(reps, 5)))
+    # As K3's bound (check_test_and_resolve), on these lanes, with the ids
+    # of the events' endpoints and the local mask of the resolved ones.
+    listed = (a < n) & (b < n)
+    touched = torch.unique(torch.cat([a[listed], b[listed]])).numel()
+    d = st.pos[b[listed].long()] - st.pos[a[listed].long()]
+    events = min(int(((d * d).sum(1) < cr * cr).sum()), e_cap)
+    resolved = int(kmask.sum())
+    out["test_and_resolve"] = result(
+        err, *timing, 8 * a.shape[0] + 12 * touched + 24 * events
+        + 102 * resolved + n,
+        PAIR_TEST_OPS * int(listed.sum()) + 35 * resolved)
+
+    # K4 at the second step.
+    (comb4, plist, dirty_idx, bump, grid4, pcfg4, cr4, dt4), kw4 = \
+        calls["research_dirty"][SLABS + s]
+
+    def own_list(pl):
+        return dataclasses.replace(pl, a=pl.a.clone(), b=pl.b.clone(),
+                                   hot=pl.hot.clone(),
+                                   reach0=pl.reach0.clone())
+
+    args4 = (dirty_idx, bump, grid4, pcfg4, cr4, dt4)
+    want4 = pairs_ops.research_dirty_plain(comb4, own_list(plist), *args4,
+                                           **kw4)
+    got4 = pairs_ops.research_dirty(comb4, own_list(plist), *args4, **kw4)
+    for f in K4_FIELDS:
+        exact(f"K4 {f} (ids)", getattr(got4[0], f), getattr(want4[0], f))
+    exact("K4 lost (ids)", got4[1], want4[1])
+    exact("K4 latent_per (ids)", got4[2], want4[2])
+    live = int((dirty_idx < n).sum())
+    appended = int(got4[0].cursor) - int(plist.cursor)
+    require(live > 0, "K4 (ids): no dirty lane")
+    print(f"K4 research_dirty ids=: exact in place; {live} dirty of "
+          f"{dirty_idx.numel()} lanes ({int(((dirty_idx >= cap) & (dirty_idx < n)).sum())}"
+          f" ghosts), appended={appended} lost={bool(got4[1])} {tag}")
+    scratch = own_list(plist)
+    timing = (None, None)
+    if reps > 0:
+        k4_ms, _, _ = net_ms(
+            lambda: pairs_ops.research_dirty(comb4, scratch, *args4, **kw4),
+            lambda: scratch.reach0.copy_(plist.reach0), reps)
+        timing = (k4_ms, timed_ms(lambda: pairs_ops.research_dirty_plain(
+            comb4, own_list(plist), *args4, **kw4), min(reps, 5)))
+    # As K4's bound (check_research_dirty), with each dirty lane's id and
+    # its candidates' ids read.
+    gcap = grid4.capacity
+    live_idx = dirty_idx[dirty_idx < n].long()
+    slot = plist.pslot0[live_idx]
+    cells = (slot[slot < grid4.num_cells * gcap] // gcap).long()
+    rows = grid4.neighbors[cells].long()
+    occ = (plist.idx0 < n).sum(dim=1)
+    out["research_dirty"] = result(
+        0.0, *timing,
+        8 * int(bump[live_idx].sum()) + live_idx.numel() * 41
+        + torch.unique(rows).numel() * gcap * 24 + 8 * appended,
+        PAIR_TEST_OPS * int(occ[rows].sum()))
+    if reps > 0:
+        print_times(out, n, f"(slab forms, one of {SLABS} slabs' local and "
+                    f"ghost lanes) {tag}")
+    return out
+
+
+def check_sharded_pairs_against_cpu(tag: str, particles: int = 20_000,
+                                    steps: int = 10) -> None:
+    """The 4-slab sharded pairs mode (K=8) on the card against the same on
+    the CPU (which tests/test_torch_sharded_pairs.py holds to the JAX
+    package), from one split state and one set of uniforms: valid, gid,
+    counts, the rebuild steps and the histogram equal, the state within
+    the cos/sin rounding of the two devices."""
+    cpu = sharded_sim(particles, devices=["cpu"], steps_per_epoch=5, **PAIRS)
+    gpu = sharded_sim(particles, steps_per_epoch=5, **PAIRS)
+    state, meas, _ = cpu.init(SEED)
+    n = cpu.cfg.num_molecules
+    cap = cpu.plan.shard_capacity
+    gen = torch.Generator().manual_seed(SEED)
+    uniforms = torch.rand((steps, SLABS, cap, 2), generator=gen)
+    s_c, m_c, met_c = cpu.run(steps, state=state, measure=meas,
+                              draw=lambda s, i: uniforms[i, s])
+    s_g, m_g, met_g = gpu.run(steps, state=to_card(state),
+                              measure=to_card(meas),
+                              draw=lambda s, i: uniforms[i, s].cuda())
+    for f in ("collisions", "wall_hits", "oob_after_walls",
+              "oob_after_pairs", "rebuilt"):
+        exact(f"sharded pairs small run {f}", getattr(met_g, f).cpu(),
+              getattr(met_c, f))
+    t_c, t_g = cpu.finalize_measure(m_c), gpu.finalize_measure(m_g)
+    for f in ("hist", "path_count", "collision_count", "err_count",
+              "overflow_count", "halo_trunc_count", "hist_drop_count",
+              "hot_spill_count"):
+        exact(f"sharded pairs small run {f}", getattr(t_g, f).cpu(),
+              getattr(t_c, f))
+    rel = 0.0
+    for k, ((st_g, v_g, g_g), (st_c, v_c, g_c)) in enumerate(zip(s_g, s_c)):
+        exact(f"sharded pairs small run valid (slab {k})", v_g.cpu(), v_c)
+        exact(f"sharded pairs small run gid (slab {k})", g_g.cpu()[v_c],
+              g_c[v_c])
+        exact(f"sharded pairs small run has_collided (slab {k})",
+              st_g.has_collided.cpu()[v_c], st_c.has_collided[v_c])
+        for f in ("pos", "vel", "paths"):
+            a, b = getattr(st_g, f).cpu()[v_c], getattr(st_c, f)[v_c]
+            rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+    require(rel <= 1e-5, f"sharded pairs small run: state differs by {rel} "
+            f"relative")
+    moved = int((slab_of_gid(s_g, n) != slab_of_gid(to_card(state), n)).sum())
+    pairs = int((met_c.collisions - met_c.wall_hits).sum())
+    require(moved > 0 and pairs > 0,
+            f"sharded pairs small run: {moved} migrants, {pairs} pairs")
+    print(f"sharded pairs small run vs CPU: N={n} slabs={SLABS} steps="
+          f"{steps} K={gpu.pcfg.rebuild_interval} pairs={pairs} "
+          f"wall_hits={int(met_c.wall_hits.sum())} migrated={moved} dirty="
+          f"{met_g.dirty_count.tolist()} (CPU {met_c.dirty_count.tolist()}): "
+          f"valid, gid, counts, rebuilds and histogram equal, state max rel "
+          f"err {rel!r} (bound 1e-5) {tag}")
+
+
+def sharded_counts_check(label, counts, expected, steps, rebuilds=0):
+    """Each kernel's launches in a sharded run: ``expected`` maps a kernel
+    to (a slab a step, a slab a rebuild)."""
+    for name, (per_step, per_rebuild) in expected.items():
+        want = SLABS * (per_step * steps + per_rebuild * rebuilds)
+        require(counts.get(name, 0) == want,
+                f"{label}: {name} launched {counts.get(name, 0)} times, "
+                f"expected {want}")
+
+
+def run_sharded_pairs_slice(tag: str, sweep_pairs: int) -> dict:
+    """The sharded pairs mode at full width, counted: the 1M pore on 4
+    slabs of the one card, K=8, 300 steps.  ``sweep_pairs`` is the sharded
+    sweep's pair-collision total over the same steps from the same initial
+    state (phase 8).  Every id live once after every epoch, no overflow
+    after the first window, no halo truncation, pair collisions within 1%
+    of the sharded sweep's, each kernel launched as often as its slab's
+    steps and rebuilds ask."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = sharded_sim(steps_per_epoch=STEPS_PER_EPOCH, **PAIRS)
+    state, meas, gens = sim.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sim.cfg.num_molecules
+    k = sim.pcfg.rebuild_interval
+    kernels.launch_counts.clear()
+    # The first window alone, so that its overflow can be read.
+    state, meas, first = sim.run(k, state=state, measure=meas,
+                                 generators=gens)
+    window0 = int(sim.finalize_measure(meas).overflow_count)
+    slab_of_gid(state, n)
+    epochs, seconds = [first], []
+    step = k
+    while step < STEPS:
+        m = min(STEPS_PER_EPOCH, STEPS - step)
+        t0 = time.perf_counter()
+        state, meas, met = sim.run(m, state=state, measure=meas,
+                                   generators=gens, start_step=step)
+        torch.cuda.synchronize()
+        seconds.append((m, time.perf_counter() - t0))
+        slab_of_gid(state, n)
+        epochs.append(met)
+        step += m
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = StepMetrics.concat(epochs)
+    tot = sim.finalize_measure(meas)
+    for f in ("halo_trunc_count", "err_count"):
+        require(int(getattr(tot, f)) == 0,
+                f"sharded pairs slice: {f}={int(getattr(tot, f))}")
+    require(int(tot.overflow_count) == window0,
+            f"sharded pairs slice: overflow_count "
+            f"{int(tot.overflow_count) - window0} after the first window")
+    live = ParticleState(**{
+        f.name: torch.cat([getattr(st, f.name)[valid]
+                           for st, valid, _ in state])
+        for f in dataclasses.fields(ParticleState)})
+    require(all(bool(torch.isfinite(t).all())
+                for t in (live.pos, live.vel, live.paths)),
+            "sharded pairs slice: non-finite state")
+    require(int(oob.pore_oob_count(live, sim.cfg.geometry)) == 0,
+            "sharded pairs slice: particles out of bounds")
+    pairs = int((metrics.collisions - metrics.wall_hits).sum())
+    hits = int(metrics.wall_hits.sum())
+    require(abs(pairs - sweep_pairs) <= 0.01 * sweep_pairs,
+            f"sharded pairs slice: {pairs} pair collisions against the "
+            f"sharded sweep's {sweep_pairs}")
+    require(int(tot.collision_count) == pairs + hits,
+            "sharded pairs slice: collision_count is not pairs + wall hits")
+    require(int(tot.hist_drop_count) == 0 and bool(
+        (tot.hist.sum(dim=1) == int(tot.path_count)).all()),
+        "sharded pairs slice: histogram rows do not sum to path_count")
+    rebuilds = int(metrics.rebuilt.sum())
+    require(rebuilds == -(-STEPS // k), f"sharded pairs slice: {rebuilds} "
+            f"rebuilds in {STEPS} steps")
+    sharded_counts_check(
+        "sharded pairs slice", counts,
+        {"pore_advance": (1, 0), "test_and_resolve": (1, 0),
+         "research_dirty": (1, 0), "flush_hist_compacted": (1, 0),
+         "compact": (2, 1), "bin_and_table": (0, 1),
+         "rebuild_sweep": (0, 1), "emit_pairs": (0, 1),
+         "pack_indices": (0, 2), "pack_band_pair": (0, 1),
+         "partner_sweep": (0, 0), "resolve_pairs": (0, 0),
+         "flush_hist": (0, 0)}, STEPS, rebuilds)
+    steady = (sum(m for m, _ in seconds[1:])
+              / sum(t for _, t in seconds[1:]))
+    print(f"sharded pairs slice: N={n} slabs={SLABS} K={k} steps={STEPS} "
+          f"pairs={pairs} (sharded sweep {sweep_pairs}) wall_hits={hits} "
+          f"path_count={int(tot.path_count)} overflow={window0}, all in the "
+          f"first window, 0 after it; halo_trunc=0 err=0 oob=0 finite=True; "
+          f"ids 0..N-1 live after every epoch; rebuilds={rebuilds} "
+          f"hot_spill={int(tot.hot_spill_count)} dirty_count "
+          f"{int(metrics.dirty_count.min())}-"
+          f"{int(metrics.dirty_count.max())} {tag}")
+    print(f"sharded pairs slice: particle-steps/s={steady * n!r} (after the "
+          f"first window and epoch), step {1e3 / steady!r} ms, first epoch "
+          f"after the first window {seconds[0][1]!r} s, init {init_s!r} s, "
+          f"peak memory {peak / 2**30!r} GiB; lanes a slab "
+          f"{sim.plan.shard_capacity} + 2 x {sim.plan.pairs_halo_capacity} "
+          f"ghosts, {sim.plan.pairs_migration_capacity} migrant slots a "
+          f"window {tag}")
+    print(f"sharded pairs slice: launches {counts} {tag}")
+    return counts
+
+
+def run_sharded_cube(tag: str, one_card_mfp: float) -> dict:
+    """The cube at its published size on the cell grid cut in 4 slabs of
+    the card, 500 steps: kinetic energy within 1e-5, every id live once,
+    no overflow or halo truncation, the pair rate the one-card cube's
+    (snapshot overlaps, within 20%), the mean free path at the reference
+    dt within 5% of the one-card cube's (``one_card_mfp``, phase 7); then
+    the reference's mean-free-path check on 4 slabs (its validation
+    configuration, 20 mean-free times): within 20% of lambda."""
+    cfg = cube_on_cells(steps_per_epoch=100)
+    sim = amt.ShardedSimulation(amt.make_workload(cfg), n_shards=SLABS)
+    state, meas, gens = sim.init()
+    n = cfg.num_molecules
+    require(n == CUBE_PARTICLES, f"sharded cube: {n} particles")
+
+    def energy(state):
+        return sum(float((st.vel[v].double() ** 2).sum())
+                   for st, v, _ in state)
+
+    e0 = energy(state)
+    kernels.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, meas, metrics = sim.run(state=state, measure=meas, generators=gens)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    steps = cfg.num_timesteps
+    slab_of_gid(state, n)
+    tot = sim.finalize_measure(meas)
+    for f in ("overflow_count", "halo_trunc_count", "err_count"):
+        require(int(getattr(tot, f)) == 0,
+                f"sharded cube: {f}={int(getattr(tot, f))}")
+    e_rel = abs(energy(state) - e0) / e0
+    require(e_rel <= 1e-5, f"sharded cube: kinetic energy moved by {e_rel}")
+    g = cfg.geometry
+    cr = cfg.physics.collision_range
+    snapshot_rate = n * (n / g.volume) * (4.0 / 3.0) * math.pi * cr**3 / 2.0
+    rate = int(metrics.collisions.sum()) / steps
+    require(abs(rate - snapshot_rate) <= 0.2 * snapshot_rate,
+            f"sharded cube: {rate} pairs a step against {snapshot_rate}")
+    mfp = float(tot.path_sum[0]) / int(tot.path_count)
+    require(abs(mfp - one_card_mfp) <= 0.05 * one_card_mfp,
+            f"sharded cube: mean free path {mfp} against the one card's "
+            f"{one_card_mfp}")
+    sharded_counts_check(
+        "sharded cube", counts,
+        {"bin_and_table": (1, 0), "partner_sweep": (1, 0),
+         "resolve_pairs": (1, 0), "flush_hist": (1, 0),
+         "pack_band_pair": (2, 0), "compact": (1, 0),
+         "allpairs_partner": (0, 0), "pore_advance": (0, 0)}, steps)
+    lam = cfg.physics.lambda_mfp
+    print(f"sharded cube: N={n} slabs={SLABS} steps={steps} pairs="
+          f"{int(metrics.collisions.sum())} ({rate!r} a step; snapshot "
+          f"expectation {snapshot_rate!r}) path_count={int(tot.path_count)} "
+          f"mfp={mfp!r} m ({mfp / lam!r} lambda at the reference dt; one "
+          f"card {one_card_mfp / lam!r}) kinetic energy rel change "
+          f"{e_rel!r} (bound 1e-5); ids 0..N-1 live, overflow=0 "
+          f"halo_trunc=0 err=0, halo capacity {sim.plan.halo_capacity}; "
+          f"{seconds!r} s, {1e3 * seconds / steps!r} ms a step {tag}")
+    print(f"sharded cube: launches {counts} {tag}")
+
+    physics = amt.GasPhysics(sigma=3.6e-19 * 4.0)
+    vgeom = amt.CubeGeometry(lx=40e-9, ly=40e-9, lz=40e-9)
+    spm = max(1, int(round(physics.tau / (0.2e-9 / physics.v_mean))))
+    vcfg = amt.CubeConfig(
+        geometry=vgeom, physics=physics, nmft=20, steps_per_mft=spm,
+        engine=amt.EngineConfig(broadphase="cells", steps_per_epoch=500))
+    vsim = amt.ShardedSimulation(amt.make_workload(vcfg), n_shards=SLABS)
+    t0 = time.perf_counter()
+    vstate, vmeas, _ = vsim.run()
+    torch.cuda.synchronize()
+    vtot = vsim.finalize_measure(vmeas)
+    count = int(vtot.path_count)
+    measured = float(vtot.path_sum[0]) / count
+    require(count > 3000, f"sharded mfp check: {count} completed paths")
+    require(abs(measured - physics.lambda_mfp) <= 0.2 * physics.lambda_mfp,
+            f"sharded mfp check: {measured} against lambda "
+            f"{physics.lambda_mfp}")
+    slab_of_gid(vstate, vcfg.num_molecules)
+    print(f"sharded mfp check: N={vcfg.num_molecules} slabs={SLABS} steps="
+          f"{vcfg.num_timesteps} paths={count} mfp={measured!r} m, lambda="
+          f"{physics.lambda_mfp!r} m, ratio {measured / physics.lambda_mfp!r}"
+          f" (bound 0.8-1.2), {time.perf_counter() - t0!r} s {tag}")
     return counts
 
 
@@ -3105,7 +3629,9 @@ def check_cli(tag: str) -> None:
     second directory; their step-200 checkpoints bitwise equal, rows
     100-199 of the first CSV equal the resumed run's rows, the 8 histogram
     files parse, metrics carry device_memory.  Then short runs of the
-    audit, the 4-slab sharded sweep and the cube on cells."""
+    audit, the 4-slab sharded sweep, the 4-slab sharded pairs mode at 200k
+    with a resume from step 20 (mid-window) whose step-40 checkpoint is
+    bitwise the whole run's, the cube on cells and the cube on 4 slabs."""
     import shutil
     import tempfile
 
@@ -3171,9 +3697,38 @@ def check_cli(tag: str) -> None:
         run_cli("temperature_pore --mesh 4 --narrowphase sweep, 20 steps",
                 ["temperature_pore", "--mesh", "4", "--narrowphase", "sweep",
                  "--steps", "20", "--out", str(root / "mesh")], tag)
+        # The sharded pairs mode (the pores' default narrow phase) with a
+        # checkpoint mid-window and a resume from it.
+        whole, resumed = root / "mesh_pairs", root / "mesh_pairs_resumed"
+        mesh = ["temperature_pore", "--mesh", "4", "--target-particles",
+                "200000", "--steps-per-epoch", "20", "--checkpoint-every",
+                "20"]
+        run_cli("temperature_pore --mesh 4 (pairs, K=8), 40 steps",
+                mesh + ["--steps", "40", "--out", str(whole)], tag)
+        run_cli("temperature_pore --mesh 4, resumed at step 20 for 20 steps",
+                mesh + ["--steps", "20", "--out", str(resumed), "--resume",
+                        str(whole / "checkpoint_00000020.npz")], tag)
+        with np.load(whole / "checkpoint_00000040.npz") as a, \
+                np.load(resumed / "checkpoint_00000040.npz") as b:
+            names = [f if f in a.files else f"m_{f}" for f in CLI_CHECKED]
+            for f in names + ["valid", "gid", "pairs_a", "pairs_cursor",
+                              "pairs_window_left"]:
+                require(np.array_equal(a[f], b[f]),
+                        f"CLI --mesh 4: the resumed run's step-40 {f} "
+                        f"differs")
+            m = int(a["valid"].sum())
+            mesh_collisions = int(a["m_collision_count"].sum())
+        print(f"CLI --mesh 4: N={m}, step-40 checkpoints of the whole and "
+              f"the resumed sharded pairs run (resumed at step 20, mid-"
+              f"window) bitwise equal in the state, the measurements, valid, "
+              f"gid and the slabs' pair lists ({mesh_collisions} "
+              f"collisions) {tag}")
         run_cli("cube --broadphase cells, 50 steps",
                 ["cube", "--broadphase", "cells", "--steps", "50",
                  "--out", str(root / "cube")], tag)
+        run_cli("cube --mesh 4 (cells), 50 steps",
+                ["cube", "--mesh", "4", "--steps", "50",
+                 "--out", str(root / "cube_mesh")], tag)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3504,6 +4059,12 @@ def breakdowns(tag: str) -> None:
         for n_shards in (1, 2, SLABS):
             breakdown(tag, f"sharded sweep, {n_shards} slab(s)", config(),
                       n_shards=n_shards)
+        if hasattr(amt.ShardedSimulation, "pair_window"):
+            for n_shards in (1, 2, SLABS):
+                breakdown(tag, f"sharded pairs, {n_shards} slab(s)",
+                          config(**PAIRS), n_shards=n_shards)
+            breakdown(tag, f"sharded cube, {SLABS} slabs", cube_on_cells(),
+                      n_shards=SLABS)
 
 
 def main(argv) -> int:
@@ -3536,6 +4097,7 @@ def main(argv) -> int:
         breakdowns(tag)
         return 0
     check_ledger_gate(tag)
+    check_ledger_gate(tag, n_shards=SLABS)
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))
@@ -3543,21 +4105,32 @@ def main(argv) -> int:
     results.update(check_allpairs(tag))
     check_k2_cube(tag)
     results.update(check_slab(tag))
+    for name, r in check_sharded_pairs_kernels(tag).items():
+        results[name]["slab_form"] = r
     check_against_cpu(tag)
     check_against_cpu(tag, narrowphase="pairs", rebuild_interval=5)
     check_against_cpu(tag, cfg=cube_config(3_000, steps_per_epoch=5),
                       label="cube", steps=20)
     check_sharded_against_cpu(tag)
+    check_sharded_pairs_against_cpu(tag)
     compare_pairs_with_sweep(tag)
-    counts, sweep_pairs = run_slice(tag, [*KERNELS, *WALL_KERNELS])
-    pairs_counts, _ = run_slice(
+    # Each path's launches, counted from zero just before it runs.
+    paths = {}
+    paths["sweep"], sweep_pairs = run_slice(tag, [*KERNELS, *WALL_KERNELS])
+    paths["pairs"], _ = run_slice(
         tag, ["bin_and_table", *PAIRS_KERNELS, *WALL_KERNELS], **PAIRS)
-    counts.update({name: pairs_counts[name]
-                   for name in [*PAIRS_KERNELS, *WALL_KERNELS]})
-    cube_counts = run_cube_slice(tag, results["allpairs_partner"]["ms"])
-    counts.update({name: cube_counts[name] for name in CUBE_KERNELS})
-    shard_counts = run_sharded_slice(tag, sweep_pairs)
-    counts.update({name: shard_counts[name] for name in SHARD_KERNELS})
+    paths["cube"], one_card_mfp = run_cube_slice(
+        tag, results["allpairs_partner"]["ms"])
+    paths["sharded sweep"], sharded_pairs = run_sharded_slice(tag,
+                                                              sweep_pairs)
+    paths["sharded pairs"] = run_sharded_pairs_slice(tag, sharded_pairs)
+    paths["sharded cube"] = run_sharded_cube(tag, one_card_mfp)
+    # ``launches``: the path each kernel is the main one of.
+    main_path = {**{k: "sweep" for k in KERNELS},
+                 **{k: "pairs" for k in [*PAIRS_KERNELS, *WALL_KERNELS]},
+                 **{k: "cube" for k in CUBE_KERNELS},
+                 "pack_band_pair": "sharded sweep",
+                 "pack_indices": "sharded pairs"}
     check_specular_pore(tag)
     compare_cube_cells_with_allpairs(tag)
     check_cli(tag)
@@ -3566,9 +4139,11 @@ def main(argv) -> int:
     sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS,
                **SHARD_KERNELS}
     require(set(results) == set(sources), "kernels line: entries missing")
+    require(set(main_path) == set(sources), "kernels line: paths missing")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **sources[name],
-         "launches": counts[name], **r}
+         "launches": paths[main_path[name]].get(name, 0), **r,
+         "path_launches": {p: c.get(name, 0) for p, c in paths.items()}}
         for name, r in results.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

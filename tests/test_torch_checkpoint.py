@@ -189,6 +189,47 @@ def test_sharded_resume_is_bitwise(tmp_path):
                                                  dtype=torch.int32))
 
 
+def test_sharded_pairs_resume_is_bitwise_mid_window(tmp_path):
+    """2 CPU slabs in pairs mode (K=4): 6 + 6 steps against 12, the file
+    written mid-window with each slab's PairWindow; a window for another
+    slab count is refused."""
+    cfg = amt.temperature_pore_config(engine=amt.EngineConfig(
+        dtype="float64", steps_per_epoch=6, narrowphase="pairs",
+        rebuild_interval=4)).scaled_to(3000)
+
+    def make():
+        return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
+                                     devices=["cpu"])
+
+    sim = make()
+    whole_state, whole_meas, whole_met = sim.run(num_steps=12)
+    sim = make()
+    state, meas, gens = sim.init()
+    state, meas, _ = sim.run(num_steps=6, state=state, measure=meas,
+                             generators=gens)
+    windows, left = sim.pair_window()
+    assert left == 2 and len(windows) == 2
+    path = tckpt.save_sharded_checkpoint(str(tmp_path / "shp.npz"), state,
+                                         meas, gens, 6,
+                                         pair_window=sim.pair_window())
+    sim2 = make()
+    state, meas, gens, step = tckpt.load_sharded_checkpoint(path, ["cpu"] * 2)
+    sim2.resume_pair_window(state, *tckpt.load_sharded_pair_window(
+        path, ["cpu"] * 2))
+    state, meas, met = sim2.run(num_steps=6, state=state, measure=meas,
+                                generators=gens, start_step=step)
+    assert met.rebuilt.tolist() == whole_met.rebuilt.tolist()[6:]
+    for (st, valid, gid), (ws, wvalid, wgid) in zip(state, whole_state):
+        assert torch.equal(valid, wvalid) and torch.equal(gid, wgid)
+        for f in STATE:
+            assert torch.equal(getattr(st, f), getattr(ws, f)), f
+    for m, wm in zip(meas, whole_meas):
+        for f in MEASURE:
+            assert torch.equal(getattr(m, f), getattr(wm, f)), f
+    with pytest.raises(ValueError, match="slab windows"):
+        tckpt.load_sharded_pair_window(path, ["cpu"] * 3)
+
+
 def test_reference_reads_port_files(tmp_path):
     """The JAX loaders read the port's files: every array equal."""
     cfg = amt.temperature_pore_config(engine=amt.EngineConfig(

@@ -4,8 +4,9 @@ files), the port of tests/test_cli.py, plus its refusals.
 Checked: the files a run writes; that a run resumed from a checkpoint
 writes a final checkpoint bitwise equal to the uninterrupted run's; the
 workload defaults and that ``make_config`` equals the JAX CLI's field by
-field for the same arguments; ``--mesh``, ``--debug-audits`` and
-``--plot``; and that nothing falls back to the CPU unasked.
+field for the same arguments; ``--mesh`` (both narrow phases, the cube,
+and a sharded pairs run resumed mid-window bitwise), ``--debug-audits``
+and ``--plot``; and that nothing falls back to the CPU unasked.
 """
 
 import dataclasses
@@ -155,13 +156,47 @@ def test_mesh_runs_the_sharded_sweep(tmp_path):
                   "--resume", str(out / "checkpoint_00000003.npz")],
                  tmp_path)
     assert r2.returncode == 0, r2.stderr[-2000:]
-    # The pores' default narrow phase (pairs) waits for the sharded pairs
-    # mode: refused before any work, naming the flag that runs.
-    r3 = run_cli(["temperature_pore", "--mesh", "2", "--out",
-                  str(tmp_path / "m3")], tmp_path)
+    # The slabs are cut on the cell grid: the all-pairs broad phase is
+    # refused before any work, naming the flag.
+    r3 = run_cli(["cube", "--mesh", "2", "--broadphase", "allpairs",
+                  "--out", str(tmp_path / "m3")], tmp_path)
     assert r3.returncode != 0
-    assert "--narrowphase sweep" in r3.stderr
+    assert "--broadphase allpairs" in r3.stderr
     assert not (tmp_path / "m3").exists()
+
+
+def test_mesh_runs_the_sharded_pairs_with_exact_resume(tmp_path):
+    """``--mesh 2`` runs the pores' default narrow phase (pairs, K=8); a
+    run resumed from its step-6 checkpoint, mid-window, writes a step-12
+    checkpoint bitwise equal to the uninterrupted run's (the windows ride
+    in the file)."""
+    out, again = tmp_path / "run", tmp_path / "again"
+    common = ["temperature_pore", "--mesh", "2", "--target-particles",
+              "3000", "--steps-per-epoch", "6", "--checkpoint-every", "6"]
+    r = run_cli(common + ["--steps", "12", "--out", str(out)], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    with np.load(out / "checkpoint_00000006.npz") as z:
+        assert int(z["pairs_window_left"]) == 2
+        assert z["pairs_a"].shape[0] == 2 and z["pairs_up_idx"].shape[0] == 2
+    r2 = run_cli(common + ["--steps", "6", "--out", str(again), "--resume",
+                           str(out / "checkpoint_00000006.npz")], tmp_path)
+    assert r2.returncode == 0, r2.stderr[-2000:]
+    with np.load(out / "checkpoint_00000012.npz") as a, \
+            np.load(again / "checkpoint_00000012.npz") as b:
+        for name in CHECKED + ("valid", "gid", "pairs_a", "pairs_cursor"):
+            key = name if name in a.files else f"m_{name}"
+            np.testing.assert_array_equal(a[key], b[key], err_msg=name)
+        assert int(a["m_collision_count"].sum()) > 0
+
+
+def test_mesh_runs_the_cube(tmp_path):
+    """``--mesh 2`` runs the cube, on the cell grid, with its artefacts."""
+    out = tmp_path / "cube"
+    r = run_cli(["cube", "--mesh", "2", "--particles", "3000", "--steps",
+                 "4", "--out", str(out)], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "broadphase=cells" in r.stdout
+    assert "hist_x_axis_total_data.txt" in os.listdir(out)
 
 
 def test_debug_audits(tmp_path):

@@ -105,12 +105,14 @@ def test_host_grid_equal(target, capacity):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(narrowphase="pairs", rebuild_interval=8), "ROADMAP"),
-    (dict(cube=True), "cell grid"),
+    (dict(broadphase="allpairs"), "cell grid"),
+    (dict(cube=True, broadphase="allpairs"), "cell grid"),
 ])
 def test_unported_options_raise(kwargs, match):
-    """What the port does not run yet, all in the z-slab engine: its pairs
-    mode (ROADMAP Q1-C) and the sharded cube."""
+    """What the z-slab engine does not run: the all-pairs broad phase, the
+    cube's default, for the pore and the cube (the slabs are cut on the
+    cell grid; both narrow phases and the cube on cells run,
+    tests/test_torch_sharded_pairs.py and test_torch_sharded_cube.py)."""
     kwargs = dict(kwargs)
     cube = kwargs.pop("cube", False)
     engine = tcfg.EngineConfig(**kwargs)

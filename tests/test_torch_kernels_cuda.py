@@ -18,9 +18,10 @@ edges and replayed in a CUDA graph; K7 in place, also over two calls and
 replayed in a CUDA graph; K12's buffers bitwise, its flags and counts exact; K2
 exact, also on its long-segment path and when replayed in a CUDA graph.  The
 pairs engine's kernels, K8, K11, K12 and the z-slab arguments of K2, K9 and
-K10 run ``chip_smoke.py``'s own checks, untimed: the pore at 200k
-particles (cut in 4 z-slabs for K12 and the sharded sweep), the cube at its
-published 24,627.
+K10, and the slab forms of K1, K5, K3 and K4, run ``chip_smoke.py``'s own
+checks, untimed: the pore at 200k particles (cut in 4 z-slabs for K12, the
+sharded sweep and the sharded pairs mode), the cube at its published
+24,627.
 """
 
 import dataclasses
@@ -391,3 +392,20 @@ def test_pack_band_refuses_float64(device):
 
 def test_sharded_sweep_on_card_matches_cpu(device):
     chip_smoke.check_sharded_against_cpu("", particles=TARGET)
+
+
+def test_slab_forms_of_the_pairs_kernels(device):
+    """K1, K5, K3 and K4 with their z-slab arguments (global ids, valid
+    lanes, the slab's windows, the local mask) on the arguments the sharded
+    pairs mode hands them for one of 4 slabs."""
+    before = dict(kernels.launch_counts)
+    out = chip_smoke.check_sharded_pairs_kernels("", particles=TARGET,
+                                                 reps=0)
+    assert set(out) == {"rebuild_sweep", "emit_pairs", "test_and_resolve",
+                        "research_dirty"}
+    for name in out:
+        assert kernels.launch_counts[name] > before.get(name, 0), name
+
+
+def test_sharded_pairs_on_card_matches_cpu(device):
+    chip_smoke.check_sharded_pairs_against_cpu("", particles=TARGET)
