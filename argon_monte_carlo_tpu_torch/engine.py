@@ -23,7 +23,8 @@ on the pre-drift positions at the start of every ``rebuild_interval``
 window.  A plain Python loop over steps replaces the reference's
 ``lax.scan``; the host reads nothing back inside an epoch (counters,
 cursors and metrics stay 0-d tensors on the device), so the card runs
-ahead of the loop.
+ahead of the loop.  Each epoch, rebuild, step and stage of a step is a
+span of ``trace`` while a torch profiler records.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .ops import measure as measure_ops
 from .ops import pairs as pairs_ops
 from .ops.compact import compact_indices
 from .state import Measurements, ParticleState, StepMetrics
+from .trace import span
 
 
 class WallLedger(NamedTuple):
@@ -190,51 +192,63 @@ def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
 
     def step(state: ParticleState, measure: Measurements,
              uniforms: torch.Tensor, step_index: int):
+        with span("amc/step"):
+            return stages(state, measure, uniforms, step_index)
+
+    def stages(state, measure, uniforms, step_index):
         # DRIFT, WALL CASES, the missed-case audit, then recapture.
-        sink, missed = missed_counts(state.pos.device, audits)
-        state, measure, ledger, oob_walls, _, _ = workload.advance(
-            state, measure, uniforms, missed=sink)
+        with span("amc/step/advance"):
+            sink, missed = missed_counts(state.pos.device, audits)
+            state, measure, ledger, oob_walls, _, _ = workload.advance(
+                state, measure, uniforms, missed=sink)
 
         # PARTICLE-PARTICLE COLLISIONS: K10 adds the step's pairs to its
         # wall hits in place, the step's collision count.
-        partner, overflow = search(state.pos)
-        collisions = ledger.wall_hits.clone()
-        state, measure, _ = collide.resolve_pairs(state, measure, partner,
-                                                  cr, count=collisions)
-        state, oob_pairs = workload.post_pairs(state)
+        with span("amc/step/search"):
+            partner, overflow = search(state.pos)
+        with span("amc/step/resolve"):
+            collisions = ledger.wall_hits.clone()
+            state, measure, _ = collide.resolve_pairs(
+                state, measure, partner, cr, count=collisions)
+        with span("amc/step/recapture"):
+            state, oob_pairs = workload.post_pairs(state)
 
         # HISTOGRAM FLUSH: every step is exact; a wider window stages
         # events across steps (one slot per particle), so the compaction
         # width scales with it.
-        interval = eng.hist_flush_interval
-        if interval <= 1:
-            measure = measure_ops.flush_hist(measure, eng.num_bins, hist_hi)
-        elif step_index % interval == 0:
-            cap = min(state.num_particles,
-                      measure_ops.FLUSH_CAPACITY * interval)
-            measure = measure_ops.flush_hist(measure, eng.num_bins, hist_hi,
-                                             capacity=cap)
-        measure = dataclasses.replace(
-            measure,
-            overflow_count=measure.overflow_count + overflow,
-            err_count=measure.err_count + ledger.errs,
-            collision_count=measure.collision_count + collisions,
-        )
+        with span("amc/step/flush"):
+            interval = eng.hist_flush_interval
+            if interval <= 1:
+                measure = measure_ops.flush_hist(measure, eng.num_bins,
+                                                 hist_hi)
+            elif step_index % interval == 0:
+                cap = min(state.num_particles,
+                          measure_ops.FLUSH_CAPACITY * interval)
+                measure = measure_ops.flush_hist(measure, eng.num_bins,
+                                                 hist_hi, capacity=cap)
 
-        zero = torch.zeros((), dtype=torch.int32, device=state.pos.device)
-        metrics = StepMetrics(
-            momentum_z=ledger.momentum_z,
-            energy_hot=ledger.energy_hot,
-            energy_cold=ledger.energy_cold,
-            collisions=collisions,
-            wall_hits=ledger.wall_hits,
-            oob_after_walls=oob_walls,
-            oob_after_pairs=oob_pairs,
-            missed_cases=missed,
-            nonfinite=_nonfinite(state, eng.check_finite),
-            rebuilt=zero, dirty_count=zero, latent_full=zero,
-            teleports=zero, latent_research=zero,
-        )
+        with span("amc/step/counters"):
+            measure = dataclasses.replace(
+                measure,
+                overflow_count=measure.overflow_count + overflow,
+                err_count=measure.err_count + ledger.errs,
+                collision_count=measure.collision_count + collisions,
+            )
+            zero = torch.zeros((), dtype=torch.int32,
+                               device=state.pos.device)
+            metrics = StepMetrics(
+                momentum_z=ledger.momentum_z,
+                energy_hot=ledger.energy_hot,
+                energy_cold=ledger.energy_cold,
+                collisions=collisions,
+                wall_hits=ledger.wall_hits,
+                oob_after_walls=oob_walls,
+                oob_after_pairs=oob_pairs,
+                missed_cases=missed,
+                nonfinite=_nonfinite(state, eng.check_finite),
+                rebuilt=zero, dirty_count=zero, latent_full=zero,
+                teleports=zero, latent_research=zero,
+            )
         return state, measure, metrics
 
     return step
@@ -332,77 +346,89 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     def step(state: ParticleState, measure: Measurements,
              plist: pairs_ops.PairList, uniforms: torch.Tensor,
              step_index: int, rebuilt: bool):
+        with span("amc/step"):
+            return stages(state, measure, plist, uniforms, rebuilt)
+
+    def stages(state, measure, plist, uniforms, rebuilt):
         dev = state.pos.device
         # DRIFT, WALL CASES, the missed-case audit, then recapture (which
         # particles it moved go hot).
-        sink, missed = missed_counts(dev, audits)
-        state, measure, ledger, oob_walls, recap_w, speed_pre = (
-            workload.advance(state, measure, uniforms, missed=sink))
+        with span("amc/step/advance"):
+            sink, missed = missed_counts(dev, audits)
+            state, measure, ledger, oob_walls, recap_w, speed_pre = (
+                workload.advance(state, measure, uniforms, missed=sink))
 
         # PARTICLE-PARTICLE COLLISIONS on the listed pairs, in place on
         # the state and the staging.
-        state, measure, pair_collisions, collided = (
-            pairs_ops.test_and_resolve(state, measure, plist.a, plist.b, cr,
-                                       pcfg.event_capacity))
+        with span("amc/step/resolve"):
+            state, measure, pair_collisions, collided = (
+                pairs_ops.test_and_resolve(state, measure, plist.a, plist.b,
+                                           cr, pcfg.event_capacity))
         # post_pairs returns new tensors where it moves a particle (every
         # workload's does), so pos_pre still holds the positions before it;
         # an in-place post_pairs would make recap_p all False.
-        pos_pre = state.pos
-        state, oob_pairs = workload.post_pairs(state)
-        recap_p = torch.any(state.pos != pos_pre, dim=-1)
+        with span("amc/step/recapture"):
+            pos_pre = state.pos
+            state, oob_pairs = workload.post_pairs(state)
+            recap_p = torch.any(state.pos != pos_pre, dim=-1)
 
         # DIRTY RE-SEARCH: speed changed, collided, teleported (hot for
         # the rest of the window) or queued at the rebuild (pending1).
-        bump = (measure_ops.speed(state.vel) != speed_pre) | collided
-        hot = plist.hot | recap_w | recap_p
-        latent_full = torch.sum(plist.pending1, dtype=torch.int32)
-        dirty = bump | hot | plist.pending1
-        shared_idx, dirty_idx, research_dropped = shared_compaction(
-            measure.pending_mask, dirty, pcfg.research_capacity)
-        plist = dataclasses.replace(plist, hot=hot)
+        with span("amc/step/dirty"):
+            bump = (measure_ops.speed(state.vel) != speed_pre) | collided
+            hot = plist.hot | recap_w | recap_p
+            latent_full = torch.sum(plist.pending1, dtype=torch.int32)
+            dirty = bump | hot | plist.pending1
+            shared_idx, dirty_idx, research_dropped = shared_compaction(
+                measure.pending_mask, dirty, pcfg.research_capacity)
+            plist = dataclasses.replace(plist, hot=hot)
         # In place: the list is this step's alone (``hot`` was made above,
         # the rest is the Simulation's carried list, replaced by the one
         # returned here).
-        plist, research_lost, latent_per = pairs_ops.research_dirty(
-            state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
-        force = research_lost | (research_dropped > 0)
-        plist = dataclasses.replace(
-            plist,
-            pending1=torch.zeros_like(plist.pending1),
-            age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
-        )
+        with span("amc/step/research"):
+            plist, research_lost, latent_per = pairs_ops.research_dirty(
+                state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
+            force = research_lost | (research_dropped > 0)
+            plist = dataclasses.replace(
+                plist,
+                pending1=torch.zeros_like(plist.pending1),
+                age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
+            )
 
         # In place; shared_idx is ascending, as the flush requires.
-        measure = measure_ops.flush_hist_compacted(measure, shared_idx,
-                                                   eng.num_bins, hist_hi)
-        measure = dataclasses.replace(
-            measure,
-            overflow_count=(measure.overflow_count + plist.overflow
-                            + research_dropped),
-            hot_spill_count=measure.hot_spill_count + plist.spill,
-            err_count=measure.err_count + ledger.errs,
-            collision_count=measure.collision_count + ledger.wall_hits,
-        )
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        plist = dataclasses.replace(plist, overflow=zero, spill=zero)
+        with span("amc/step/flush"):
+            measure = measure_ops.flush_hist_compacted(
+                measure, shared_idx, eng.num_bins, hist_hi)
 
-        metrics = StepMetrics(
-            momentum_z=ledger.momentum_z,
-            energy_hot=ledger.energy_hot,
-            energy_cold=ledger.energy_cold,
-            collisions=pair_collisions + ledger.wall_hits,
-            wall_hits=ledger.wall_hits,
-            oob_after_walls=oob_walls,
-            oob_after_pairs=oob_pairs,
-            missed_cases=missed,
-            nonfinite=_nonfinite(state, eng.check_finite),
-            rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
-                               device=dev),
-            dirty_count=torch.sum(dirty, dtype=torch.int32),
-            latent_full=latent_full,
-            teleports=torch.sum(recap_w | recap_p, dtype=torch.int32),
-            latent_research=torch.sum(latent_per, dtype=torch.int32),
-        )
+        with span("amc/step/counters"):
+            measure = dataclasses.replace(
+                measure,
+                overflow_count=(measure.overflow_count + plist.overflow
+                                + research_dropped),
+                hot_spill_count=measure.hot_spill_count + plist.spill,
+                err_count=measure.err_count + ledger.errs,
+                collision_count=measure.collision_count + ledger.wall_hits,
+            )
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            plist = dataclasses.replace(plist, overflow=zero, spill=zero)
+
+            metrics = StepMetrics(
+                momentum_z=ledger.momentum_z,
+                energy_hot=ledger.energy_hot,
+                energy_cold=ledger.energy_cold,
+                collisions=pair_collisions + ledger.wall_hits,
+                wall_hits=ledger.wall_hits,
+                oob_after_walls=oob_walls,
+                oob_after_pairs=oob_pairs,
+                missed_cases=missed,
+                nonfinite=_nonfinite(state, eng.check_finite),
+                rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
+                                   device=dev),
+                dirty_count=torch.sum(dirty, dtype=torch.int32),
+                latent_full=latent_full,
+                teleports=torch.sum(recap_w | recap_p, dtype=torch.int32),
+                latent_research=torch.sum(latent_per, dtype=torch.int32),
+            )
         return state, measure, plist, metrics
 
     return step
@@ -469,13 +495,14 @@ class Simulation:
 
     def rebuild(self, state: ParticleState) -> None:
         """Rebuild the pair list on ``state`` and start a new window."""
-        if self._plist is None:
-            self._plist = pairs_ops.PairList.init(
-                state.num_particles, self.grid, self.pcfg,
-                self.cfg.engine.torch_dtype, self.device)
-        self._plist = pairs_ops.rebuild(
-            state, self.grid, self.pcfg, self.cfg.physics.collision_range,
-            self.cfg.dt, self._plist)
+        with span("amc/rebuild"):
+            if self._plist is None:
+                self._plist = pairs_ops.PairList.init(
+                    state.num_particles, self.grid, self.pcfg,
+                    self.cfg.engine.torch_dtype, self.device)
+            self._plist = pairs_ops.rebuild(
+                state, self.grid, self.pcfg,
+                self.cfg.physics.collision_range, self.cfg.dt, self._plist)
         self._window_left = self.pcfg.rebuild_interval
 
     def pair_window(self):
@@ -558,11 +585,13 @@ class Simulation:
         step_index = start_step
         end = start_step + num_steps
         while step_index < end:
-            steps = []
-            for i in range(step_index, min(step_index + spe, end)):
-                state, measure, metrics = step(state, measure, draw(i), i)
-                steps.append(metrics)
-            epoch = StepMetrics.stack(steps)
+            with span("amc/epoch"):
+                steps = []
+                for i in range(step_index, min(step_index + spe, end)):
+                    state, measure, metrics = step(state, measure, draw(i),
+                                                   i)
+                    steps.append(metrics)
+                epoch = StepMetrics.stack(steps)
             epochs.append(epoch)
             if epoch_callback is not None:
                 epoch_callback(epoch)

@@ -1,10 +1,12 @@
-"""Structured metrics logging (JSONL) and phase timing (port of
+"""Structured metrics logging (JSONL) (port of
 ``argon_monte_carlo_tpu.io.metrics``).
 
 Replaces the reference's print-based observability (per-step collision
 counts, OOB counts, phase runtimes; Open_Air_Pore_MC.py:512-557) with one
-machine-readable record an epoch.  An epoch's ``StepMetrics`` stay on the
-device while it runs; ``epoch_to_host`` reads them back in one copy.
+machine-readable record an epoch; the time of each phase is in the spans
+that ``trace`` records under ``torch.profiler``.  An epoch's
+``StepMetrics`` stay on the device while it runs; ``epoch_to_host`` reads
+them back in one copy.
 """
 
 from __future__ import annotations
@@ -121,20 +123,3 @@ class MetricsLogger:
         if self._fh is not None:
             self._fh.close()
 
-
-class PhaseTimer:
-    """Wall-clock phase timing (reference time.time() deltas,
-    Open_Air_Pore_MC.py:514-517) -- host-side, for coarse profiling; the
-    card's own times come from CUDA events or torch.profiler."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self._start: dict[str, float] = {}
-
-    def start(self, name: str):
-        self._start[name] = time.time()
-
-    def stop(self, name: str):
-        self.totals[name] = self.totals.get(name, 0.0) + (
-            time.time() - self._start.pop(name)
-        )

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "_build"
 NVCC_FLAGS = [
@@ -165,7 +167,16 @@ def launch(name: str, device: torch.device, *args) -> None:
     made the current one for the call (a launch on a stream of another
     card than the current one fails); raise on a CUDA error, else count
     the launch.  Scalars are passed as Python ints and floats (ctypes
-    converts them by the signature)."""
+    converts them by the signature).  While a torch profiler records, the
+    call is the span ``amc/launch``."""
+    if trace.profiling():
+        with trace.record("amc/launch"):
+            _launch(name, device, args)
+    else:
+        _launch(name, device, args)
+
+
+def _launch(name: str, device: torch.device, args: tuple) -> None:
     fn = getattr(library(), f"amc_{name}")
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(
