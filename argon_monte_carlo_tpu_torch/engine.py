@@ -25,17 +25,22 @@ window.  A plain Python loop over steps replaces the reference's
 cursors and metrics stay 0-d tensors on the device), so the card runs
 ahead of the loop.  Each epoch, rebuild, step and stage of a step is a
 span of ``trace`` while a torch profiler records.
+
+The pairs step on a CUDA device is replayed from two CUDA graphs instead
+(``StepGraphs``; ``replays_steps`` says when), unless a torch profiler
+records: a profiled run takes the loop, whose spans the traces read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import Counter
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from . import kernels
+from . import kernels, trace
 from .config import cell_capacity_for, cell_size_for, pairs_cell_capacity_for
 from .ops import collide
 from .ops import measure as measure_ops
@@ -443,6 +448,157 @@ def copy_tensors(obj):
         for f in dataclasses.fields(obj)})
 
 
+def copy_into(static, obj):
+    """``static``, a dataclass of tensors, with every tensor of ``obj`` (of
+    the same class and shapes) copied into it in place; a field that is the
+    same tensor in both is left alone.  ``static`` None: clones of ``obj``."""
+    if static is None:
+        return copy_tensors(obj)
+    for f in dataclasses.fields(obj):
+        dst, src = getattr(static, f.name), getattr(obj, f.name)
+        if dst.data_ptr() != src.data_ptr():
+            dst.copy_(src)
+    return static
+
+
+# Device -> the stream every ``StepGraphs`` of the process runs its eager
+# steps and captures on.  One a device: the kernels keep scratch for each
+# stream they ever ran on (``ops/compact.stream_scratch``) and never free
+# it, so a stream a ``Simulation`` would leave scratch behind each time.
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def replays_steps(narrowphase: str, device, profiling: bool) -> bool:
+    """Whether ``Simulation.run`` replays its steps from CUDA graphs
+    (``StepGraphs``): the pairs step on a CUDA device while no torch
+    profiler records.  A profiled run takes the loop, whose spans and
+    wrapped calls the traces attribute device work to (a replay runs none
+    of them); the CPU, the sweep and the cube always take it."""
+    return (narrowphase == "pairs" and torch.device(device).type == "cuda"
+            and not profiling)
+
+
+class StepGraphs:
+    """The pairs step of one ``Simulation`` and particle count as two CUDA
+    graphs: the step with the pair-list rebuild in front and the plain step
+    (``step(rebuilt)``); the host keeps the window's count and picks.
+
+    Their inputs live at fixed addresses: the run's carried ``state``,
+    ``measure`` and ``plist`` (``load`` copies a run's into them), the
+    step's (N, 2) ``uniforms``, and the rows of an epoch's ``StepMetrics``
+    with a device-side ``cursor``.  The body (``run_body``) runs the step
+    on them, copies each tensor the step made anew back into its input
+    (``copy_into``; the kernels' in-place updates need none) and writes
+    the step's metrics into row ``cursor``, so every tensor a replay makes
+    is dead when it ends: the two graphs share one memory pool.
+
+    Each graph is captured at its first step after its body ran once
+    eagerly on the capture stream (``capture_stream``), a real step of the
+    run that makes the kernels' scratch kept for that stream
+    (``ops/compact``) and the rows; the capture records the same launches
+    without running them.  A replay adds the launches its graph recorded
+    to ``kernels.launch_counts``."""
+
+    def __init__(self, body: Callable, state: ParticleState,
+                 steps_per_epoch: int):
+        self._body = body
+        self.n = state.num_particles
+        self.device = state.pos.device
+        self.state = self.measure = self.plist = None
+        self.uniforms = torch.empty((self.n, 2), dtype=state.pos.dtype,
+                                    device=self.device)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._spe = steps_per_epoch
+        self._rows = None      # dtype -> (steps_per_epoch, width) tensor
+        self._layout = None    # (field, dtype, column, width, shape)
+        self._pool = None
+        self._graphs: dict = {}  # rebuilt -> (CUDAGraph, launches recorded)
+        self._warm: set = set()
+
+    def load(self, state, measure, plist) -> None:
+        """Carry ``state``, ``measure`` and ``plist`` into the graphs'
+        inputs (copies; the first load makes them)."""
+        self.state = copy_into(self.state, state)
+        self.measure = copy_into(self.measure, measure)
+        self.plist = copy_into(self.plist, plist)
+
+    def run_body(self, rebuilt: bool) -> None:
+        """One step on the graphs' inputs, as captured."""
+        state, measure, plist, metrics = self._body(
+            self.state, self.measure, self.plist, self.uniforms, rebuilt)
+        copy_into(self.state, state)
+        copy_into(self.measure, measure)
+        copy_into(self.plist, plist)
+        self._write_row(metrics)
+
+    def _write_row(self, metrics: StepMetrics) -> None:
+        values = [(f.name, getattr(metrics, f.name))
+                  for f in dataclasses.fields(metrics)]
+        if self._rows is None:
+            widths, self._layout = Counter(), []
+            for name, t in values:
+                self._layout.append((name, t.dtype, widths[t.dtype],
+                                     t.numel(), tuple(t.shape)))
+                widths[t.dtype] += t.numel()
+            self._rows = {dt: torch.zeros((self._spe, w), dtype=dt,
+                                          device=self.device)
+                          for dt, w in widths.items()}
+        for dt, rows in self._rows.items():
+            row = torch.cat([t.reshape(1, -1) for _, t in values
+                             if t.dtype == dt], dim=1)
+            rows.index_copy_(0, self.cursor, row)
+        self.cursor.add_(1)
+
+    def epoch_metrics(self, steps: int) -> StepMetrics:
+        """The ``steps`` rows written since the last call, as the caller's
+        own ``StepMetrics`` of (steps,) tensors; the cursor goes back to 0."""
+        out = {name: torch.clone(
+                   self._rows[dt][:steps, col:col + width].reshape(
+                       steps, *shape), memory_format=torch.contiguous_format)
+               for name, dt, col, width, shape in self._layout}
+        self.cursor.zero_()
+        return StepMetrics(**out)
+
+    def step(self, rebuilt: bool) -> bool:
+        """One step on the card: a replay of its graph (True), or, before
+        that graph is captured, its body run eagerly on the capture stream
+        (False)."""
+        graph = self._graphs.get(rebuilt)
+        if graph is None and rebuilt in self._warm:
+            graph = self._graphs[rebuilt] = self._capture(rebuilt)
+        if graph is None:
+            side = capture_stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.run_body(rebuilt)
+            current.wait_stream(side)
+            self._warm.add(rebuilt)
+            return False
+        graph[0].replay()
+        kernels.launch_counts.update(graph[1])
+        return True
+
+    def _capture(self, rebuilt: bool):
+        before = kernels.launch_counts.copy()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              stream=capture_stream(self.device)):
+            self.run_body(rebuilt)
+        recorded = kernels.launch_counts - before
+        kernels.launch_counts.clear()
+        kernels.launch_counts.update(before)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return graph, recorded
+
+
 class Simulation:
     """Host loop: init once, run epochs of steps on ``device``.
 
@@ -462,6 +618,12 @@ class Simulation:
     ``run`` copies the state and measurements it is handed once on entry
     and carries its own copies: it never writes a tensor its caller passed
     in.
+
+    Where ``replays_steps`` holds, ``run`` replays the steps from the
+    ``StepGraphs`` of this Simulation and particle count, made at the first
+    such run: the same kernels in the same order, so the same results as
+    the loop.  ``replayed_steps`` and ``looped_steps`` count the steps of
+    each kind (a step run eagerly before its graph is captured is looped).
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -474,6 +636,9 @@ class Simulation:
         self._plist = None
         self._window_left = 0
         self._last_state_out = None
+        self._graphs: Optional[StepGraphs] = None
+        self.replayed_steps = 0
+        self.looped_steps = 0
         if self._pairs_mode:
             self.pcfg = pairs_config_for(workload)
             self._step = make_pairs_step_fn(workload, self.grid, self.pcfg)
@@ -493,16 +658,21 @@ class Simulation:
         )
         return state, measure, gen
 
+    def _carried_list(self, n: int) -> pairs_ops.PairList:
+        """The carried pair list, an empty one where none is carried."""
+        if self._plist is None:
+            self._plist = pairs_ops.PairList.init(
+                n, self.grid, self.pcfg, self.cfg.engine.torch_dtype,
+                self.device)
+        return self._plist
+
     def rebuild(self, state: ParticleState) -> None:
         """Rebuild the pair list on ``state`` and start a new window."""
         with span("amc/rebuild"):
-            if self._plist is None:
-                self._plist = pairs_ops.PairList.init(
-                    state.num_particles, self.grid, self.pcfg,
-                    self.cfg.engine.torch_dtype, self.device)
             self._plist = pairs_ops.rebuild(
                 state, self.grid, self.pcfg,
-                self.cfg.physics.collision_range, self.cfg.dt, self._plist)
+                self.cfg.physics.collision_range, self.cfg.dt,
+                self._carried_list(state.num_particles))
         self._window_left = self.pcfg.rebuild_interval
 
     def pair_window(self):
@@ -546,6 +716,40 @@ class Simulation:
         self._window_left -= 1
         return state, measure, metrics
 
+    def _step_graphs(self, state: ParticleState) -> StepGraphs:
+        if self._graphs is None or self._graphs.n != state.num_particles:
+            step, grid, pcfg = self._step, self.grid, self.pcfg
+            cr, dt = self.cfg.physics.collision_range, self.cfg.dt
+
+            def body(state, measure, plist, uniforms, rebuilt: bool):
+                # What a graph records: the rebuild where the window begins,
+                # copied into the carried list at once, so that the old and
+                # the new list are not both held through the step (as the
+                # loop holds neither); then the step, which reads no step
+                # index.  No reference to this Simulation: no cycle.
+                if rebuilt:
+                    copy_into(plist, pairs_ops.rebuild(state, grid, pcfg, cr,
+                                                       dt, plist))
+                return step(state, measure, plist, uniforms, None, rebuilt)
+
+            self._graphs = StepGraphs(body, state,
+                                      self.cfg.engine.steps_per_epoch)
+        return self._graphs
+
+    def _replayed_epoch(self, graphs: StepGraphs, fill, first: int,
+                        count: int) -> StepMetrics:
+        for i in range(first, first + count):
+            fill(i)
+            rebuilt = self._window_left <= 0
+            if rebuilt:
+                self._window_left = self.pcfg.rebuild_interval
+            if graphs.step(rebuilt):
+                self.replayed_steps += 1
+            else:
+                self.looped_steps += 1
+            self._window_left -= 1
+        return graphs.epoch_metrics(count)
+
     def run(self, num_steps: Optional[int] = None, seed=None, state=None,
             measure=None, generator=None, start_step: int = 0,
             draw: Optional[Callable[[int], torch.Tensor]] = None,
@@ -567,17 +771,30 @@ class Simulation:
             # another trajectory.
             self._plist = None
             self._window_left = 0
-        state, measure = copy_tensors(state), copy_tensors(measure)
-        if draw is None:
-            if generator is None:
-                raise ValueError("pass the generator that init() returned, "
-                                 "or a draw function")
-            n = state.num_particles
-            dtype = self.cfg.engine.torch_dtype
+        if draw is None and generator is None:
+            raise ValueError("pass the generator that init() returned, "
+                             "or a draw function")
+        n = state.num_particles
+        graphs = None
+        if replays_steps(self.cfg.engine.narrowphase, state.pos.device,
+                         trace.profiling()):
+            graphs = self._step_graphs(state)
+            graphs.load(state, measure, self._carried_list(n))
+            self._plist = graphs.plist
+            if draw is None:
+                def fill(_step_index):
+                    graphs.uniforms.uniform_(generator=generator)
+            else:
+                def fill(step_index):
+                    graphs.uniforms.copy_(draw(step_index))
+        else:
+            state, measure = copy_tensors(state), copy_tensors(measure)
+            if draw is None:
+                dtype = self.cfg.engine.torch_dtype
 
-            def draw(_step_index):
-                return torch.rand((n, 2), generator=generator, dtype=dtype,
-                                  device=self.device)
+                def draw(_step_index):
+                    return torch.rand((n, 2), generator=generator,
+                                      dtype=dtype, device=self.device)
 
         step = self._pairs_step if self._pairs_mode else self._step
         epochs = []
@@ -585,18 +802,29 @@ class Simulation:
         step_index = start_step
         end = start_step + num_steps
         while step_index < end:
+            count = min(spe, end - step_index)
             with span("amc/epoch"):
-                steps = []
-                for i in range(step_index, min(step_index + spe, end)):
-                    state, measure, metrics = step(state, measure, draw(i),
-                                                   i)
-                    steps.append(metrics)
-                epoch = StepMetrics.stack(steps)
+                if graphs is not None:
+                    epoch = self._replayed_epoch(graphs, fill, step_index,
+                                                 count)
+                else:
+                    steps = []
+                    for i in range(step_index, step_index + count):
+                        state, measure, metrics = step(state, measure,
+                                                       draw(i), i)
+                        steps.append(metrics)
+                    self.looped_steps += count
+                    epoch = StepMetrics.stack(steps)
             epochs.append(epoch)
             if epoch_callback is not None:
                 epoch_callback(epoch)
-            step_index += len(steps)
+            step_index += count
         stacked = StepMetrics.concat(epochs) if epochs else None
+        if graphs is not None:
+            # The graphs' inputs are overwritten by the next run: the caller
+            # gets copies of its own.
+            state = copy_tensors(graphs.state)
+            measure = copy_tensors(graphs.measure)
         self._last_state_out = state
         return state, measure, stacked
 

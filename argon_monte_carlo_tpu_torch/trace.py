@@ -24,6 +24,10 @@ Every name starts with ``amc/``:
   ``/recapture``, ``/dirty``, ``/research`` (the pairs step's), ``/flush``
   and ``/counters``;
 - ``amc/launch``: ``kernels.launch``, one hand-written kernel's call.
+
+A pairs run on the card replays its steps from CUDA graphs, which run no
+Python and so record no span; while a profiler records it takes the loop
+(``engine.replays_steps``), which records them all.
 """
 
 from __future__ import annotations

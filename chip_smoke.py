@@ -37,8 +37,10 @@ exits non-zero without a result line):
    repeated duplicate entries, K7c with some events unlisted and with all
    listed, K3 and K7c also recorded in a CUDA graph and replayed three
    times on changed inputs; K8, the fused drift/walls/recapture pass,
-   over 16 steps of the pairs slice, and with the missed-case audit over
-   8 more: its ten counts against the plain audit, its state and ledger
+   over 16 steps of the pairs slice, as one launch recorded in a CUDA
+   graph and replayed three times (K1 and K4 too, on moved positions), and
+   with the missed-case audit over 8 more: its ten counts against the
+   plain audit, its state and ledger
    bitwise those of K8 without it, its device time with and without) and
    of the 24,627-particle cube (K2 on the cube's grid, centred on the box;
    K11,
@@ -1116,6 +1118,49 @@ def check_rebuild_sweep(case, tag: str, reps: int):
     return r
 
 
+def check_rebuild_sweep_graph(case, tag: str) -> None:
+    """K1 recorded in a CUDA graph and replayed three times, the positions
+    moved by 1-3 more drifts and binned again (K2) before each replay:
+    every replay equals the twin on the same inputs (K1 keeps no scratch
+    and takes nothing from the host that changes from call to call)."""
+    pcfg, grid = case.pcfg, case.grid
+    max_reach = 0.5 * grid.cell_size
+
+    def inputs(pos):
+        reach, _ = pairs_ops.reach_radii(case.state.vel, case.cr, case.dt,
+                                         pcfg.rebuild_interval, max_reach)
+        _, table, pslot, _ = collide.bin_and_table(pos, grid)
+        return [pos, reach, table, pslot]
+
+    static = [t.clone() for t in inputs(case.state.pos)]
+    side = torch.cuda.Stream(case.dev)
+    side.wait_stream(torch.cuda.current_stream(case.dev))
+    with torch.cuda.stream(side):
+        collide.rebuild_sweep(*static, grid, pcfg.top_k)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["rebuild_sweep"]
+    with torch.cuda.graph(graph, stream=side):
+        out = collide.rebuild_sweep(*static, grid, pcfg.top_k)
+    require(kernels.launch_counts["rebuild_sweep"] == before + 1,
+            "K1: the capture recorded other than one launch")
+    found = []
+    for k in range(1, 4):
+        fresh = inputs(case.state.pos + k * case.dt * case.state.vel)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = collide.rebuild_sweep_plain(*fresh, grid, pcfg.top_k)
+        for name, a, b in zip(("cands", "unswept", "pos0", "reach0"), out,
+                              want):
+            exact(f"K1 {name} (graph replay {k})", a, b)
+        found.append(int((want[0] >= 0).sum()))
+    print(f"K1 rebuild_sweep: one captured launch replayed 3 times on "
+          f"positions moved by 1-3 more drifts, {found} candidates: exact "
+          f"each time {tag}")
+
+
 def check_emit_pairs(case, tag: str, reps: int):
     """K5 on the K1 candidates, at the configured pair capacity and at half
     the candidate count (entries dropped)."""
@@ -1538,6 +1583,61 @@ def check_research_dirty(case, plist, state, tag: str, reps: int):
     return r
 
 
+def check_research_dirty_graph(case, plist, state, tag: str) -> None:
+    """K4 recorded in a CUDA graph and replayed three times, the positions
+    moved by 1-3 more drifts, a fresh dirty set and bump mask drawn and the
+    list's four updated tensors, cursor and overflow restored before each
+    replay: every replay equals the twin on the same inputs, in place."""
+    n, dev, pcfg, grid = case.n, case.dev, case.pcfg, case.grid
+
+    def dirty_set():
+        perm = torch.randperm(n, generator=case.gen, device=dev)
+        idx = perm[:pcfg.research_capacity].sort().values.to(torch.int32)
+        idx[::41] = n
+        return idx, torch.rand(n, generator=case.gen, device=dev) < 0.5
+
+    ss, ls = own(state), own(plist)
+    dirty, bump = dirty_set()
+    args = (grid, pcfg, case.cr, case.dt)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pairs_ops.research_dirty(own(state), own(plist), dirty, bump, *args)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["research_dirty"]
+    with torch.cuda.graph(graph, stream=side):
+        got, lost, latent = pairs_ops.research_dirty(ss, ls, dirty, bump,
+                                                     *args)
+    require(kernels.launch_counts["research_dirty"] == before + 1,
+            "K4: the capture recorded other than one launch")
+    appended = []
+    for k in range(1, 4):
+        moved = dataclasses.replace(
+            state, pos=state.pos + k * case.dt * state.vel)
+        fresh_dirty, fresh_bump = dirty_set()
+        refill(ss, moved)
+        refill(ls, plist)
+        dirty.copy_(fresh_dirty)
+        bump.copy_(fresh_bump)
+        graph.replay()
+        torch.cuda.synchronize()
+        want, wlost, wlat = pairs_ops.research_dirty_plain(
+            own(moved), own(plist), fresh_dirty, fresh_bump, *args)
+        for f in K4_FIELDS:
+            exact(f"K4 {f} (graph replay {k})", getattr(got, f),
+                  getattr(want, f))
+        exact(f"K4 lost (graph replay {k})", lost, wlost)
+        exact(f"K4 latent_per (graph replay {k})", latent, wlat)
+        for f in ("a", "b", "hot", "reach0"):
+            require(getattr(got, f).data_ptr() == getattr(ls, f).data_ptr(),
+                    f"K4 (graph replay): {f} is a copy")
+        appended.append(int(want.cursor) - int(plist.cursor))
+    print(f"K4 research_dirty: one captured call replayed 3 times on "
+          f"positions moved by 1-3 more drifts and fresh dirty sets, "
+          f"{appended} entries appended: exact each time, in place {tag}")
+
+
 def check_k7c_case(label, meas, idx, nb, hi):
     """K7's compacted entry on ``idx`` (see ``check_flush_case``)."""
     return check_flush_case(
@@ -1644,6 +1744,7 @@ def check_pairs_kernels(tag: str, particles: int = PARTICLES,
     results = {"compact": check_compact(case, tag, reps),
                "rebuild_sweep": check_rebuild_sweep(case, tag, reps),
                "emit_pairs": check_emit_pairs(case, tag, reps)}
+    check_rebuild_sweep_graph(case, tag)
     plist = pairs_ops.rebuild(
         case.state, case.grid, case.pcfg, case.cr, case.dt,
         pairs_ops.PairList.init(case.n, case.grid, case.pcfg, torch.float32,
@@ -1653,6 +1754,7 @@ def check_pairs_kernels(tag: str, particles: int = PARTICLES,
     check_test_and_resolve_graph(case, plist, tag)
     results["research_dirty"] = check_research_dirty(case, plist, state, tag,
                                                      reps)
+    check_research_dirty_graph(case, plist, state, tag)
     results["flush_hist_compacted"] = check_flush_compacted(case, meas, tag,
                                                             reps)
     check_flush_compacted_graph(case, meas, tag)
@@ -2094,6 +2196,59 @@ def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
     if reps > 0:
         print_times(out, n, tag)
     return out
+
+
+def check_pore_advance_graph(tag: str, particles: int = PARTICLES) -> None:
+    """K8 recorded in a CUDA graph and replayed three times on the pairs
+    slice's state after 24, 25 and 26 steps with fresh uniforms: every
+    replay's outputs bitwise those of a launch outside the graph on the
+    same inputs (K8 keeps no scratch; its constants are made at its first
+    call, before the capture)."""
+    cfg = config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    state, meas, _ = sim.run(24, state=state, measure=meas, generator=gen)
+    n = state.num_particles
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    ss, sm, su = own(state), own(meas), u.clone()
+    side = torch.cuda.Stream(state.pos.device)
+    side.wait_stream(torch.cuda.current_stream(state.pos.device))
+    with torch.cuda.stream(side):
+        wl.advance(ss, sm, su)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["pore_advance"]
+    with torch.cuda.graph(graph, stream=side):
+        out = wl.advance(ss, sm, su)
+    require(kernels.launch_counts["pore_advance"] == before + 1,
+            "K8: the capture recorded other than one launch")
+    names = ("pos", "vel", "paths", "has_collided", "pending_vals",
+             "pending_mask", "momentum_z", "energy_hot", "energy_cold",
+             "wall_hits", "errs", "recaptured", "recap_w", "speed_pre")
+
+    def flat(o):
+        return (o[0].pos, o[0].vel, o[0].paths, o[0].has_collided,
+                o[1].pending_vals, o[1].pending_mask, *o[2], *o[3:])
+
+    hits = []
+    for k in range(1, 4):
+        state, meas, _ = sim.run(1, state=state, measure=meas,
+                                 generator=gen, start_step=23 + k)
+        u = torch.rand((n, 2), generator=gen, device="cuda")
+        refill(ss, state)
+        refill(sm, meas)
+        su.copy_(u)
+        graph.replay()
+        want = wl.advance(own(state), own(meas), u)
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, flat(out), flat(want)):
+            require(torch.equal(a, b),
+                    f"K8 {name} (graph replay {k}): differs from a launch")
+        hits.append(int(want[2].wall_hits))
+    print(f"K8 pore_advance: one captured launch replayed 3 times on the "
+          f"states after 24-26 steps at N={n}, {hits} wall hits: every "
+          f"output bitwise that of a launch outside the graph {tag}")
 
 
 def cube_config(particles=None, **engine) -> amt.CubeConfig:
@@ -4101,6 +4256,7 @@ def main(argv) -> int:
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))
+    check_pore_advance_graph(tag)
     check_pore_advance_audit(tag)
     results.update(check_allpairs(tag))
     check_k2_cube(tag)
