@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from collections import Counter
 from typing import Callable, NamedTuple, Optional
 
@@ -123,7 +124,8 @@ def build_grids(workload: Workload, device):
     """Host-build the collision grid; returns (host_grid, device_grid), or
     (None, None) for the all-pairs broad phase.  The pairs engine's grid
     has the tighter capacity of ``pairs_cell_capacity_for``; the cube's
-    grid is centred on the box (engine.py:61-102)."""
+    grid is centred on the box (engine.py:61-102).  The build is the span
+    ``amc/grid``."""
     cfg = workload.cfg
     eng = cfg.engine
     if eng.broadphase != "cells":
@@ -136,14 +138,15 @@ def build_grids(workload: Workload, device):
     else:
         capacity = cell_capacity_for(*args)
     geom = cfg.geometry
-    if hasattr(geom, "total_height"):  # a pore
-        host_grid = collide.grid_for_pore(geom, cell_size, capacity)
-        center = (0.0, 0.0)
-    else:  # the cube: a grid centred on the box
-        host_grid = collide.grid_for_cube(geom, cell_size, capacity)
-        center = (geom.lx / 2.0, geom.ly / 2.0)
-    return host_grid, collide.DeviceGrid.from_grid(
-        host_grid, eng.torch_dtype, device, center)
+    with span("amc/grid"):
+        if hasattr(geom, "total_height"):  # a pore
+            host_grid = collide.grid_for_pore(geom, cell_size, capacity)
+            center = (0.0, 0.0)
+        else:  # the cube: a grid centred on the box
+            host_grid = collide.grid_for_cube(geom, cell_size, capacity)
+            center = (geom.lx / 2.0, geom.ly / 2.0)
+        return host_grid, collide.DeviceGrid.from_grid(
+            host_grid, eng.torch_dtype, device, center)
 
 
 _NO_MISSED: dict = {}
@@ -503,7 +506,14 @@ class StepGraphs:
     run that makes the kernels' scratch kept for that stream
     (``ops/compact``) and the rows; the capture records the same launches
     without running them.  A replay adds the launches its graph recorded
-    to ``kernels.launch_counts``."""
+    to ``kernels.launch_counts``.
+
+    Two counters of the host, which no replay touches: ``capture_s``, the
+    host seconds of the eager steps and the captures (each the span
+    ``amc/capture``), summed; ``held_bytes``, set after each capture, the
+    device bytes the replay holds: every tensor of the graphs' inputs (the
+    carried state, measurements and list, the uniforms, the rows and the
+    cursor) and the segments the captures reserved in the graphs' pool."""
 
     def __init__(self, body: Callable, state: ParticleState,
                  steps_per_epoch: int):
@@ -520,6 +530,8 @@ class StepGraphs:
         self._pool = None
         self._graphs: dict = {}  # rebuilt -> (CUDAGraph, launches recorded)
         self._warm: set = set()
+        self.capture_s = 0.0
+        self.held_bytes: Optional[int] = None
 
     def load(self, state, measure, plist) -> None:
         """Carry ``state``, ``measure`` and ``plist`` into the graphs'
@@ -571,14 +583,21 @@ class StepGraphs:
         (False)."""
         graph = self._graphs.get(rebuilt)
         if graph is None and rebuilt in self._warm:
-            graph = self._graphs[rebuilt] = self._capture(rebuilt)
+            t = time.perf_counter()
+            with span("amc/capture"):
+                graph = self._graphs[rebuilt] = self._capture(rebuilt)
+            self.capture_s += time.perf_counter() - t
+            self.held_bytes = self._held()
         if graph is None:
-            side = capture_stream(self.device)
-            current = torch.cuda.current_stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self.run_body(rebuilt)
-            current.wait_stream(side)
+            t = time.perf_counter()
+            with span("amc/capture"):
+                side = capture_stream(self.device)
+                current = torch.cuda.current_stream(self.device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    self.run_body(rebuilt)
+                current.wait_stream(side)
+            self.capture_s += time.perf_counter() - t
             self._warm.add(rebuilt)
             return False
         graph[0].replay()
@@ -597,6 +616,20 @@ class StepGraphs:
         if self._pool is None:
             self._pool = graph.pool()
         return graph, recorded
+
+    def _held(self) -> int:
+        """The bytes of the graphs' inputs and of their pool's segments."""
+        inputs = {t.untyped_storage().data_ptr():
+                  t.untyped_storage().nbytes() for t in (
+            [getattr(o, f.name) for o in (self.state, self.measure,
+                                          self.plist)
+             for f in dataclasses.fields(o)]
+            + [self.uniforms, self.cursor, *self._rows.values()])}
+        pool = tuple(self._pool)
+        segments = sum(seg["total_size"]
+                       for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) == pool)
+        return sum(inputs.values()) + segments
 
 
 class Simulation:
@@ -624,6 +657,11 @@ class Simulation:
     such run: the same kernels in the same order, so the same results as
     the loop.  ``replayed_steps`` and ``looped_steps`` count the steps of
     each kind (a step run eagerly before its graph is captured is looped).
+
+    Set-up's host counters: ``grid_build_s``, the host seconds of
+    ``build_grids`` (None without a grid); ``capture_s`` and
+    ``graph_held_bytes``, the ``StepGraphs``' ``capture_s`` and
+    ``held_bytes`` (None before a run makes the graphs).
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -631,7 +669,10 @@ class Simulation:
         self.cfg = workload.cfg
         self.device = torch.device(device)
         kernels.require_float32(self.cfg.engine.dtype, [self.device])
+        t = time.perf_counter()
         self.host_grid, self.grid = build_grids(workload, self.device)
+        self.grid_build_s = (None if self.grid is None
+                             else time.perf_counter() - t)
         self._pairs_mode = self.cfg.engine.narrowphase == "pairs"
         self._plist = None
         self._window_left = 0
@@ -644,6 +685,14 @@ class Simulation:
             self._step = make_pairs_step_fn(workload, self.grid, self.pcfg)
         else:
             self._step = make_step_fn(workload, self.grid)
+
+    @property
+    def capture_s(self) -> Optional[float]:
+        return None if self._graphs is None else self._graphs.capture_s
+
+    @property
+    def graph_held_bytes(self) -> Optional[int]:
+        return None if self._graphs is None else self._graphs.held_bytes
 
     def init(self, seed: Optional[int] = None):
         """(state, measure, generator) for a fresh run; the generator has

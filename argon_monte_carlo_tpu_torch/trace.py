@@ -23,7 +23,12 @@ Every name starts with ``amc/``:
   ``amc/step/advance``, ``/search`` (the sweep's and the cube's), ``/resolve``,
   ``/recapture``, ``/dirty``, ``/research`` (the pairs step's), ``/flush``
   and ``/counters``;
-- ``amc/launch``: ``kernels.launch``, one hand-written kernel's call.
+- ``amc/launch``: ``kernels.launch``, one hand-written kernel's call;
+- ``amc/grid``: ``engine.build_grids``, the host's grid and its copy to
+  the device (set-up);
+- ``amc/capture``: a ``StepGraphs`` graph's eager step or its capture
+  (set-up; a profiled run takes the loop and makes no graph, so only a
+  profiler started inside a replayed run would see it).
 
 A pairs run on the card replays its steps from CUDA graphs, which run no
 Python and so record no span; while a profiler records it takes the loop

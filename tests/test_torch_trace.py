@@ -1,9 +1,9 @@
 """The port's spans (``argon_monte_carlo_tpu_torch.trace``) on the CPU: none
-is recorded without a profiler; under ``torch.profiler`` one ``amc/step`` a
-step, one ``amc/rebuild`` a pair-list window, the stages inside their step
-and the steps inside their epoch; and a profiled run is bitwise the run
-without one.  The temperature pore in pairs and sweep mode, and the cube,
-at sizes a CPU holds."""
+is recorded without a profiler; under ``torch.profiler`` one ``amc/grid`` a
+grid built, one ``amc/step`` a step, one ``amc/rebuild`` a pair-list
+window, the stages inside their step and the steps inside their epoch; and
+a profiled run is bitwise the run without one.  The temperature pore in
+pairs and sweep mode, and the cube, at sizes a CPU holds."""
 
 import dataclasses
 
@@ -126,10 +126,17 @@ def test_spans_under_the_profiler(kind):
 
     stages = {f"amc/step/{s}" for s in STAGES[kind]}
     rebuilds = -(-STEPS // K) if kind == "pairs" else 0
+    # The Simulation is made under the profiler: one grid build, where the
+    # broad phase has a grid (the pores; the cube runs all pairs).
+    grids = 0 if kind == "cube" else 1
     assert {n: len(v) for n, v in spans.items()} == {
         "amc/epoch": STEPS // PER_EPOCH, "amc/step": STEPS,
         **{s: STEPS for s in stages},
-        **({"amc/rebuild": rebuilds} if rebuilds else {})}
+        **({"amc/rebuild": rebuilds} if rebuilds else {}),
+        **({"amc/grid": grids} if grids else {})}
+    if grids:
+        assert not any(a <= s and t <= b for s, t in spans["amc/grid"]
+                       for a, b in spans["amc/epoch"])
     assert inside("amc/step", "amc/epoch")
     for s in stages:
         assert inside(s, "amc/step"), s
