@@ -11,12 +11,13 @@ Port of ``argon_monte_carlo_tpu.engine``.  One step of the sweep
 and one step of the Verlet pair-list engine (``narrowphase="pairs"``,
 engine.py:310-472) is
 
-    advance (K8) -> test_and_resolve (K3) -> recapture -> dirty mask ->
-    one shared compaction (K6) and the dirty sub-compaction (K6) ->
-    research_dirty (K4) -> flush_hist_compacted (K7) -> counters
+    advance (K8) -> test_and_resolve (K3) -> recapture and dirty masks
+    (K13 for the temperature pore) -> one shared compaction (K6) and the
+    dirty sub-compaction (K6) -> research_dirty (K4) ->
+    flush_hist_compacted (K7) -> counters
 
-(K3, K4 and K7's compacted entry update the step's own tensors in place,
-as K10 and K7's dense entry do in the sweep)
+(K3, K13, K4 and K7's compacted entry update the step's own tensors in
+place, as K10 and K7's dense entry do in the sweep)
 
 with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
 on the pre-drift positions at the start of every ``rebuild_interval``
@@ -34,6 +35,7 @@ records: a profiled run takes the loop, whose spans the traces read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from collections import Counter
@@ -46,6 +48,7 @@ from .config import cell_capacity_for, cell_size_for, pairs_cell_capacity_for
 from .ops import collide
 from .ops import measure as measure_ops
 from .ops import pairs as pairs_ops
+from .ops import post_pairs as post_pairs_ops
 from .ops.compact import compact_indices
 from .state import Measurements, ParticleState, StepMetrics
 from .trace import span
@@ -79,6 +82,11 @@ class Workload:
         post-wall state against the pre-drift positions, or None where the
         workload has none (the cube); both ``advance`` functions take
         ``missed=``, a (10,) int32 tensor the audit's counts are added to
+    post_pairs_stage(state, measure, plist, speed_pre, collided, recap_w)
+        -> ops.post_pairs.PostPairs: the pairs step's recapture and dirty
+        masks where the workload has a kernel for them (K13, the
+        temperature pore), or None: the pairs step then runs
+        ``post_pairs_plain`` with ``post_pairs``
     """
 
     cfg: object
@@ -89,6 +97,7 @@ class Workload:
     post_pairs: Callable
     fluid_volume: float
     audit_fn: Optional[Callable] = None
+    post_pairs_stage: Optional[Callable] = None
 
 
 def advance_plain(wall_pass: Callable, post_wall: Callable, dt: float,
@@ -318,22 +327,30 @@ def pairs_config_for(workload: Workload,
 
 
 def shared_compaction(pending_mask: torch.Tensor, dirty: torch.Tensor,
-                      research_capacity: int):
+                      research_capacity: int,
+                      shared: Optional[torch.Tensor] = None,
+                      dirty_count: Optional[torch.Tensor] = None):
     """(shared_idx, dirty_idx, research_dropped) of a pairs step: one
     N-sized compaction (K6) of the lanes the flush or the re-search needs,
     shared by both, then the dirty ones among it (K6 again), padded with
     n; ``research_dropped`` counts the dirty lanes beyond
-    ``research_capacity`` (engine.py:407-441)."""
+    ``research_capacity`` (engine.py:407-441).  ``shared``
+    (``pending_mask | dirty``) and ``dirty_count`` (0-d int32), where the
+    caller has them already, are taken as they are."""
     n = dirty.shape[0]
     shared_cap = max(measure_ops.FLUSH_CAPACITY, n // 64)
-    shared_idx = compact_indices(pending_mask | dirty, shared_cap, n)
+    if shared is None:
+        shared = pending_mask | dirty
+    if dirty_count is None:
+        dirty_count = torch.sum(dirty, dtype=torch.int32)
+    shared_idx = compact_indices(shared, shared_cap, n)
     dirty_at = (shared_idx < n) & dirty[torch.clamp(shared_idx,
                                                     max=n - 1).long()]
     dsel = compact_indices(dirty_at, research_capacity, shared_cap)
     dirty_idx = torch.where(
         dsel < shared_cap,
         shared_idx[torch.clamp(dsel, max=shared_cap - 1).long()], n)
-    research_dropped = (torch.sum(dirty, dtype=torch.int32)
+    research_dropped = (dirty_count
                         - torch.sum(dirty_idx < n, dtype=torch.int32))
     return shared_idx, dirty_idx, research_dropped
 
@@ -350,6 +367,8 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     cr = cfg.physics.collision_range
     hist_hi = eng.hist_range[1]
     audits = eng.debug_audits and workload.audit_fn is not None
+    post_pairs = workload.post_pairs_stage or functools.partial(
+        post_pairs_ops.post_pairs_plain, workload.post_pairs)
 
     def step(state: ParticleState, measure: Measurements,
              plist: pairs_ops.PairList, uniforms: torch.Tensor,
@@ -372,34 +391,27 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
             state, measure, pair_collisions, collided = (
                 pairs_ops.test_and_resolve(state, measure, plist.a, plist.b,
                                            cr, pcfg.event_capacity))
-        # post_pairs returns new tensors where it moves a particle (every
-        # workload's does), so pos_pre still holds the positions before it;
-        # an in-place post_pairs would make recap_p all False.
+        # The post-pairs recapture, then the DIRTY masks: speed changed,
+        # collided, teleported (hot for the rest of the window) or queued
+        # at the rebuild (pending1, cleared for the next step); K13 in place
+        # on the temperature pore's pos, hot and pending1.
         with span("amc/step/recapture"):
-            pos_pre = state.pos
-            state, oob_pairs = workload.post_pairs(state)
-            recap_p = torch.any(state.pos != pos_pre, dim=-1)
+            post = post_pairs(state, measure, plist, speed_pre, collided,
+                              recap_w)
+            state, plist = post.state, post.plist
 
-        # DIRTY RE-SEARCH: speed changed, collided, teleported (hot for
-        # the rest of the window) or queued at the rebuild (pending1).
         with span("amc/step/dirty"):
-            bump = (measure_ops.speed(state.vel) != speed_pre) | collided
-            hot = plist.hot | recap_w | recap_p
-            latent_full = torch.sum(plist.pending1, dtype=torch.int32)
-            dirty = bump | hot | plist.pending1
             shared_idx, dirty_idx, research_dropped = shared_compaction(
-                measure.pending_mask, dirty, pcfg.research_capacity)
-            plist = dataclasses.replace(plist, hot=hot)
-        # In place: the list is this step's alone (``hot`` was made above,
-        # the rest is the Simulation's carried list, replaced by the one
-        # returned here).
+                measure.pending_mask, post.dirty, pcfg.research_capacity,
+                shared=post.shared, dirty_count=post.dirty_count)
+        # In place: the list is this step's alone (the Simulation's carried
+        # list, replaced by the one returned here).
         with span("amc/step/research"):
             plist, research_lost, latent_per = pairs_ops.research_dirty(
-                state, plist, dirty_idx, bump, grid, pcfg, cr, dt)
+                state, plist, dirty_idx, post.bump, grid, pcfg, cr, dt)
             force = research_lost | (research_dropped > 0)
             plist = dataclasses.replace(
                 plist,
-                pending1=torch.zeros_like(plist.pending1),
                 age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
             )
 
@@ -427,14 +439,14 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
                 collisions=pair_collisions + ledger.wall_hits,
                 wall_hits=ledger.wall_hits,
                 oob_after_walls=oob_walls,
-                oob_after_pairs=oob_pairs,
+                oob_after_pairs=post.oob_after_pairs,
                 missed_cases=missed,
                 nonfinite=_nonfinite(state, eng.check_finite),
                 rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
                                    device=dev),
-                dirty_count=torch.sum(dirty, dtype=torch.int32),
-                latent_full=latent_full,
-                teleports=torch.sum(recap_w | recap_p, dtype=torch.int32),
+                dirty_count=post.dirty_count,
+                latent_full=post.latent_full,
+                teleports=post.teleports,
                 latent_research=torch.sum(latent_per, dtype=torch.int32),
             )
         return state, measure, plist, metrics

@@ -35,11 +35,12 @@
 // a launch is bitwise repeatable.  Integer counts use atomics.
 //
 // Rounding: every constant is a float32 rounded once on the host from the
-// plain version's double (params, in the order of enum Param below;
-// ops/pore_pass.py PARAM_NAMES lists the same names), every operation is
-// written in the plain version's order, divisions are IEEE divisions, the
-// library is built with -fmad=false, and sqrtf/cosf/sinf are the accurate
-// (non-fast-math) functions PyTorch's own CUDA kernels call.
+// plain version's double (params, in the order of enum Param in
+// pore_recapture.cuh; ops/pore_pass.py PARAM_NAMES lists the same names),
+// every operation is written in the plain version's order, divisions are
+// IEEE divisions, the library is built with -fmad=false, and
+// sqrtf/cosf/sinf are the accurate (non-fast-math) functions PyTorch's own
+// CUDA kernels call.
 //
 // The audit (models/base.py pore_missed_case_audit, its energized set,
 // replacing the reference's models/base.py:12-62 as its engine calls it
@@ -51,17 +52,12 @@
 // it (a null pointer) nothing of it runs, and the state and ledger are
 // those of a launch without the audit to the bit.
 #include "common.cuh"
+#include "pore_recapture.cuh"
 
 namespace {
 
-// Host-rounded constants, in the order of PARAM_NAMES (ops/pore_pass.py).
-enum Param {
-  kDt, kROa, kCrOa, kCrOaRr, kH, kPlaneCold, kPlaneHot, kRcSq, kECold,
-  kEHot, kAlphaCoat, kAlphaGap, kMass, kHalfMass, kGapHiMAr, kGapLoPAr,
-  kCrGap, kCrGapSq, kCrGapRr, kCrPore, kCrPoreSq, kCrPoreRr, kCosCone,
-  kOneMCos, kTwoPi, kTableZLo, kTableSpan, kZInset, kHMZInset, kROaSq, kOah,
-  kHMOah, kGapRSq, kGapBottom, kGapTop, kNumParams
-};
+// Host-rounded constants: enum Param of pore_recapture.cuh.
+using namespace amc::pore;
 
 constexpr int kTotalsThreads = 1024;
 constexpr int kMaxHorner = 32;
@@ -400,35 +396,9 @@ __global__ void pore_advance_kernel(
       audit[9] = crossed && zw < c[kPlaneCold] && zw > c[kGapHiMAr];
     }
 
-    // RECAPTURE (oob.pore_recapture): z first, then the radial checks on
-    // the updated z.
+    // RECAPTURE (oob.pore_recapture, pore_recapture.cuh).
     float x = s.x, y = s.y, z = s.z;
-    if (z < 0.0f) {
-      z = c[kZInset];
-      recaptured += 1;
-    }
-    if (z > c[kH]) {
-      z = c[kHMZInset];
-      recaptured += 1;
-    }
-    if (x * x + y * y > c[kROaSq]) {
-      x = 0.0f;
-      y = 0.0f;
-      recaptured += 1;
-    }
-    bool inside = z > c[kOah] && z < c[kHMOah];
-    if (x * x + y * y > c[kGapRSq] && inside) {
-      x = 0.0f;
-      y = 0.0f;
-      recaptured += 1;
-    }
-    bool in_coated = (z > c[kOah] && z < c[kGapBottom]) ||
-                     (z > c[kGapTop] && z < c[kHMOah]);
-    if (x * x + y * y > c[kRcSq] && in_coated) {
-      x = 0.0f;
-      y = 0.0f;
-      recaptured += 1;
-    }
+    recaptured += recapture(c, x, y, z);
     recap_out[i] = (x != s.x) || (y != s.y) || (z != s.z);
 
     pos_out[3 * i] = x;

@@ -12,7 +12,8 @@ draws them from its Generator (or a caller's ``draw``), and one shared
 trig evaluation feeds every energized case's cone draw.  The workload's
 ``advance`` -- drift, wall pass and post-wall recapture -- is K8
 (``ops/pore_pass.py``) for CUDA tensors and that plain sequence for CPU
-tensors.
+tensors; its ``post_pairs_stage`` -- the pairs step's post-pairs
+recapture and dirty masks -- is K13 (``ops/post_pairs.py``) the same way.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..models.base import apply_tracked, pore_missed_case_audit
 from ..ops import fp
 from ..ops import oob as oob_ops
 from ..ops import pore_pass
+from ..ops import post_pairs as post_pairs_ops
 from ..ops import walls as wall_ops
 
 
@@ -232,6 +234,11 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         return pore_pass.pore_advance(state, measure, uniforms, params,
                                       plain, missed=missed)
 
+    def post_pairs_stage(state, measure, plist, speed_pre, collided,
+                         recap_w):
+        return post_pairs_ops.post_pairs(state, measure, plist, speed_pre,
+                                         collided, recap_w, params, recapture)
+
     return Workload(
         cfg=cfg,
         init_fn=lambda gen, device: init_pore(cfg, gen, device),
@@ -241,4 +248,5 @@ def make_temperature_pore_workload(cfg: PoreConfig) -> Workload:
         post_pairs=recapture,
         fluid_volume=geom.volume,
         audit_fn=audit,
+        post_pairs_stage=post_pairs_stage,
     )

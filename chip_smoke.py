@@ -41,7 +41,11 @@ exits non-zero without a result line):
    graph and replayed three times (K1 and K4 too, on moved positions), and
    with the missed-case audit over 8 more: its ten counts against the
    plain audit, its state and ledger
-   bitwise those of K8 without it, its device time with and without) and
+   bitwise those of K8 without it, its device time with and without); K13,
+   the pairs step's post-pairs recapture and dirty masks, on the 1M pore
+   with rows planted in every branch of the recapture and on its edges:
+   every output and count bitwise the plain version's, in place, and as
+   one launch recorded in a CUDA graph and replayed three times; and
    of the 24,627-particle cube (K2 on the cube's grid, centred on the box;
    K11,
    also at ~200k, with every particle in one z-slab, with probe pairs at
@@ -181,6 +185,10 @@ PAIRS_KERNELS = {
     "flush_hist_compacted": dict(
         source="argon_monte_carlo_tpu_torch/kernels/csrc/flush_hist.cu",
         replaces="argon_monte_carlo_tpu/ops/measure.py:88"),
+    # The temperature pore's post-pairs recapture and dirty masks.
+    "post_pairs": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/post_pairs.cu",
+        replaces="argon_monte_carlo_tpu/engine.py:377"),
 }
 # Both pore engines run K8 once a step; the cube's broad phase is K11.
 WALL_KERNELS = {
@@ -1949,6 +1957,12 @@ def run_slice(tag: str, names, **engine):
     require(counts.get("pore_advance", 0) == STEPS,
             f"{label} slice: pore_advance launched "
             f"{counts.get('pore_advance', 0)} times in {STEPS} steps")
+    # K13 is the pairs step's recapture and dirty masks: once a step there,
+    # never in the sweep.
+    want = STEPS if label == "pairs" else 0
+    require(counts.get("post_pairs", 0) == want,
+            f"{label} slice: post_pairs launched "
+            f"{counts.get('post_pairs', 0)} times in {STEPS} steps")
     if label == "pairs":
         check_pairs_overflow("pairs slice", sim, step0,
                              int(meas.overflow_count), tag)
@@ -2249,6 +2263,245 @@ def check_pore_advance_graph(tag: str, particles: int = PARTICLES) -> None:
     print(f"K8 pore_advance: one captured launch replayed 3 times on the "
           f"states after 24-26 steps at N={n}, {hits} wall hits: every "
           f"output bitwise that of a launch outside the graph {tag}")
+
+
+# --------------------------------------------------------------------------
+# K13: the pairs step's post-pairs recapture and dirty masks
+# --------------------------------------------------------------------------
+
+# Rows moved into the recapture's branches and onto their edges, as
+# fractions of the pore's sizes: (x, y, z, conditions taken).  z is a
+# fraction of the open-air height ``oah`` from a base: 0 (the bottom),
+# "h" (the top), "gap" (the gap's middle), "cb" / "ct" (the middle of the
+# bottom and the top coated band); x and y are fractions of a radius
+# (``r_oa``, ``gap``, ``mid``: half-way between the coated and the gap
+# radius).  Special values: "-0" (signed zero), "nan", "inf", and "oah",
+# "h-oah", "gb" for those z exactly.
+PLANTED = (
+    ((0.5, "mid"), (0.0, "mid"), (-0.3, 0), 1),         # z < 0
+    ((0.0, "mid"), (0.5, "mid"), (0.3, "h"), 1),        # z > h
+    ((1.2, "r_oa"), (0.0, "r_oa"), (0.5, 0), 1),        # r > r_oa
+    ((-0.8, "r_oa"), (0.8, "r_oa"), (0.5, 0), 1),
+    ((1.2, "r_oa"), (0.0, "r_oa"), (-0.1, 0), 2),       # z < 0, r > r_oa
+    ((0.0, "r_oa"), (-1.5, "r_oa"), (0.1, "h"), 2),     # z > h, r > r_oa
+    ((1.1, "gap"), (0.0, "gap"), (0.0, "gap"), 1),      # the gap, r > gap
+    ((1.0, "mid"), (0.0, "mid"), (0.0, "cb"), 1),       # coated, r > rc
+    ((0.0, "mid"), (1.0, "mid"), (0.0, "ct"), 1),
+    ((1.1, "gap"), (0.0, "gap"), (0.0, "cb"), 1),       # coated, r > gap
+    ((2.0, "r_oa"), (0.0, "r_oa"), (0.0, "gap"), 1),    # r > r_oa first
+    ((1.1, "gap"), (0.0, "gap"), (-0.2, 0), 1),         # z < 0 only
+    ((1.1, "gap"), (0.0, "gap"), (0.2, "h"), 1),        # z > h only
+    (("-0", None), ("-0", None), (-0.5, 0), 1),         # signed zeros
+    ((1.2, "r_oa"), (0.0, "r_oa"), ("-0", None), 1),    # z = -0: r only
+    (("inf", None), (0.0, "r_oa"), (0.5, 0), 1),
+    ((1.0, "mid"), (0.0, "mid"), (0.0, "gap"), 0),      # stay: the gap
+    ((0.0, "r_oa"), (0.0, "r_oa"), (0.0, 0), 0),        # z = 0
+    ((0.0, "r_oa"), (0.0, "r_oa"), (0.0, "h"), 0),      # z = h
+    ((1.1, "gap"), (0.0, "gap"), ("oah", None), 0),     # z = oah
+    ((1.1, "gap"), (0.0, "gap"), ("h-oah", None), 0),   # z = h - oah
+    ((1.0, "mid"), (0.0, "mid"), ("gb", None), 0),      # z = gap bottom
+    (("nan", None), (0.0, "r_oa"), (0.5, 0), 0),        # moved, not taken
+)
+
+
+def planted_rows(geom) -> tuple:
+    """(the PLANTED rows as a float64 (rows, 3) array, the recapture
+    conditions they take in all)."""
+    h, oah = geom.total_height, geom.open_air_height
+    radii = {"r_oa": geom.open_air_radius, "gap": geom.gap_radius,
+             "mid": 0.5 * (geom.pore_coated_radius + geom.gap_radius)}
+    bases = {0: 0.0, "h": h,
+             "gap": 0.5 * (geom.gap_bottom + geom.gap_top),
+             "cb": 0.5 * (oah + geom.gap_bottom),
+             "ct": 0.5 * (geom.gap_top + h - oah)}
+    special = {"-0": -0.0, "nan": math.nan, "inf": math.inf, "oah": oah,
+               "h-oah": h - oah, "gb": geom.gap_bottom}
+
+    def coord(v, unit, scale):
+        if isinstance(v, str):
+            return special[v]
+        return v * scale[unit] if unit in scale else v
+
+    rows = []
+    for (x, rx), (y, ry), (z, base), _ in PLANTED:
+        zv = (special[z] if isinstance(z, str)
+              else bases[base] + z * oah)
+        rows.append((coord(x, rx, radii), coord(y, ry, radii), zv))
+    return np.array(rows), sum(r[3] for r in PLANTED)
+
+
+def post_pairs_case(particles: int, seed: int, device, energized=True):
+    """The inputs of the pairs step's post-pairs stage at ``particles``:
+    (workload, state, measure, plist, speed_pre, collided, recap_w).  The
+    pore's initial state with ``planted_rows`` spread through it (the same
+    rows again every 997 particles), hot, pending1, collided, recap_w and
+    the staging mask drawn from ``seed``, and speed_pre the state's speed
+    but where a draw moves it one ulp up or down."""
+    cfg = config(particles, **PAIRS)
+    if not energized:
+        cfg = amt.PoreConfig(engine=cfg.engine).scaled_to(particles)
+    wl = amt.make_workload(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = wl.init_fn(gen, device)
+    n = state.num_particles
+    rows, _ = planted_rows(cfg.geometry)
+    planted = torch.as_tensor(rows, dtype=state.pos.dtype, device=device)
+    at = torch.arange(0, n, 997, device=device)[:, None] + torch.arange(
+        len(rows), device=device)
+    at = at[at < n].reshape(-1)
+    pos = state.pos.clone()
+    pos[at] = planted[torch.arange(at.numel(), device=device) % len(rows)]
+    state = dataclasses.replace(state, pos=pos)
+
+    def draw(share):
+        return torch.rand(n, generator=gen, device=device) < share
+
+    speed = measure_ops.speed(state.vel)
+    up = torch.nextafter(speed, torch.full_like(speed, math.inf))
+    down = torch.nextafter(speed, torch.zeros_like(speed))
+    speed_pre = torch.where(draw(0.03), up, torch.where(draw(0.03), down,
+                                                        speed))
+    measure = Measurements.zeros(
+        cfg.engine.num_bins, cfg.engine.torch_dtype, num_particles=n,
+        device=device)
+    measure = dataclasses.replace(measure, pending_mask=draw(0.1))
+    _, grid = build_grids(wl, device)
+    plist = pairs_ops.PairList.init(n, grid, pairs_config_for(wl),
+                                    cfg.engine.torch_dtype, device)
+    plist = dataclasses.replace(plist, hot=draw(0.05), pending1=draw(0.02))
+    return wl, state, measure, plist, speed_pre, draw(0.03), draw(0.01)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (NaN included) and of one dtype and shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+POST_PAIRS_FIELDS = ("bump", "dirty", "shared", "oob_after_pairs",
+                     "latent_full", "dirty_count", "teleports")
+
+
+def post_pairs_outputs(out) -> dict:
+    """Every output of a ``PostPairs`` by name: pos, hot, pending1 and
+    POST_PAIRS_FIELDS."""
+    return {"pos": out.state.pos, "hot": out.plist.hot,
+            "pending1": out.plist.pending1,
+            **{f: getattr(out, f) for f in POST_PAIRS_FIELDS}}
+
+
+def check_post_pairs(tag: str, particles: int = PARTICLES,
+                     reps: int = 20) -> dict:
+    """K13 against its twin on the card, on ``post_pairs_case``: every
+    output and count bitwise, in place (the state, the list, pos, hot and
+    pending1 are the objects given; no row of pos but the twin's moved
+    ones changes), two launches bitwise equal; then its wrapper's time
+    (CUDA events, in place on fresh copies), its device time and launches
+    a call (torch.profiler), the twin's time and the bound."""
+    from argon_monte_carlo_tpu_torch.ops import post_pairs as post_ops
+    wl, state, meas, plist, sp, col, rw = post_pairs_case(particles, SEED,
+                                                          "cuda")
+    n = state.num_particles
+    want = post_ops.post_pairs_plain(wl.post_pairs, own(state), meas,
+                                     own(plist), sp, col, rw)
+    ks, kp = own(state), own(plist)
+    given = (ks.pos.data_ptr(), kp.hot.data_ptr(), kp.pending1.data_ptr())
+    before = kernels.launch_counts["post_pairs"]
+    got = wl.post_pairs_stage(ks, meas, kp, sp, col, rw)
+    require(kernels.launch_counts["post_pairs"] == before + 1,
+            "K13: other than one launch")
+    require(got.state is ks and got.plist is kp,
+            "K13: not the state and list given")
+    require((got.state.pos.data_ptr(), got.plist.hot.data_ptr(),
+             got.plist.pending1.data_ptr()) == given,
+            "K13: pos, hot or pending1 is not the tensor given")
+    g, w = post_pairs_outputs(got), post_pairs_outputs(want)
+    for name in g:
+        require(bits_equal(g[name], w[name]),
+                f"K13 {name}: kernel != plain")
+    moved_rows = int((state.pos.view(torch.int32)
+                      != want.state.pos.view(torch.int32)).any(1).sum())
+    again = wl.post_pairs_stage(own(state), meas, own(plist), sp, col, rw)
+    for name, t in post_pairs_outputs(again).items():
+        require(bits_equal(t, g[name]), f"K13 {name}: two launches differ")
+    counts = {f: int(getattr(got, f)) for f in POST_PAIRS_FIELDS[3:]}
+    require(counts["oob_after_pairs"] > 0 and counts["teleports"] > 0,
+            "K13: no particle recaptured")
+    print(f"K13 post_pairs: N={n}, {moved_rows} rows of pos moved in place "
+          f"(pos, hot, pending1 the tensors given), counts {counts}: every "
+          f"output and count bitwise the plain version's; two launches "
+          f"bitwise equal {tag}")
+    if reps <= 0:
+        return {}
+
+    ks, kp = own(state), own(plist)
+
+    def reset():
+        ks.pos.copy_(state.pos)
+        kp.hot.copy_(plist.hot)
+        kp.pending1.copy_(plist.pending1)
+
+    def call():
+        wl.post_pairs_stage(ks, meas, kp, sp, col, rw)
+
+    ms, reset_ms, spread = net_ms(call, reset, reps)
+    device_us, launches = device_per_call(call, reset)
+    plain_ms = timed_ms(lambda: post_ops.post_pairs_plain(
+        wl.post_pairs, state, meas, plist, sp, col, rw), max(3, reps // 5))
+    r = result(0.0, ms, plain_ms, 35 * n)
+    print(f"K13 post_pairs at N={n}: {ms!r} ms a call in place (median of "
+          f"{spread!r}, net of a {reset_ms!r} ms reset), device "
+          f"{device_us!r} us in {launches!r} launches a call; plain "
+          f"{plain_ms!r} ms; bound {r['bound_ms']!r} ms (bytes: 35 a "
+          f"particle, counts/k13.py) {tag}")
+    return {"post_pairs": r}
+
+
+def check_post_pairs_graph(tag: str, particles: int = PARTICLES) -> None:
+    """K13 recorded in a CUDA graph after one call on the capturing stream,
+    and replayed three times on inputs drawn from three seeds: every
+    replay's outputs bitwise those of a launch outside the graph on the
+    same inputs."""
+    wl, state, meas, plist, sp, col, rw = post_pairs_case(particles, SEED,
+                                                          "cuda")
+    ss, sm, sl = own(state), own(meas), own(plist)
+    sp_, col_, rw_ = sp.clone(), col.clone(), rw.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wl.post_pairs_stage(own(state), meas, own(plist), sp, col, rw)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts["post_pairs"]
+    with torch.cuda.graph(graph, stream=side):
+        out = wl.post_pairs_stage(ss, sm, sl, sp_, col_, rw_)
+    require(kernels.launch_counts["post_pairs"] == before + 1,
+            "K13: the capture recorded other than one launch")
+    teleports = []
+    for k in range(1, 4):
+        _, s2, m2, l2, p2, c2, r2 = post_pairs_case(particles, SEED + k,
+                                                    "cuda")
+        refill(ss, s2)
+        refill(sm, m2)
+        refill(sl, l2)
+        sp_.copy_(p2)
+        col_.copy_(c2)
+        rw_.copy_(r2)
+        graph.replay()
+        want = wl.post_pairs_stage(own(s2), m2, own(l2), p2, c2, r2)
+        torch.cuda.synchronize()
+        w = post_pairs_outputs(want)
+        for name, t in post_pairs_outputs(out).items():
+            require(bits_equal(t, w[name]),
+                    f"K13 {name} (graph replay {k}): differs from a launch")
+        teleports.append(int(want.teleports))
+    print(f"K13 post_pairs: one captured launch replayed 3 times on inputs "
+          f"of 3 seeds at N={state.num_particles}, {teleports} teleports: "
+          f"every output bitwise that of a launch outside the graph {tag}")
 
 
 def cube_config(particles=None, **engine) -> amt.CubeConfig:
@@ -4258,6 +4511,8 @@ def main(argv) -> int:
     results.update(check_pore_advance(tag))
     check_pore_advance_graph(tag)
     check_pore_advance_audit(tag)
+    results.update(check_post_pairs(tag))
+    check_post_pairs_graph(tag)
     results.update(check_allpairs(tag))
     check_k2_cube(tag)
     results.update(check_slab(tag))

@@ -243,8 +243,11 @@ def test_advance_equals_unfused_sequence(dtype):
 
 def test_kernel_interface_matches_source():
     """amc_pore_advance's ctypes table equals its C declaration (stream
-    last), and the constants' names equal ``enum Param``'s, in order."""
+    last), and the constants' names equal ``enum Param``'s, in order (in
+    the header K8 shares with K13)."""
     src = (kernels.CSRC / "pore_walls.cu").read_text()
+    header = (kernels.CSRC / "pore_recapture.cuh").read_text()
+    assert '#include "pore_recapture.cuh"' in src
     (params,) = re.findall(r"AMC_EXPORT int amc_pore_advance\((.*?)\)\s*\{",
                            src, re.S)
     types = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
@@ -252,7 +255,7 @@ def test_kernel_interface_matches_source():
              else "F" if p.split()[0] == "float" else "I"
              for p in params.split(",")]
     assert [types[k] for k in kinds] == kernels._SIGNATURES["pore_advance"]
-    (enum,) = re.findall(r"enum Param \{(.*?)\};", src, re.S)
+    (enum,) = re.findall(r"enum Param \{(.*?)\};", header, re.S)
     names = [e.strip() for e in enum.split(",")]
     want = ["k" + "".join(w.capitalize() for w in p.split("_"))
             for p in pore_pass.PARAM_NAMES] + ["kNumParams"]

@@ -122,6 +122,20 @@ def test_launch_counts_equal_the_loops(device, loop_250):
     assert launches["rebuild_sweep"] == -(-STEPS // K)
 
 
+def test_post_pairs_once_a_pairs_step(device, loop_250):
+    """K13 runs once a pairs step, looped and replayed (a replay adds what
+    its graph recorded), and never in the sweep."""
+    sim = simulation(device)
+    assert run(sim, [STEPS])[3]["post_pairs"] == STEPS
+    assert loop_250[0][3]["post_pairs"] == STEPS
+    cfg = dataclasses.replace(
+        sim.cfg, engine=dataclasses.replace(sim.cfg.engine,
+                                            narrowphase="sweep",
+                                            rebuild_interval=1))
+    sweep = amt.Simulation(amt.make_workload(cfg), device=device)
+    assert run(sweep, [20])[3].get("post_pairs", 0) == 0
+
+
 def test_draw_function(device, monkeypatch):
     def draws(n):
         gen = torch.Generator(device=device)

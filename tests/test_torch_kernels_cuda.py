@@ -344,6 +344,17 @@ def test_pore_advance_kernel_with_the_audit(device):
                                         timed=False)
 
 
+def test_post_pairs_kernel(device):
+    """K13 against its twin at 50k particles with planted escapes in every
+    branch of the recapture: every output and the four counts bitwise, in
+    place (pos, hot and pending1 the tensors given), two launches equal."""
+    chip_smoke.check_post_pairs("", particles=50_000, reps=0)
+
+
+def test_post_pairs_kernel_replays_in_a_cuda_graph(device):
+    chip_smoke.check_post_pairs_graph("", particles=50_000)
+
+
 def test_bin_and_table_kernel_on_the_cube_grid(device):
     chip_smoke.check_k2_cube("", reps=0)
 
