@@ -176,11 +176,19 @@ def missed_counts(device, audits: bool):
     return None, _NO_MISSED[device]
 
 
-def _nonfinite(state: ParticleState, check: bool) -> torch.Tensor:
+def _nonfinite(state: ParticleState, check: bool,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The state's non-finite elements (0-d int32), over the ``valid``
+    lanes where given (a z-slab's, shard.py:253-267); zero unchecked."""
     if not check:
         return torch.zeros((), dtype=torch.int32, device=state.pos.device)
-    return sum(torch.sum(~torch.isfinite(t), dtype=torch.int32)
-               for t in (state.pos, state.vel, state.paths))
+
+    def count(t):
+        bad = ~torch.isfinite(t)
+        return torch.sum(bad if valid is None else bad & valid[:, None],
+                         dtype=torch.int32)
+
+    return sum(count(t) for t in (state.pos, state.vel, state.paths))
 
 
 def make_step_fn(workload: Workload, grid: Optional[collide.DeviceGrid]):
@@ -326,23 +334,16 @@ def pairs_config_for(workload: Workload,
     return pcfg
 
 
-def shared_compaction(pending_mask: torch.Tensor, dirty: torch.Tensor,
-                      research_capacity: int,
-                      shared: Optional[torch.Tensor] = None,
-                      dirty_count: Optional[torch.Tensor] = None):
+def shared_compaction(shared: torch.Tensor, dirty: torch.Tensor,
+                      dirty_count: torch.Tensor, research_capacity: int):
     """(shared_idx, dirty_idx, research_dropped) of a pairs step: one
-    N-sized compaction (K6) of the lanes the flush or the re-search needs,
-    shared by both, then the dirty ones among it (K6 again), padded with
-    n; ``research_dropped`` counts the dirty lanes beyond
-    ``research_capacity`` (engine.py:407-441).  ``shared``
-    (``pending_mask | dirty``) and ``dirty_count`` (0-d int32), where the
-    caller has them already, are taken as they are."""
+    N-sized compaction (K6) of the lanes the flush or the re-search needs
+    (``shared``, ``pending_mask | dirty``), shared by both, then the dirty
+    ones among it (K6 again), padded with n; ``research_dropped`` counts
+    the ``dirty_count`` dirty lanes beyond ``research_capacity``
+    (engine.py:407-441)."""
     n = dirty.shape[0]
     shared_cap = max(measure_ops.FLUSH_CAPACITY, n // 64)
-    if shared is None:
-        shared = pending_mask | dirty
-    if dirty_count is None:
-        dirty_count = torch.sum(dirty, dtype=torch.int32)
     shared_idx = compact_indices(shared, shared_cap, n)
     dirty_at = (shared_idx < n) & dirty[torch.clamp(shared_idx,
                                                     max=n - 1).long()]
@@ -355,6 +356,61 @@ def shared_compaction(pending_mask: torch.Tensor, dirty: torch.Tensor,
     return shared_idx, dirty_idx, research_dropped
 
 
+def pairs_step_tail(post: post_pairs_ops.PostPairs, measure: Measurements,
+                    ledger: WallLedger, grid: collide.DeviceGrid,
+                    pcfg: pairs_ops.PairConfig, cfg,
+                    ids: Optional[torch.Tensor] = None,
+                    local: Optional[torch.Tensor] = None):
+    """The pairs step after its post-pairs stage ``post``, on one card and
+    on a z-slab alike: the shared compaction (K6 twice), the dirty lanes'
+    re-search (K4) and the list's force/age, the compacted flush (K7c), the
+    measure's counters and the list's cleared ``overflow`` and ``spill``.
+    Returns (measure, plist, latent_research).  A slab passes its global
+    ``ids`` (K4's "not itself") and its ``local`` lanes, the dirty ones of
+    which ``latent_research`` counts.  K4 and K7c work in place: the list
+    and the staging are the step's alone."""
+    eng = cfg.engine
+    cr = cfg.physics.collision_range
+    state, plist = post.state, post.plist
+    with span("amc/step/dirty"):
+        shared_idx, dirty_idx, research_dropped = shared_compaction(
+            post.shared, post.dirty, post.dirty_count,
+            pcfg.research_capacity)
+    with span("amc/step/research"):
+        plist, research_lost, latent_per = pairs_ops.research_dirty(
+            state, plist, dirty_idx, post.bump, grid, pcfg, cr, cfg.dt,
+            ids=ids)
+        force = research_lost | (research_dropped > 0)
+        plist = dataclasses.replace(
+            plist,
+            age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
+        )
+
+    # In place; shared_idx is ascending, as the flush requires.
+    with span("amc/step/flush"):
+        measure = measure_ops.flush_hist_compacted(
+            measure, shared_idx, eng.num_bins, eng.hist_range[1])
+
+    with span("amc/step/counters"):
+        measure = dataclasses.replace(
+            measure,
+            overflow_count=(measure.overflow_count + plist.overflow
+                            + research_dropped),
+            hot_spill_count=measure.hot_spill_count + plist.spill,
+            err_count=measure.err_count + ledger.errs,
+            collision_count=measure.collision_count + ledger.wall_hits,
+        )
+        zero = torch.zeros((), dtype=torch.int32, device=state.pos.device)
+        plist = dataclasses.replace(plist, overflow=zero, spill=zero)
+        if local is not None:
+            n = post.dirty.shape[0]
+            counted = (dirty_idx < n) & local[torch.clamp(
+                dirty_idx, max=n - 1).long()]
+            latent_per = torch.where(counted, latent_per, 0)
+        latent_research = torch.sum(latent_per, dtype=torch.int32)
+    return measure, plist, latent_research
+
+
 def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
                        pcfg: pairs_ops.PairConfig):
     """The pairs engine's per-step function ``step(state, measure, plist,
@@ -363,9 +419,7 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
     The rebuild is not part of the step (``Simulation`` runs it)."""
     cfg = workload.cfg
     eng = cfg.engine
-    dt = cfg.dt
     cr = cfg.physics.collision_range
-    hist_hi = eng.hist_range[1]
     audits = eng.debug_audits and workload.audit_fn is not None
     post_pairs = workload.post_pairs_stage or functools.partial(
         post_pairs_ops.post_pairs_plain, workload.post_pairs)
@@ -398,57 +452,28 @@ def make_pairs_step_fn(workload: Workload, grid: collide.DeviceGrid,
         with span("amc/step/recapture"):
             post = post_pairs(state, measure, plist, speed_pre, collided,
                               recap_w)
-            state, plist = post.state, post.plist
-
-        with span("amc/step/dirty"):
-            shared_idx, dirty_idx, research_dropped = shared_compaction(
-                measure.pending_mask, post.dirty, pcfg.research_capacity,
-                shared=post.shared, dirty_count=post.dirty_count)
         # In place: the list is this step's alone (the Simulation's carried
         # list, replaced by the one returned here).
-        with span("amc/step/research"):
-            plist, research_lost, latent_per = pairs_ops.research_dirty(
-                state, plist, dirty_idx, post.bump, grid, pcfg, cr, dt)
-            force = research_lost | (research_dropped > 0)
-            plist = dataclasses.replace(
-                plist,
-                age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
-            )
-
-        # In place; shared_idx is ascending, as the flush requires.
-        with span("amc/step/flush"):
-            measure = measure_ops.flush_hist_compacted(
-                measure, shared_idx, eng.num_bins, hist_hi)
-
-        with span("amc/step/counters"):
-            measure = dataclasses.replace(
-                measure,
-                overflow_count=(measure.overflow_count + plist.overflow
-                                + research_dropped),
-                hot_spill_count=measure.hot_spill_count + plist.spill,
-                err_count=measure.err_count + ledger.errs,
-                collision_count=measure.collision_count + ledger.wall_hits,
-            )
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            plist = dataclasses.replace(plist, overflow=zero, spill=zero)
-
-            metrics = StepMetrics(
-                momentum_z=ledger.momentum_z,
-                energy_hot=ledger.energy_hot,
-                energy_cold=ledger.energy_cold,
-                collisions=pair_collisions + ledger.wall_hits,
-                wall_hits=ledger.wall_hits,
-                oob_after_walls=oob_walls,
-                oob_after_pairs=post.oob_after_pairs,
-                missed_cases=missed,
-                nonfinite=_nonfinite(state, eng.check_finite),
-                rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
-                                   device=dev),
-                dirty_count=post.dirty_count,
-                latent_full=post.latent_full,
-                teleports=post.teleports,
-                latent_research=torch.sum(latent_per, dtype=torch.int32),
-            )
+        measure, plist, latent_research = pairs_step_tail(
+            post, measure, ledger, grid, pcfg, cfg)
+        state = post.state
+        metrics = StepMetrics(
+            momentum_z=ledger.momentum_z,
+            energy_hot=ledger.energy_hot,
+            energy_cold=ledger.energy_cold,
+            collisions=pair_collisions + ledger.wall_hits,
+            wall_hits=ledger.wall_hits,
+            oob_after_walls=oob_walls,
+            oob_after_pairs=post.oob_after_pairs,
+            missed_cases=missed,
+            nonfinite=_nonfinite(state, eng.check_finite),
+            rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
+                               device=dev),
+            dirty_count=post.dirty_count,
+            latent_full=post.latent_full,
+            teleports=post.teleports,
+            latent_research=latent_research,
+        )
         return state, measure, plist, metrics
 
     return step

@@ -9,7 +9,8 @@ its plain twin ``post_pairs_plain`` for CPU tensors.  The twin is the
 pairs step's own sequence of these stages, with the workload's
 ``post_pairs`` for the recapture: the pairs step runs it for every
 workload without the kernel (the specular pore, with its audit and
-nudge).  Both return a ``PostPairs``.
+nudge) and, with its lane masks, on every z-slab (the kernel takes no
+masks).  Both return a ``PostPairs``.
 
 The kernel updates ``state.pos`` (the rows it moves), ``plist.hot`` and
 ``plist.pending1`` in place and returns the objects it was given; the twin
@@ -22,7 +23,7 @@ with K8's own code, so the two agree bitwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Callable, NamedTuple
+from typing import TYPE_CHECKING, Callable, NamedTuple, Optional
 
 import torch
 
@@ -59,27 +60,49 @@ class PostPairs(NamedTuple):
 def post_pairs_plain(recapture: Callable, state: ParticleState,
                      measure: Measurements, plist: PairList,
                      speed_pre: torch.Tensor, collided: torch.Tensor,
-                     recap_w: torch.Tensor) -> PostPairs:
+                     recap_w: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None,
+                     local: Optional[torch.Tensor] = None) -> PostPairs:
     """The stages as plain PyTorch.  ``recapture(state) -> (state,
     count)`` (the workload's ``post_pairs``) returns new tensors where it
-    moves a particle, so ``pos_pre`` still holds the positions before it."""
+    moves a particle, so ``pos_pre`` still holds the positions before it.
+
+    A z-slab passes its lane masks, ``valid`` (local and ghost lanes that
+    hold a particle) and ``local`` (its own lanes among them), and a
+    recapture that parks the invalid lanes; a ghost's ``speed_pre`` and
+    ``recap_w`` are its owner's.  Then only valid lanes go bump, hot or
+    dirty, ``oob_after_pairs`` counts the local lanes the recapture moved,
+    and ``latent_full`` and ``teleports`` count local lanes only; the dirty
+    count takes every valid lane, ghosts too."""
     pos_pre = state.pos
     state, oob_pairs = recapture(state)
     recap_p = torch.any(state.pos != pos_pre, dim=-1)
     # Dirty: speed changed, collided, teleported (hot for the rest of the
     # window) or queued at the rebuild (pending1).
     bump = (measure_ops.speed(state.vel) != speed_pre) | collided
-    hot = plist.hot | recap_w | recap_p
-    latent_full = torch.sum(plist.pending1, dtype=torch.int32)
-    dirty = bump | hot | plist.pending1
+    teleported = recap_w | recap_p
+    pending1 = plist.pending1
+    if valid is not None:
+        oob_pairs = torch.sum(recap_p & local, dtype=torch.int32)
+        bump = bump & valid
+        teleported = teleported & valid
+    hot = plist.hot | teleported
+    dirty = bump | hot | pending1
+    if valid is None:
+        latent_full = torch.sum(pending1, dtype=torch.int32)
+        teleports = torch.sum(teleported, dtype=torch.int32)
+    else:
+        dirty = dirty & valid
+        latent_full = torch.sum(pending1 & local, dtype=torch.int32)
+        teleports = torch.sum(teleported & local, dtype=torch.int32)
     plist = dataclasses.replace(plist, hot=hot,
-                                pending1=torch.zeros_like(plist.pending1))
+                                pending1=torch.zeros_like(pending1))
     return PostPairs(
         state=state, plist=plist, bump=bump, dirty=dirty,
         shared=measure.pending_mask | dirty, oob_after_pairs=oob_pairs,
         latent_full=latent_full,
         dirty_count=torch.sum(dirty, dtype=torch.int32),
-        teleports=torch.sum(recap_w | recap_p, dtype=torch.int32))
+        teleports=teleports)
 
 
 def post_pairs(state: ParticleState, measure: Measurements, plist: PairList,

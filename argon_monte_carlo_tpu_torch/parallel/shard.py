@@ -48,15 +48,17 @@ positions, velocities and global ids to the neighbour as ghosts; and the
 pair list is rebuilt on the local and ghost lanes together (K2 with
 ``valid``, K1 with the global ids and the slab's cell windows, K5 with the
 valid lanes).  Each step (``_pairs_step``): K8 under parking; the ghosts
-are refreshed through the frozen lists, with the owner's wall-bump and
-wall-recapture flags; K3 tests the listed pairs with the global ids (both
-slabs holding a pair across a face make the same match and apply the
-same update, so a ghost mirrors its owner bit for bit) and stages and
-counts local lanes only; the post-pairs recapture runs on all lanes; the
-dirty lanes are compacted with the flush's (K6) and re-searched (K4,
-"not itself" by global id); the compacted flush (K7c); the local lanes
-are written back.  The ghosts' state is recomputed from the owners every
-step, so nothing but the frozen lists outlives a step.
+are refreshed through the frozen lists, with the owner's pre-drift speed
+and wall-recapture flag; K3 tests the listed pairs with the global ids
+(both slabs holding a pair across a face make the same match and apply
+the same update, so a ghost mirrors its owner bit for bit) and stages and
+counts local lanes only; then the one-card pairs step's own stages, with
+the slab's lane masks: the post-pairs recapture and dirty masks
+(``ops.post_pairs.post_pairs_plain``) and ``engine.pairs_step_tail`` (the
+shared compaction, K6; the re-search, K4, "not itself" by global id; the
+compacted flush, K7c; the counters); the local lanes are written back.
+The ghosts' state is recomputed from the owners every step, so nothing
+but the frozen lists outlives a step.
 """
 
 from __future__ import annotations
@@ -69,11 +71,12 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..engine import (Workload, build_grids, copy_tensors, missed_counts,
-                      pairs_config_for, shared_compaction)
+from ..engine import (Workload, _nonfinite, build_grids, copy_tensors,
+                      missed_counts, pairs_config_for, pairs_step_tail)
 from ..ops import collide
 from ..ops import measure as measure_ops
 from ..ops import pairs as pairs_ops
+from ..ops import post_pairs as post_pairs_ops
 from ..ops.compact import compact_indices
 from ..ops.pack import SENTINEL, pack_band_pair, pack_indices
 from ..state import Measurements, ParticleState, StepMetrics
@@ -264,7 +267,8 @@ def _empty_band(names, capacity: int, dtype, device, gid: int = 0):
     filled, far positions, ids ``gid``."""
     shapes = {"pos": ((3,), dtype), "vel": ((3,), dtype),
               "paths": ((4,), dtype), "hc": ((), torch.bool),
-              "gid": ((), torch.int32), "fl": ((), torch.uint8)}
+              "gid": ((), torch.int32), "speed": ((), dtype),
+              "recap_w": ((), torch.bool)}
     fill = {"pos": SENTINEL, "gid": gid}
     buf = {}
     for name in names:
@@ -378,9 +382,9 @@ class ShardedSimulation:
         plan = self.plan
         dtype = self.dtype
         hcap, mcap = self._capacities()
-        # The pairs mode's ghosts carry the owner's dirty flags, and a
-        # missing one the reference's id -3 (shard.py:706, 715).
-        halo = (("pos", "vel", "gid", "fl") if self._pairs_mode
+        # The pairs mode's ghosts carry the owner's inputs to the dirty
+        # masks, and a missing one the reference's id -3 (shard.py:706, 715).
+        halo = (("pos", "vel", "gid", "speed", "recap_w") if self._pairs_mode
                 else ("pos", "vel", "gid"))
         # float64 on the host, the run's dtype on the device (shard.py:364):
         # the init split compares in float64, the migration in the dtype.
@@ -702,7 +706,7 @@ class ShardedSimulation:
             counts.append(torch.stack([
                 w["pair_count"] + ledger.wall_hits, ledger.wall_hits,
                 w["oob_walls"], w["oob_pairs"],
-                self._nonfinite(st, valid)]))
+                _nonfinite(st, eng.check_finite, valid)]))
             missed.append(w["missed"])
         return new_state, new_measure, self._metrics(slabs, floats, counts,
                                                      missed)
@@ -793,21 +797,19 @@ class ShardedSimulation:
         """One step of the pairs mode on every slab (shard.py:771-974);
         updates ``self._windows`` and returns (state, measure,
         StepMetrics)."""
-        plan = self.plan
         cfg = self.cfg
-        eng = cfg.engine
         workload = self.workload
         pcfg = self.pcfg
-        cr, dt = cfg.physics.collision_range, cfg.dt
-        hist_hi = eng.hist_range[1]
-        cap = plan.shard_capacity
-        last = plan.n_shards - 1
-        audits = eng.debug_audits and workload.audit_fn is not None
+        cr = cfg.physics.collision_range
+        cap = self.plan.shard_capacity
+        last = self.plan.n_shards - 1
+        audits = cfg.engine.debug_audits and workload.audit_fn is not None
         parked = self._parked
 
         # DRIFT, WALLS and recapture of the local lanes under parking, then
         # the exports through the frozen lists: post-wall state and the
-        # owner's dirty flags (bit 0 the speed changed, bit 1 recaptured).
+        # owner's inputs to the dirty masks (its pre-drift speed and
+        # whether the wall recapture moved it).
         work = []
         for s, c in enumerate(slabs):
             st, valid, gid = state[s]
@@ -817,18 +819,16 @@ class ShardedSimulation:
                 c, st, valid,
                 lambda x: workload.advance(x, measure[s], uniforms_of(s),
                                            missed=sink))
-            recap_w = recap_w & valid
-            wall_bump = (measure_ops.speed(st.vel) != speed_pre) & valid
-            flags = wall_bump.to(torch.uint8) | (recap_w.to(torch.uint8) << 1)
 
             def export(idx, flag):
                 return {"pos": _take(st.pos, idx, flag, SENTINEL),
                         "vel": _take(st.vel, idx, flag, 0.0),
-                        "fl": _take(flags, idx, flag, 0)}
+                        "speed": _take(speed_pre, idx, flag, 0.0),
+                        "recap_w": _take(recap_w, idx, flag, False)}
 
             work.append(dict(st=st, meas=meas, ledger=ledger,
                              oob_walls=oob_walls, missed=missed,
-                             recap_w=recap_w, wall_bump=wall_bump,
+                             recap_w=recap_w, speed_pre=speed_pre,
                              up=export(win.up_idx, win.up_flag),
                              down=export(win.dn_idx, win.dn_flag)))
 
@@ -838,7 +838,6 @@ class ShardedSimulation:
             st, meas, ledger = w["st"], w["meas"], w["ledger"]
             _, valid, gid = state[s]
             win = self._windows[s]
-            plist = win.plist
             gb, _ = _to_device((work[s - 1]["up"], None) if s > 0
                                else c.no_halo, c.device)
             ga, _ = _to_device((work[s + 1]["down"], None) if s < last
@@ -853,60 +852,30 @@ class ShardedSimulation:
                 vel=torch.cat([st.vel, gb["vel"], ga["vel"]]),
                 paths=torch.cat([st.paths, c.ghost_paths]),
                 has_collided=torch.cat([st.has_collided, c.ghost_false]))
-            n = comb.num_particles
 
             # PAIR COLLISIONS on the listed lanes, in place on comb and the
             # staging; the match by global id, staged and counted locally.
             comb, meas, pair_count, collided = pairs_ops.test_and_resolve(
-                comb, meas, plist.a, plist.b, cr, pcfg.event_capacity,
-                ids=gid_c, local_mask=local_c)
-            # POST-PAIRS RECAPTURE on every lane: deterministic, so a
-            # ghost is recaptured as its owner is.
-            pos_pre = comb.pos
-            comb, _ = parked(c, comb, valid_c, workload.post_pairs)
-            recap_p = torch.any(comb.pos != pos_pre, dim=-1)
-            oob_pairs = torch.sum(recap_p[:cap] & valid, dtype=torch.int32)
-
-            # DIRTY lanes: a ghost's wall flags are its owner's.
-            bump = torch.cat([w["wall_bump"], (gb["fl"] & 1).bool(),
-                              (ga["fl"] & 1).bool()])
-            recap_w = torch.cat([w["recap_w"], (gb["fl"] >> 1).bool(),
-                                 (ga["fl"] >> 1).bool()])
-            bump = (bump | collided) & valid_c
-            teleported = recap_w | recap_p
-            hot = plist.hot | (teleported & valid_c)
-            latent_full = torch.sum(plist.pending1 & local_c,
-                                    dtype=torch.int32)
-            dirty = (bump | hot | plist.pending1) & valid_c
-
-            shared_idx, dirty_idx, research_dropped = shared_compaction(
-                meas.pending_mask, dirty, pcfg.research_capacity)
-            plist = dataclasses.replace(plist, hot=hot)
-            plist, research_lost, latent_per = pairs_ops.research_dirty(
-                comb, plist, dirty_idx, bump, c.grid, pcfg, cr, dt,
-                ids=gid_c)
-            counted = (dirty_idx < n) & local_c[torch.clamp(
-                dirty_idx, max=n - 1).long()]
-            latent_research = torch.sum(
-                torch.where(counted, latent_per, 0), dtype=torch.int32)
-            force = research_lost | (research_dropped > 0)
-            meas = measure_ops.flush_hist_compacted(meas, shared_idx,
-                                                    eng.num_bins, hist_hi)
-            meas = dataclasses.replace(
-                meas,
-                overflow_count=(meas.overflow_count + plist.overflow
-                                + research_dropped),
-                hot_spill_count=meas.hot_spill_count + plist.spill,
-                err_count=meas.err_count + ledger.errs,
-                collision_count=meas.collision_count + ledger.wall_hits)
-            zero = torch.zeros((), dtype=torch.int32, device=c.device)
-            plist = dataclasses.replace(
-                plist, pending1=torch.zeros_like(plist.pending1),
-                age=torch.where(force, pairs_ops.INT_BIG, plist.age + 1),
-                overflow=zero, spill=zero)
+                comb, meas, win.plist.a, win.plist.b, cr,
+                pcfg.event_capacity, ids=gid_c, local_mask=local_c)
+            # The one-card rule on the slab's lanes: the post-pairs
+            # recapture on every lane under parking (deterministic, so a
+            # ghost is recaptured as its owner is) and the dirty masks, a
+            # ghost's wall inputs its owner's; then the one-card tail.
+            post = post_pairs_ops.post_pairs_plain(
+                lambda x: parked(c, x, valid_c, workload.post_pairs),
+                comb, meas, win.plist,
+                torch.cat([w["speed_pre"], gb["speed"], ga["speed"]]),
+                collided,
+                torch.cat([w["recap_w"], gb["recap_w"], ga["recap_w"]]),
+                valid=valid_c, local=local_c)
+            meas, plist, latent_research = pairs_step_tail(
+                post, meas, ledger, c.grid, pcfg, cfg, ids=gid_c,
+                local=local_c)
             self._windows[s] = dataclasses.replace(win, plist=plist)
 
             # WRITE BACK the local lanes.
+            comb = post.state
             st = ParticleState(pos=comb.pos[:cap], vel=comb.vel[:cap],
                                paths=comb.paths[:cap],
                                has_collided=comb.has_collided[:cap])
@@ -916,9 +885,9 @@ class ShardedSimulation:
                                        ledger.energy_cold]))
             counts.append(torch.stack([
                 pair_count + ledger.wall_hits, ledger.wall_hits,
-                w["oob_walls"], oob_pairs, self._nonfinite(st, valid),
-                torch.sum(dirty, dtype=torch.int32), latent_full,
-                torch.sum(teleported & local_c, dtype=torch.int32),
+                w["oob_walls"], post.oob_after_pairs,
+                _nonfinite(st, cfg.engine.check_finite, valid),
+                post.dirty_count, post.latent_full, post.teleports,
                 latent_research]))
             missed.append(w["missed"])
         first = slabs[0].device
@@ -926,14 +895,6 @@ class ShardedSimulation:
             slabs, floats, counts, missed,
             rebuilt=torch.full((), int(rebuilt), dtype=torch.int32,
                                device=first))
-
-    def _nonfinite(self, st: ParticleState, valid: torch.Tensor):
-        """Non-finite elements over the valid lanes (shard.py:253-267)."""
-        if not self.cfg.engine.check_finite:
-            return torch.zeros((), dtype=torch.int32, device=valid.device)
-        lanes = valid[:, None]
-        return sum(torch.sum(~torch.isfinite(t) & lanes, dtype=torch.int32)
-                   for t in (st.pos, st.vel, st.paths))
 
     # ------------------------------------------------------------------
     def pair_window(self):

@@ -22,7 +22,9 @@ Every name starts with ``amc/``:
 - ``amc/step``: the body of a step function, and in it its stages
   ``amc/step/advance``, ``/search`` (the sweep's and the cube's), ``/resolve``,
   ``/recapture``, ``/dirty``, ``/research`` (the pairs step's), ``/flush``
-  and ``/counters``;
+  and ``/counters`` (the pairs step's last four are
+  ``engine.pairs_step_tail``'s, which the z-slab engine records too, a
+  slab at a time, with no ``amc/step`` around them);
 - ``amc/launch``: ``kernels.launch``, one hand-written kernel's call;
 - ``amc/grid``: ``engine.build_grids``, the host's grid and its copy to
   the device (set-up);

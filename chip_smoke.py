@@ -143,6 +143,9 @@ from argon_monte_carlo_tpu_torch import init as init_ops
 from argon_monte_carlo_tpu_torch.ops import collide, measure as measure_ops
 from argon_monte_carlo_tpu_torch.ops import compact, oob, pack
 from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
+from bench_torch.counts import cells
+from bench_torch.counts.roofline import (  # noqa: F401 (chip_smoke's too)
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, PAIR_TEST_OPS, bound, tensor_bytes)
 from argon_monte_carlo_tpu_torch.state import (Measurements, ParticleState,
                                                StepMetrics)
 
@@ -217,13 +220,11 @@ SLABS = 4
 CUBE_STEPS = 500
 CUBE_PARTICLES = 24_627
 
-# The least time the card could take: NVIDIA's H100 SXM data sheet
-# (3.35 TB/s of HBM3, 67 TFLOP/s of float32 outside the tensor cores), at
-# the full 700 W.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# float32 operations of one pair test: 3 sub, 3 mul, 2 add, 1 compare.
-PAIR_TEST_OPS = 9
+# The least time the card could take (HBM_BYTES_PER_S, FP32_OPS_PER_S,
+# PAIR_TEST_OPS, ``tensor_bytes``, ``bound``) and the pair tests of a cell
+# grid (``neighbor_slots``, ``allpairs_cell_tests``) are the benchmark's
+# yardstick, ``bench_torch/counts``.
+neighbor_slots = cells.neighbor_slots
 
 
 class CheckFailed(RuntimeError):
@@ -279,50 +280,13 @@ def exact(name, got, want):
     require(torch.equal(got, want), f"{name}: kernel != plain")
 
 
-def tensor_bytes(*items) -> int:
-    """Bytes of the distinct tensors in ``items`` (tensors, dataclasses or
-    tuples of them): each input read once, each output written once."""
-    seen, total = set(), 0
-
-    def walk(x):
-        nonlocal total
-        if isinstance(x, torch.Tensor):
-            key = (x.data_ptr(), x.numel())
-            if key not in seen:
-                seen.add(key)
-                total += x.numel() * x.element_size()
-        elif dataclasses.is_dataclass(x):
-            for f in dataclasses.fields(x):
-                walk(getattr(x, f.name))
-        elif isinstance(x, (tuple, list)):
-            for y in x:
-                walk(y)
-
-    for item in items:
-        walk(item)
-    return total
-
-
 def result(err, ms, plain_ms, nbytes, ops=0.0, library_ms=None) -> dict:
     """One kernel's entry of the kernels line; the bound is the larger of
     its bytes over the memory rate and its float32 operations over the
     float32 rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms)
-
-
-def neighbor_slots(table, pslot, grid, n, cols=slice(0, 27)) -> int:
-    """Occupied slots in the listed particles' neighbour rows ``cols``:
-    the pair tests a sweep over those rows needs."""
-    occ = (table < n).sum(dim=1)
-    cap = grid.capacity
-    listed = pslot < grid.num_cells * cap
-    cell = (pslot[listed] // cap).long()
-    return int(occ[grid.neighbors[cell][:, cols].long()].sum())
+    bound_ms, bound_by = bound(nbytes, ops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def print_times(results: dict, n: int, tag: str) -> None:
@@ -2520,7 +2484,7 @@ def allpairs_keys(pos, r: float) -> tuple:
     the card) and the slab width: floor(z / w) mod S, w = 1.001 sqrt(r2)
     with r2 the float32 r^2 the kernel gets."""
     slabs = collide.allpairs_slabs(pos.shape[0])
-    width = math.sqrt(float(np.float32(r * r))) * 1.001
+    width = cells.cell_side(r)
     q = torch.floor(pos[:, 2].double() * (1.0 / width))
     q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
     return torch.remainder(q, slabs).long(), width
@@ -2539,20 +2503,7 @@ def allpairs_cell_tests(pos, r: float) -> int:
     """The pair tests the function needs on this data: those of a cell
     grid of side w (every hit lies in one of a particle's 27 neighbouring
     cells), sum over the cells of n_c times the particles of its 27."""
-    _, width = allpairs_keys(pos, r)
-    ijk = torch.floor(pos.double() / width).long()
-    ijk -= ijk.min(dim=0).values - 1
-    span = int(ijk.max()) + 2
-    keys, counts = torch.unique((ijk[:, 0] * span + ijk[:, 1]) * span
-                                + ijk[:, 2], return_counts=True)
-    near = torch.zeros_like(counts)
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                other = keys + (dx * span + dy) * span + dz
-                at = torch.searchsorted(keys, other).clamp(max=len(keys) - 1)
-                near += torch.where(keys[at] == other, counts[at], 0)
-    return int((counts * near).sum())
+    return cells.grid_tests(pos, cells.cell_side(r))
 
 
 def window_edge_probes(r: float, slabs: int) -> torch.Tensor:

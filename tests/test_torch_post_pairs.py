@@ -8,13 +8,16 @@ with rows planted in every branch of the recapture and on the edges
 between them, and drawn patterns of hot, pending1, collided, recap_w, the
 staging mask and speeds one ulp off.  Both pores (the temperature pore's
 recapture and the specular pore's audit and nudge), both dtypes; every
-comparison bitwise.
+comparison bitwise.  The twin with a z-slab's lane masks is held the same
+way to the stages ``ShardedSimulation._pairs_step`` ran inline before it
+(``slab_inline_stages``), on local, ghost and invalid lanes of one case.
 """
 
 import ctypes
 import dataclasses
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch import kernels
 from argon_monte_carlo_tpu_torch.ops import measure as measure_ops
 from argon_monte_carlo_tpu_torch.ops import post_pairs as post_ops
+from argon_monte_carlo_tpu_torch.ops.pack import SENTINEL
+from argon_monte_carlo_tpu_torch.parallel.shard import ShardedSimulation
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -96,6 +101,107 @@ def test_plain_twin_equals_the_inline_stages(energized, dtype):
     assert int(latent) > 0 and int(dcount) > int(bump.sum())
     same_speed = sp == measure_ops.speed(state.vel)
     assert bool((bump & ~col).any()) and bool((col & same_speed).any())
+
+
+def slab_inline_stages(recapture, state, measure, plist, wall_bump,
+                       collided, recap_w, valid, local, cap):
+    """The slab pairs step's recapture and dirty stages as they ran inline
+    in ``ShardedSimulation._pairs_step``, with its counters, in
+    ``inline_stages``'s order.  ``wall_bump`` (the speed changed in the
+    wall stage) and ``recap_w`` are each lane's own or, for a ghost, its
+    owner's flags, as the export carried them: masked by ``valid``."""
+    pos_pre = state.pos
+    state, _ = recapture(state)
+    recap_p = torch.any(state.pos != pos_pre, dim=-1)
+    oob_pairs = torch.sum(recap_p[:cap] & valid[:cap], dtype=torch.int32)
+    bump = (wall_bump | collided) & valid
+    teleported = recap_w | recap_p
+    hot = plist.hot | (teleported & valid)
+    latent_full = torch.sum(plist.pending1 & local, dtype=torch.int32)
+    dirty = (bump | hot | plist.pending1) & valid
+    shared = measure.pending_mask | dirty
+    plist = dataclasses.replace(plist, hot=hot,
+                                pending1=torch.zeros_like(plist.pending1))
+    return (state, plist, bump, dirty, shared, oob_pairs, latent_full,
+            torch.sum(dirty, dtype=torch.int32),
+            torch.sum(teleported & local, dtype=torch.int32))
+
+
+def slab_case(energized):
+    """``case`` cut as a slab: lanes below ``cap`` local (every 11th from
+    lane 5 empty, a planted row among them), the rest ghosts (every third
+    slot empty, as the export fills it: far, at rest, speed 0, no flag).
+    K3 has changed the velocity of half the collided lanes since the wall
+    stage.  Returns (workload, recapture under parking, the post-K3 state,
+    measure, plist, the post-wall velocity, speed_pre, collided, recap_w,
+    valid, local, cap)."""
+    wl, state, meas, plist, sp, col, rw = case(energized, torch.float32)
+    n, cap = N, 2000
+    lane = torch.arange(n)
+    ghost = lane >= cap
+    valid = torch.where(ghost, lane % 3 != 0, lane % 11 != 5)
+    local = valid & ~ghost
+    empty = ghost & ~valid
+    state = dataclasses.replace(
+        state, pos=torch.where(empty[:, None], SENTINEL, state.pos),
+        vel=torch.where(empty[:, None], 0.0, state.vel))
+    sp = torch.where(empty, 0.0, sp)
+    rw = rw & ~empty
+    gen = torch.Generator().manual_seed(5)
+    changed = col & (torch.rand(n, generator=gen) < 0.5)
+    vel_wall = torch.where(changed[:, None], 0.75 * state.vel, state.vel)
+    h = wl.cfg.geometry.total_height
+    parking = SimpleNamespace(park=torch.tensor([0.0, 0.0, 0.5 * h]),
+                              far=torch.tensor(SENTINEL))
+
+    def recapture(st):
+        return ShardedSimulation._parked(None, parking, st, valid,
+                                         wl.post_pairs)
+
+    return (wl, recapture, state, meas, plist, vel_wall, sp, col, rw, valid,
+            local, cap)
+
+
+@pytest.mark.parametrize("energized", [True, False])
+def test_masked_twin_equals_the_slab_inline_stages(energized):
+    (wl, recapture, state, meas, plist, vel_wall, sp, col, rw, valid, local,
+     cap) = slab_case(energized)
+    got = post_ops.post_pairs_plain(recapture, state, meas, plist, sp, col,
+                                    rw, valid=valid, local=local)
+    wall_bump = (measure_ops.speed(vel_wall) != sp) & valid
+    want = slab_inline_stages(recapture, state, meas, plist, wall_bump, col,
+                              rw & valid, valid, local, cap)
+    ws, wp, bump, dirty, shared, oob, latent, dcount, tele = want
+    pairs = [("pos", got.state.pos, ws.pos), ("hot", got.plist.hot, wp.hot),
+             ("pending1", got.plist.pending1, wp.pending1),
+             ("bump", got.bump, bump), ("dirty", got.dirty, dirty),
+             ("shared", got.shared, shared),
+             ("oob_after_pairs", got.oob_after_pairs, oob),
+             ("latent_full", got.latent_full, latent),
+             ("dirty_count", got.dirty_count, dcount),
+             ("teleports", got.teleports, tele)]
+    for name, a, b in pairs:
+        assert chip_smoke.bits_equal(a, b), name
+    for f in dataclasses.fields(plist):
+        if f.name not in ("hot", "pending1"):
+            assert getattr(got.plist, f.name) is getattr(plist, f.name)
+    # Every kind of lane is there: moved by the recapture where local, a
+    # valid ghost and an empty local lane (which the parking moves far);
+    # queued, teleported and dirty local and ghost lanes; and the lanes
+    # whose speed K3 changed since the wall stage.
+    moved = (got.state.pos != state.pos).any(dim=1)
+    ghost = torch.arange(N) >= cap
+    for lanes in (local, valid & ghost, ~valid & ~ghost):
+        assert bool((moved & lanes).any())
+    for mask in (plist.pending1, rw, got.dirty, got.bump):
+        assert bool((mask & local).any()) and bool((mask & valid & ghost)
+                                                   .any())
+    assert not bool((got.dirty & ~valid).any())
+    assert bool((plist.pending1 & ~valid).any())
+    assert 0 < int(oob) < int(moved.sum())
+    assert int(dcount) > int(torch.sum(got.dirty & local))
+    assert bool((col & (measure_ops.speed(vel_wall)
+                        != measure_ops.speed(state.vel))).any())
 
 
 @pytest.mark.parametrize("energized", [True, False])
