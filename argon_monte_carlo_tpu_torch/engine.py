@@ -16,8 +16,8 @@ engine.py:310-472) is
     dirty sub-compaction (K6) -> research_dirty (K4) ->
     flush_hist_compacted (K7) -> counters
 
-(K3, K13, K4 and K7's compacted entry update the step's own tensors in
-place, as K10 and K7's dense entry do in the sweep)
+(K8, K3, K13, K4 and K7's compacted entry update the step's own tensors
+in place, as K8, K10 and K7's dense entry do in the sweep)
 
 with the rebuild (K2, K1, K5; ``ops/pairs.rebuild``) run by ``Simulation``
 on the pre-drift positions at the start of every ``rebuild_interval``
@@ -488,17 +488,18 @@ def copy_tensors(obj):
         for f in dataclasses.fields(obj)})
 
 
-def copy_into(static, obj):
-    """``static``, a dataclass of tensors, with every tensor of ``obj`` (of
-    the same class and shapes) copied into it in place; a field that is the
-    same tensor in both is left alone.  ``static`` None: clones of ``obj``."""
-    if static is None:
-        return copy_tensors(obj)
+def copy_into(static, obj) -> int:
+    """Copy every tensor of ``obj`` into the same field of ``static`` (a
+    dataclass of tensors of the same class and shapes) in place; a field
+    that is the same tensor in both is left alone.  Returns the bytes
+    copied."""
+    copied = 0
     for f in dataclasses.fields(obj):
         dst, src = getattr(static, f.name), getattr(obj, f.name)
         if dst.data_ptr() != src.data_ptr():
             dst.copy_(src)
-    return static
+            copied += dst.numel() * dst.element_size()
+    return copied
 
 
 # Device -> the stream every ``StepGraphs`` of the process runs its eager
@@ -536,7 +537,10 @@ class StepGraphs:
     on them, copies each tensor the step made anew back into its input
     (``copy_into``; the kernels' in-place updates need none) and writes
     the step's metrics into row ``cursor``, so every tensor a replay makes
-    is dead when it ends: the two graphs share one memory pool.
+    is dead when it ends: the two graphs share one memory pool.  The body
+    is ``body(state, measure, plist, uniforms, rebuilt, copy)``, with
+    ``copy(static, obj)`` the copy it makes its own copies with (the new
+    list at a rebuild).
 
     Each graph is captured at its first step after its body ran once
     eagerly on the capture stream (``capture_stream``), a real step of the
@@ -545,12 +549,14 @@ class StepGraphs:
     without running them.  A replay adds the launches its graph recorded
     to ``kernels.launch_counts``.
 
-    Two counters of the host, which no replay touches: ``capture_s``, the
-    host seconds of the eager steps and the captures (each the span
+    Three counters of the host, which no replay touches: ``capture_s``,
+    the host seconds of the eager steps and the captures (each the span
     ``amc/capture``), summed; ``held_bytes``, set after each capture, the
     device bytes the replay holds: every tensor of the graphs' inputs (the
     carried state, measurements and list, the uniforms, the rows and the
-    cursor) and the segments the captures reserved in the graphs' pool."""
+    cursor) and the segments the captures reserved in the graphs' pool;
+    ``copy_back_bytes``, rebuilt -> the bytes that body's copies copied,
+    set each time it runs (the same at its eager step and its capture)."""
 
     def __init__(self, body: Callable, state: ParticleState,
                  steps_per_epoch: int):
@@ -569,22 +575,34 @@ class StepGraphs:
         self._warm: set = set()
         self.capture_s = 0.0
         self.held_bytes: Optional[int] = None
+        self.copy_back_bytes: dict = {}
+        self._copied = 0
 
     def load(self, state, measure, plist) -> None:
         """Carry ``state``, ``measure`` and ``plist`` into the graphs'
         inputs (copies; the first load makes them)."""
-        self.state = copy_into(self.state, state)
-        self.measure = copy_into(self.measure, measure)
-        self.plist = copy_into(self.plist, plist)
+        if self.state is None:
+            self.state, self.measure, self.plist = (
+                copy_tensors(o) for o in (state, measure, plist))
+            return
+        for static, obj in ((self.state, state), (self.measure, measure),
+                            (self.plist, plist)):
+            copy_into(static, obj)
 
     def run_body(self, rebuilt: bool) -> None:
         """One step on the graphs' inputs, as captured."""
+        self._copied = 0
         state, measure, plist, metrics = self._body(
-            self.state, self.measure, self.plist, self.uniforms, rebuilt)
-        copy_into(self.state, state)
-        copy_into(self.measure, measure)
-        copy_into(self.plist, plist)
+            self.state, self.measure, self.plist, self.uniforms, rebuilt,
+            self._copy_back)
+        for static, obj in ((self.state, state), (self.measure, measure),
+                            (self.plist, plist)):
+            self._copy_back(static, obj)
+        self.copy_back_bytes[rebuilt] = self._copied
         self._write_row(metrics)
+
+    def _copy_back(self, static, obj) -> None:
+        self._copied += copy_into(static, obj)
 
     def _write_row(self, metrics: StepMetrics) -> None:
         values = [(f.name, getattr(metrics, f.name))
@@ -682,9 +700,9 @@ class Simulation:
     positions when the window is used up, and drops the list when ``run``
     gets a state other than the one it last returned (engine.py:494-814).
 
-    The steps update the state and the measurements in place (the pairs
-    step's K3 and K7's compacted entry, the sweep's and the cube's K10 and
-    K7), so
+    The steps update the state and the measurements in place (K8 in both
+    pores' steps, the pairs step's K3, K13 and K7's compacted entry, the
+    sweep's and the cube's K10 and K7), so
     ``run`` copies the state and measurements it is handed once on entry
     and carries its own copies: it never writes a tensor its caller passed
     in.
@@ -698,7 +716,11 @@ class Simulation:
     Set-up's host counters: ``grid_build_s``, the host seconds of
     ``build_grids`` (None without a grid); ``capture_s`` and
     ``graph_held_bytes``, the ``StepGraphs``' ``capture_s`` and
-    ``held_bytes`` (None before a run makes the graphs).
+    ``held_bytes`` (None before a run makes the graphs); and
+    ``copy_back_bytes_per_step``, the bytes a replayed step copies back
+    into the graphs' inputs, the mean over a window: (the plain step's x
+    (K - 1) + the rebuilding step's) / K, K = ``rebuild_interval`` (None
+    before both steps ran).
     """
 
     def __init__(self, workload: Workload, device="cuda"):
@@ -730,6 +752,16 @@ class Simulation:
     @property
     def graph_held_bytes(self) -> Optional[int]:
         return None if self._graphs is None else self._graphs.held_bytes
+
+    @property
+    def copy_back_bytes_per_step(self) -> Optional[float]:
+        copied = {} if self._graphs is None else self._graphs.copy_back_bytes
+        if True not in copied:
+            return None
+        k = self.pcfg.rebuild_interval
+        if k > 1 and False not in copied:
+            return None
+        return (copied.get(False, 0) * (k - 1) + copied[True]) / k
 
     def init(self, seed: Optional[int] = None):
         """(state, measure, generator) for a fresh run; the generator has
@@ -807,15 +839,15 @@ class Simulation:
             step, grid, pcfg = self._step, self.grid, self.pcfg
             cr, dt = self.cfg.physics.collision_range, self.cfg.dt
 
-            def body(state, measure, plist, uniforms, rebuilt: bool):
+            def body(state, measure, plist, uniforms, rebuilt: bool, copy):
                 # What a graph records: the rebuild where the window begins,
                 # copied into the carried list at once, so that the old and
                 # the new list are not both held through the step (as the
                 # loop holds neither); then the step, which reads no step
                 # index.  No reference to this Simulation: no cycle.
                 if rebuilt:
-                    copy_into(plist, pairs_ops.rebuild(state, grid, pcfg, cr,
-                                                       dt, plist))
+                    copy(plist, pairs_ops.rebuild(state, grid, pcfg, cr, dt,
+                                                  plist))
                 return step(state, measure, plist, uniforms, None, rebuilt)
 
             self._graphs = StepGraphs(body, state,

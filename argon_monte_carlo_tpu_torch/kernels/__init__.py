@@ -58,7 +58,7 @@ _SIGNATURES = {
     "research_dirty": [_P, _P, _P, _I, _I] + [_P] * 8
                       + [_I, _F, _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F] + [_P] * 14,
-    "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 13,
+    "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 7,
     "post_pairs": [_P] * 9 + [_I] + [_P] * 5,
     "allpairs_partner": [_P, _I, _F, _I] + [_P] * 4 + [_I, _P, _P],
     "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 4,

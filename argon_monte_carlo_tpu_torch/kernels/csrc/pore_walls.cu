@@ -13,26 +13,34 @@
 // recap_w (engine.py:352, :367-369).  There it is ~950 masked whole-array
 // XLA (or, in the port's plain version, PyTorch) operations a step.
 //
-// Bound: bytes.  Each particle reads pos, vel, paths, has_collided, its
-// staging and, only when it hits an energized wall, its two uniforms
-// (~58 bytes), and writes each output once (~63 bytes): ~130 bytes a
-// particle, 0.04 ms at 1M particles on an H100's 3.35 TB/s.  The
-// arithmetic (~60 flops a particle, sin/cos only on a hit) is far below
-// that.
+// In place: pos, vel, paths, has_collided and the first n rows of the
+// staging are the step's own arrays, read and written through one pointer
+// each.  Bound: bytes.  Each particle reads pos, vel, paths and
+// has_collided (41 bytes) and writes pos and paths (the drift moves every
+// particle: 28) and recap_w and speed_pre (5); only a lane that a wall case
+// takes also writes vel, has_collided and its staging row, and only an
+// energized hit reads its two uniforms: ~74 bytes a particle, 0.022 ms at
+// 1M particles on an H100's 3.35 TB/s.  No case reads a staged value
+// before it overwrites it, so the staging is never read.  The arithmetic
+// (~60 flops a particle, sin/cos only on a hit) is far below that.
 //
 // Design: one thread per particle runs every case in order on its own
 // registers, so each case reads the state the previous case left -- which
-// is what the masked whole-array passes compute -- and each output lane is
+// is what the masked whole-array passes compute -- and each changed lane is
 // written once at the end.  A case changes only the particles it takes; no
-// array is rewritten per case (the plain version's 27 cats a step).  The
-// staging and path resets follow record_completed and
-// end_paths(zero_residual=True): a later case of the same step overwrites
-// an earlier one's staged values.  The ledger uses the reference's mask
-// per case: the plane cases sum over the raw case mask, the cylinder cases
-// over the handled subset, and hits count the whole case mask, errors
-// included.  Ledger floats are summed per block in a fixed tree order and
-// then over the blocks by one block in a fixed order: no float atomics, so
-// a launch is bitwise repeatable.  Integer counts use atomics.
+// array is rewritten per case (the plain version's 27 cats a step).  paths
+// and the staging rows (16 bytes) move as float4; pos and vel rows (12
+// bytes) as three scalar loads and stores, coalesced across the warp
+// (staged through shared memory as float4, by the block or by the warp,
+// they measured 20-30% slower on an H100).  The staging and path resets
+// follow record_completed and end_paths(zero_residual=True): a later case
+// of the same step overwrites an earlier one's staged values.  The ledger
+// uses the reference's mask per case: the plane cases sum over the raw
+// case mask, the cylinder cases over the handled subset, and hits count
+// the whole case mask, errors included.  Ledger floats are summed per
+// block in a fixed tree order and then over the blocks by one block in a
+// fixed order: no float atomics, so a launch is bitwise repeatable.
+// Integer counts use atomics.
 //
 // Rounding: every constant is a float32 rounded once on the host from the
 // plain version's double (params, in the order of enum Param in
@@ -63,12 +71,24 @@ constexpr int kTotalsThreads = 1024;
 constexpr int kMaxHorner = 32;
 constexpr int kAuditCases = 10;
 
+// The block partials of the ledger are summed by ledger_totals_kernel's
+// kTotalsThreads threads, thread v over the contiguous run of `per` blocks
+// [v * per, v * per + per), in order.  Block b's partials are stored at
+// (q, b % per, b / per) of a (3, per, kTotalsThreads) array, so that the
+// threads' j-th loads are adjacent.
+__host__ __device__ __forceinline__ int totals_per(int nblocks) {
+  return (nblocks + kTotalsThreads - 1) / kTotalsThreads;
+}
+
+// One particle in registers, and what the step's cases changed of it
+// beyond pos and paths: its velocity (any wall case that took it), its
+// partial path ended (has_collided set), its completed path staged (pv).
 struct Particle {
   float x, y, z, vx, vy, vz;
   float p[4];
   bool has;
+  bool vel_set, ended, staged;
   float pv[4];
-  bool pm;
 };
 
 // The step's cone draw (rng.cone_trig), evaluated on the first energized
@@ -135,10 +155,12 @@ __device__ __forceinline__ void stage_and_end(Particle& s, float t) {
     s.pv[1] = fabsf(s.p[1] - fabsf(s.vx) * t);
     s.pv[2] = fabsf(s.p[2] - fabsf(s.vy) * t);
     s.pv[3] = fabsf(s.p[3] - fabsf(s.vz) * t);
-    s.pm = true;
+    s.staged = true;
   }
   for (int k = 0; k < 4; ++k) s.p[k] = 0.0f;
   s.has = true;
+  s.ended = true;
+  s.vel_set = true;  // every caller re-emits the particle
 }
 
 // Thermal wall on a z-plane (walls.py energized_plane): placed at the
@@ -222,14 +244,11 @@ __device__ __forceinline__ float r2(const Particle& s) {
 }
 
 __global__ void pore_advance_kernel(
-    const float* __restrict__ pos, const float* __restrict__ vel,
-    const float* __restrict__ paths, const uint8_t* __restrict__ has_collided,
-    const float* __restrict__ pend_vals, const uint8_t* __restrict__ pend_mask,
+    float* __restrict__ pos, float* __restrict__ vel,
+    float* __restrict__ paths, uint8_t* __restrict__ has_collided,
+    float* __restrict__ pend_vals, uint8_t* __restrict__ pend_mask,
     const float* __restrict__ uniforms, const float* __restrict__ params,
     const float* __restrict__ horner, int num_horner, int n,
-    float* __restrict__ pos_out, float* __restrict__ vel_out,
-    float* __restrict__ paths_out, uint8_t* __restrict__ has_out,
-    float* __restrict__ pend_vals_out, uint8_t* __restrict__ pend_mask_out,
     uint8_t* __restrict__ recap_out, float* __restrict__ speed_pre_out,
     float* __restrict__ block_ledger, int* __restrict__ counts,
     int* __restrict__ missed) {
@@ -254,12 +273,13 @@ __global__ void pore_advance_kernel(
     s.vx = vel[3 * i];
     s.vy = vel[3 * i + 1];
     s.vz = vel[3 * i + 2];
-    for (int j = 0; j < 4; ++j) {
-      s.p[j] = paths[4 * i + j];
-      s.pv[j] = pend_vals[4 * i + j];
-    }
+    float4 p4 = reinterpret_cast<const float4*>(paths)[i];
+    s.p[0] = p4.x;
+    s.p[1] = p4.y;
+    s.p[2] = p4.z;
+    s.p[3] = p4.w;
     s.has = has_collided[i] != 0;
-    s.pm = pend_mask[i] != 0;
+    s.vel_set = s.ended = s.staged = false;
     Trig tr{false, 0.0f, 0.0f, 0.0f};
     float dt = c[kDt];
 
@@ -293,6 +313,7 @@ __global__ void pore_advance_kernel(
         s.y = col_y + nvy * tb;
         s.vx = nvx;
         s.vy = nvy;
+        s.vel_set = true;
       } else {
         errs += 1;
       }
@@ -304,12 +325,14 @@ __global__ void pore_advance_kernel(
       float nvz = -s.vz;
       s.z = 0.0f + tp * nvz;
       s.vz = nvz;
+      s.vel_set = true;
     }
     if (s.z > c[kH]) {
       float tp = (s.z - c[kH]) / safe(s.vz);
       float nvz = -s.vz;
       s.z = c[kH] + tp * nvz;
       s.vz = nvz;
+      s.vel_set = true;
     }
 
     float d_pz, d_e;
@@ -401,33 +424,52 @@ __global__ void pore_advance_kernel(
     recaptured += recapture(c, x, y, z);
     recap_out[i] = (x != s.x) || (y != s.y) || (z != s.z);
 
-    pos_out[3 * i] = x;
-    pos_out[3 * i + 1] = y;
-    pos_out[3 * i + 2] = z;
-    vel_out[3 * i] = s.vx;
-    vel_out[3 * i + 1] = s.vy;
-    vel_out[3 * i + 2] = s.vz;
-    for (int j = 0; j < 4; ++j) {
-      paths_out[4 * i + j] = s.p[j];
-      pend_vals_out[4 * i + j] = s.pv[j];
+    // Written back: pos and paths on every lane, the rest where a case
+    // changed it.
+    pos[3 * i] = x;
+    pos[3 * i + 1] = y;
+    pos[3 * i + 2] = z;
+    reinterpret_cast<float4*>(paths)[i] =
+        make_float4(s.p[0], s.p[1], s.p[2], s.p[3]);
+    if (s.vel_set) {
+      vel[3 * i] = s.vx;
+      vel[3 * i + 1] = s.vy;
+      vel[3 * i + 2] = s.vz;
     }
-    has_out[i] = s.has;
-    pend_mask_out[i] = s.pm;
+    if (s.ended) has_collided[i] = 1;
+    if (s.staged) {
+      reinterpret_cast<float4*>(pend_vals)[i] =
+          make_float4(s.pv[0], s.pv[1], s.pv[2], s.pv[3]);
+      pend_mask[i] = 1;
+    }
   }
 
-  // Ledger: a fixed-order tree over the block.
+  // Ledger: a fixed-order tree over the block, the last five levels in
+  // the first warp's registers.
   sh[0][t] = mz;
   sh[1][t] = e_hot;
   sh[2][t] = e_cold;
   __syncthreads();
-  for (int w = amc::kThreads / 2; w > 0; w >>= 1) {
+  for (int w = amc::kThreads / 2; w >= 32; w >>= 1) {
     if (t < w) {
       for (int q = 0; q < 3; ++q) sh[q][t] = sh[q][t] + sh[q][t + w];
     }
     __syncthreads();
   }
-  if (t == 0) {
-    for (int q = 0; q < 3; ++q) block_ledger[3 * blockIdx.x + q] = sh[q][0];
+  if (t < 32) {
+    float f[3] = {sh[0][t], sh[1][t], sh[2][t]};
+    for (int w = 16; w > 0; w >>= 1) {
+      for (int q = 0; q < 3; ++q) {
+        f[q] = f[q] + __shfl_down_sync(0xffffffffu, f[q], w);
+      }
+    }
+    if (t == 0) {
+      int per = totals_per(gridDim.x);
+      int at = (blockIdx.x % per) * kTotalsThreads + blockIdx.x / per;
+      for (int q = 0; q < 3; ++q) {
+        block_ledger[(q * per) * kTotalsThreads + at] = f[q];
+      }
+    }
   }
   // Counts: integer warp sums, one atomic a warp.
   int v[3] = {hits, errs, recaptured};
@@ -443,18 +485,20 @@ __global__ void pore_advance_kernel(
   }
 }
 
-// One block: each thread sums a contiguous run of block partials in order,
-// then a fixed tree over the threads.
+// One block: each thread sums its contiguous run of block partials in
+// order, then a fixed tree over the threads.
 __global__ void ledger_totals_kernel(const float* __restrict__ block_ledger,
                                      int nblocks, float* __restrict__ ledger) {
   __shared__ float sh[3][kTotalsThreads];
   int t = threadIdx.x;
-  int per = (nblocks + kTotalsThreads - 1) / kTotalsThreads;
+  int per = totals_per(nblocks);
   int lo = min(t * per, nblocks);
   int hi = min(lo + per, nblocks);
   float f[3] = {0.0f, 0.0f, 0.0f};
-  for (int b = lo; b < hi; ++b) {
-    for (int q = 0; q < 3; ++q) f[q] = f[q] + block_ledger[3 * b + q];
+  for (int j = 0; j < hi - lo; ++j) {
+    for (int q = 0; q < 3; ++q) {
+      f[q] = f[q] + block_ledger[(q * per + j) * kTotalsThreads + t];
+    }
   }
   for (int q = 0; q < 3; ++q) sh[q][t] = f[q];
   __syncthreads();
@@ -472,21 +516,23 @@ __global__ void ledger_totals_kernel(const float* __restrict__ block_ledger,
 }  // namespace
 
 // params: kNumParams float32 constants (enum Param); horner: num_horner
-// (1..32) coefficients, highest degree first.  Outputs are fresh arrays;
-// ledger (3 f32: momentum_z, energy_hot, energy_cold) and counts (3 i32:
-// wall hits, errors, recaptured).  missed: null, or 10 i32 to which the
-// audit's counts are added (the caller zeroes it).  Scratch: block_ledger
-// (nblocks*3 f32).
+// (1..32) coefficients, highest degree first.  pos, vel, paths,
+// has_collided and the first n rows of pend_vals / pend_mask are updated in
+// place (paths and pend_vals 16-byte aligned); recap_out and speed_pre_out
+// are written; ledger (3 f32: momentum_z, energy_hot, energy_cold) and
+// counts (3 i32: wall hits, errors, recaptured).  missed: null, or 10 i32
+// to which the audit's counts are added (the caller zeroes it).  Scratch:
+// block_ledger, 3 * ceil(nblocks / 1024) * 1024 f32 (nblocks = the
+// 256-particle blocks).
 AMC_EXPORT int amc_pore_advance(
-    const float* pos, const float* vel, const float* paths,
-    const uint8_t* has_collided, const float* pend_vals,
-    const uint8_t* pend_mask, const float* uniforms, const float* params,
-    const float* horner, int num_horner, int n, float* pos_out,
-    float* vel_out, float* paths_out, uint8_t* has_out, float* pend_vals_out,
-    uint8_t* pend_mask_out, uint8_t* recap_out, float* speed_pre_out,
-    float* block_ledger, float* ledger, int* counts, int* missed,
-    cudaStream_t stream) {
-  if (num_horner < 1 || num_horner > kMaxHorner) {
+    float* pos, float* vel, float* paths, uint8_t* has_collided,
+    float* pend_vals, uint8_t* pend_mask, const float* uniforms,
+    const float* params, const float* horner, int num_horner, int n,
+    uint8_t* recap_out, float* speed_pre_out, float* block_ledger,
+    float* ledger, int* counts, int* missed, cudaStream_t stream) {
+  uintptr_t rows16 = reinterpret_cast<uintptr_t>(paths) |
+                     reinterpret_cast<uintptr_t>(pend_vals);
+  if (num_horner < 1 || num_horner > kMaxHorner || (rows16 & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int nblocks = amc::blocks_for(n);
@@ -494,9 +540,8 @@ AMC_EXPORT int amc_pore_advance(
   if (nblocks > 0) {
     pore_advance_kernel<<<nblocks, amc::kThreads, 0, stream>>>(
         pos, vel, paths, has_collided, pend_vals, pend_mask, uniforms, params,
-        horner, num_horner, n, pos_out, vel_out, paths_out, has_out,
-        pend_vals_out, pend_mask_out, recap_out, speed_pre_out, block_ledger,
-        counts, missed);
+        horner, num_horner, n, recap_out, speed_pre_out, block_ledger, counts,
+        missed);
   }
   ledger_totals_kernel<<<1, kTotalsThreads, 0, stream>>>(block_ledger,
                                                          nblocks, ledger);

@@ -4,7 +4,10 @@
 post-wall recapture (``kernels/csrc/pore_walls.cu``) for CUDA tensors, and
 the plain version -- the engine's unfused sequence, composed by
 ``engine.advance_plain`` from the workload's wall pass and recapture --
-for CPU tensors.  Both return
+for CPU tensors.  Both update the step's own ``pos``, ``vel``, ``paths``,
+``has_collided`` and the first N rows of ``measure``'s staging in place
+(the kernel writes only what changes; the plain version's new tensors are
+copied into them), return the objects they were given,
 
     (state, measure, WallLedger, recaptured (), recap_w (N,), speed_pre (N,))
 
@@ -76,14 +79,20 @@ def pore_advance(state: ParticleState, measure: Measurements,
                  plain: Callable, missed: Optional[torch.Tensor] = None):
     """K8 (see the module docstring); ``plain(state, measure, uniforms,
     missed=missed)`` runs for CPU tensors.  The staging planes may have
-    more rows than the state (a slab's local and ghost lanes): the kernel
-    stages into the first n rows and the rest is carried over, as in the
-    plain version (``measure.record_completed``)."""
+    more rows than the state (a slab's local and ghost lanes): the first n
+    rows are the particles', the rest are left as they are.  Every caller
+    owns what it hands in (``Simulation.run`` and ``ShardedSimulation.run``
+    copy their caller's state and measurements on entry)."""
     pos = state.pos
-    if kernels.use_plain(pos):
-        return plain(state, measure, uniforms, missed=missed)
-    dev = pos.device
     n = pos.shape[0]
+    if kernels.use_plain(pos):
+        out = plain(state, measure, uniforms, missed=missed)
+        for f in dataclasses.fields(state):
+            getattr(state, f.name).copy_(getattr(out[0], f.name))
+        for f in ("pending_vals", "pending_mask"):
+            getattr(measure, f)[:n].copy_(getattr(out[1], f)[:n])
+        return (state, measure) + tuple(out[2:])
+    dev = pos.device
     rows = measure.pending_vals.shape[0]
     f32, b8 = torch.float32, torch.bool
     kernels.check(measure.pending_vals, "pending_vals", f32, (rows, 4), dev)
@@ -100,33 +109,25 @@ def pore_advance(state: ParticleState, measure: Measurements,
     ]
     for t, name, dt, shape in inputs:
         kernels.check(t, name, dt, shape, dev)
+    for t, name, *_ in (inputs[2], inputs[4]):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: its rows must be 16-byte aligned")
     if missed is not None:
         kernels.check(missed, "missed", torch.int32, (10,), dev)
     prm, horner = params.on(dev)
-    outs = [torch.empty_like(t) for t, *_ in inputs[:4]]
-    # The kernel writes the first n rows of the staging planes in place.
-    pv_o = torch.empty_like(measure.pending_vals)
-    pm_o = torch.empty_like(measure.pending_mask)
-    if rows > n:
-        pv_o[n:] = measure.pending_vals[n:]
-        pm_o[n:] = measure.pending_mask[n:]
-    outs += [pv_o, pm_o]
-    pos_o, vel_o, paths_o, has_o = outs[:4]
     recap_w = torch.empty(n, dtype=b8, device=dev)
     speed_pre = torch.empty(n, dtype=f32, device=dev)
-    block_ledger = torch.empty((-(-n // 256), 3), dtype=f32, device=dev)
+    # The ledger's block partials: 3 x ceil(blocks / 1024) x 1024.
+    block_ledger = torch.empty(3 * -(-n // (256 * 1024)) * 1024, dtype=f32,
+                               device=dev)
     ledger = torch.empty(3, dtype=f32, device=dev)
     counts = torch.empty(3, dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
         "pore_advance", dev, *(p(t) for t, *_ in inputs), p(prm), p(horner),
-        horner.numel(), n, *(p(t) for t in outs), p(recap_w), p(speed_pre),
-        p(block_ledger), p(ledger), p(counts), kernels.optional_ptr(missed),
+        horner.numel(), n, p(recap_w), p(speed_pre), p(block_ledger),
+        p(ledger), p(counts), kernels.optional_ptr(missed),
     )
-    state = ParticleState(pos=pos_o, vel=vel_o, paths=paths_o,
-                          has_collided=has_o)
-    measure = dataclasses.replace(measure, pending_vals=pv_o,
-                                  pending_mask=pm_o)
     wall_ledger = WallLedger(momentum_z=ledger[0], energy_hot=ledger[1],
                              energy_cold=ledger[2], wall_hits=counts[0],
                              errs=counts[1])

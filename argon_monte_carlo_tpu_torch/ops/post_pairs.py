@@ -15,7 +15,8 @@ masks).  Both return a ``PostPairs``.
 The kernel updates ``state.pos`` (the rows it moves), ``plist.hot`` and
 ``plist.pending1`` in place and returns the objects it was given; the twin
 returns new tensors for them and leaves its inputs alone.  ``state.pos``
-is K8's fresh output in the pairs step, so no caller's tensor is written.
+is the step's own, which K8 updated in place before it (``Simulation.run``
+copies its caller's state on entry), so no caller's tensor is written.
 The kernel takes its constants from K8's ``PoreParams`` and recaptures
 with K8's own code, so the two agree bitwise.
 """

@@ -951,9 +951,9 @@ class ShardedSimulation:
             # another trajectory.
             self._windows = None
             self._window_left = 0
-        # The flushes (K7) and K3 update a slab's measurements in place:
-        # the run carries its own copies and never writes a tensor its
-        # caller passed in.
+        # K8, the flushes (K7) and K3 update a slab's state and
+        # measurements in place: the run carries its own copies and never
+        # writes a tensor its caller passed in.
         state = [(copy_tensors(st), valid.clone(), gid.clone())
                  for st, valid, gid in state]
         measure = [copy_tensors(m) for m in measure]

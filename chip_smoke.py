@@ -138,12 +138,13 @@ import torch
 
 import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch import kernels
-from argon_monte_carlo_tpu_torch.engine import build_grids, pairs_config_for
+from argon_monte_carlo_tpu_torch.engine import (WallLedger, build_grids,
+                                                pairs_config_for)
 from argon_monte_carlo_tpu_torch import init as init_ops
 from argon_monte_carlo_tpu_torch.ops import collide, measure as measure_ops
 from argon_monte_carlo_tpu_torch.ops import compact, oob, pack
 from argon_monte_carlo_tpu_torch.ops import pairs as pairs_ops
-from bench_torch.counts import cells
+from bench_torch.counts import cells, k8
 from bench_torch.counts.roofline import (  # noqa: F401 (chip_smoke's too)
     FP32_OPS_PER_S, HBM_BYTES_PER_S, PAIR_TEST_OPS, bound, tensor_bytes)
 from argon_monte_carlo_tpu_torch.state import (Measurements, ParticleState,
@@ -2066,11 +2067,54 @@ LEDGER_REL = 1e-5
 K8_ULPS = 2
 
 
+def energized_scale(before, after, masks: dict, mass: float) -> tuple:
+    """(sum|term| of the ledger's sums, the lanes they sum over): the lanes
+    of the energized cases 3-6 in the plain version's ``masks``, from
+    their velocities ``before`` and ``after`` the wall cases."""
+    hit = torch.zeros(before.shape[0], dtype=torch.bool, device=before.device)
+    for name, m in masks.items():
+        if name[0] in "3456":
+            hit |= m
+    v0, v1 = before[hit].double(), after[hit].double()
+    return {"momentum_z": mass * float((v1[:, 2] - v0[:, 2]).abs().sum()),
+            "energy": 0.5 * mass * float(((v1 * v1).sum(1)
+                                          - (v0 * v0).sum(1)).abs().sum())
+            }, int(hit.sum())
+
+
+def ledger_rel(got, want, scale: dict, label: str) -> float:
+    """The largest gap of K8's three ledger sums from the plain version's,
+    as a share of their sum|term|; raises past LEDGER_REL."""
+    worst = 0.0
+    for f in ("momentum_z", "energy_hot", "energy_cold"):
+        d = abs(float(getattr(got, f)) - float(getattr(want, f)))
+        sc = scale["momentum_z" if f == "momentum_z" else "energy"]
+        rel = d / sc if sc > 0 else d
+        require(rel <= LEDGER_REL, f"{label} {f}: {rel} of sum|term| from "
+                f"plain")
+        worst = max(worst, rel)
+    return worst
+
+
+K8_WRITES = ("pos", "vel", "paths", "has_collided")
+
+
+def k8_outputs(out) -> dict:
+    """K8's outputs by name (the staging: every row)."""
+    state, meas, ledger = out[:3]
+    return {**{f: getattr(state, f) for f in K8_WRITES},
+            "pending_vals": meas.pending_vals,
+            "pending_mask": meas.pending_mask,
+            **dict(zip(WallLedger._fields, ledger)), "recaptured": out[3],
+            "recap_w": out[4], "speed_pre": out[5]}
+
+
 def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
                        reps: int = 20, require_cases: bool = True) -> dict:
     """K8 against its plain version on the card, over ``steps`` steps of
     the pairs slice after its first 24: each step's state and uniforms go
-    through both, then the slice takes the step."""
+    through both (K8 on copies, which it updates in place and returns),
+    then the slice takes the step."""
     cfg = config(particles, **PAIRS)
     sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
     wl = sim.workload
@@ -2085,8 +2129,13 @@ def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
         u = torch.rand((n, 2), generator=gen, device="cuda")
         masks = {}
         want = wl.advance_plain(state, meas, u, masks)
-        got = wl.advance(state, meas, u)
-        again = wl.advance(state, meas, u)
+        ks, km = own(state), own(meas)
+        got = wl.advance(ks, km, u)
+        require(got[0] is ks and got[1] is km,
+                "K8: not the state and measurements given")
+        same_tensors(got[0], ks, "K8")
+        same_tensors(got[1], km, "K8")
+        again = wl.advance(own(state), own(meas), u)
         (ws, wm, wl_, wrec, wrw, wsp), (gs, gm, gl, grec, grw, gsp) = want, got
         for name, m in masks.items():
             cases[name] += int(m.sum())
@@ -2094,42 +2143,21 @@ def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
         ulps = max(ulps, *(ulp_diff(a, b) for a, b in floats))
         err = max(err, *(max_abs(a, b) for a, b in floats))
         for name, a, b in (("has_collided", gs.has_collided, ws.has_collided),
+                           ("pending_vals", gm.pending_vals, wm.pending_vals),
                            ("pending_mask", gm.pending_mask, wm.pending_mask),
                            ("recap_w", grw, wrw), ("speed_pre", gsp, wsp),
                            ("recaptured", grec, wrec),
                            ("wall_hits", gl.wall_hits, wl_.wall_hits),
                            ("errs", gl.errs, wl_.errs)):
             exact(f"K8 {name} (step {i})", a, b.to(a.dtype))
-        set_ = wm.pending_mask
-        exact(f"K8 pending_vals where staged (step {i})",
-              gm.pending_vals[set_], wm.pending_vals[set_])
-        # sum|term| of the energized cases, from the plain version's masks.
-        hit = torch.zeros(n, dtype=torch.bool, device="cuda")
-        for name, m in masks.items():
-            if name[0] in "3456":
-                hit |= m
-        energized += int(hit.sum())
-        v0, v1 = state.vel[hit].double(), ws.vel[hit].double()
-        scale = {"momentum_z": mass * float((v1[:, 2] - v0[:, 2]).abs().sum()),
-                 "energy": 0.5 * mass * float(((v1 * v1).sum(1)
-                                               - (v0 * v0).sum(1)).abs().sum())}
-        for f in ("momentum_z", "energy_hot", "energy_cold"):
-            d = abs(float(getattr(gl, f)) - float(getattr(wl_, f)))
-            sc = scale["momentum_z" if f == "momentum_z" else "energy"]
-            rel = d / sc if sc > 0 else d
-            require(rel <= LEDGER_REL, f"K8 {f} (step {i}): {rel} of "
-                    f"sum|term| from plain")
-            ledger_err = max(ledger_err, rel)
-        for name, a, b in zip(
-                ("pos", "vel", "paths", "has_collided", "pending_vals",
-                 "pending_mask", "momentum_z", "energy_hot", "energy_cold",
-                 "wall_hits", "errs", "recaptured", "recap_w", "speed_pre"),
-                (gs.pos, gs.vel, gs.paths, gs.has_collided, gm.pending_vals,
-                 gm.pending_mask, *gl, grec, grw, gsp),
-                (again[0].pos, again[0].vel, again[0].paths,
-                 again[0].has_collided, again[1].pending_vals,
-                 again[1].pending_mask, *again[2], *again[3:])):
-            require(torch.equal(a, b), f"K8 {name}: two launches differ")
+        scale, hits = energized_scale(state.vel, ws.vel, masks, mass)
+        energized += hits
+        ledger_err = max(ledger_err, ledger_rel(gl, wl_, scale,
+                                                f"K8 (step {i})"))
+        g, a = k8_outputs(got), k8_outputs(again)
+        for name in g:
+            require(torch.equal(g[name], a[name]),
+                    f"K8 {name}: two launches differ")
         state, meas, _ = sim.run(1, state=state, measure=meas,
                                  start_step=start + i, draw=lambda _: u)
     require(ulps <= K8_ULPS, f"K8: state {ulps} ulp from plain")
@@ -2139,47 +2167,147 @@ def check_pore_advance(tag: str, particles: int = PARTICLES, steps: int = 16,
     print(f"K8 pore_advance: {steps} steps at N={n}; particles per case "
           f"(plain masks) {dict(sorted(cases.items()))} {tag}")
     print(f"K8 pore_advance: state {ulps} ulp from plain (bound {K8_ULPS}), "
-          f"max abs err {err!r}; masks, hits, errs, recaptures and speed_pre "
-          f"exact; pending_vals equal where staged; ledger within "
-          f"{ledger_err!r} of sum|term| (bound {LEDGER_REL}); two launches "
-          f"bitwise equal {tag}")
+          f"max abs err {err!r}; masks, staging, hits, errs, recaptures and "
+          f"speed_pre exact; in place (the state and staging given, "
+          f"returned); ledger within {ledger_err!r} of sum|term| (bound "
+          f"{LEDGER_REL}); two launches bitwise equal {tag}")
     if require_cases:
         for g in "123456":
             require(groups[g] > 0, f"K8: case {g} took no particle")
     u = torch.rand((n, 2), generator=gen, device="cuda")
-    out = wl.advance(state, meas, u)
-    # Each input read once (the uniforms only for energized hits), each
-    # output written once; ~60 float32 operations a particle.
-    io = (tensor_bytes(state, meas.pending_vals, meas.pending_mask)
-          + 8 * energized // steps
-          + tensor_bytes(out[0], out[1].pending_vals, out[1].pending_mask,
-                         out[2], out[3:]))
-    out = {"pore_advance": result(
-        err, maybe_timed(lambda: wl.advance(state, meas, u), reps),
-        maybe_timed(lambda: wl.advance_plain(state, meas, u), min(reps, 3)),
-        io, 60 * n)}
-    # The bound restated for a form in place, as K3, K7 and K10's were:
-    # pos, vel, paths and has_collided read (41 bytes a particle), pos and
-    # paths written (the drift moves every particle: 28), recap_w and
-    # speed_pre written (5); a wall case's lanes also write vel,
-    # has_collided and their staging (30 bytes) and, energized, read their
-    # uniforms (8).
+    # The bound in place (counts/k8.py): pos, vel, paths and has_collided
+    # read (41 bytes a particle), pos and paths written (the drift moves
+    # every particle: 28), recap_w and speed_pre written (5); a wall case's
+    # lanes also write vel, has_collided and their staging (30 bytes) and,
+    # energized, read their uniforms (8).
     hits = sum(cases.values()) // steps
     in_place = n * (41 + 28 + 5) + 30 * hits + 8 * energized // steps
-    out["pore_advance"]["bound_in_place_ms"] = (
-        in_place / HBM_BYTES_PER_S * 1e3)
-    print(f"K8 pore_advance: bound in place {in_place / HBM_BYTES_PER_S * 1e3!r}"
-          f" ms (bytes: {in_place} at N={n}, {hits} wall-case lanes a step); "
-          f"as it writes now {out['pore_advance']['bound_ms']!r} ms {tag}")
+    out = {"pore_advance": result(
+        err, None, maybe_timed(lambda: wl.advance_plain(state, meas, u),
+                               min(reps, 3)),
+        in_place, k8.OPS_PER_PARTICLE * n)}
+    print(f"K8 pore_advance: bound in place {out['pore_advance']['bound_ms']!r}"
+          f" ms (bytes: {in_place} at N={n}, {hits} wall-case lanes a step) "
+          f"{tag}")
     if reps > 0:
+        out["pore_advance"]["ms"] = time_pore_advance(wl, state, meas, u,
+                                                      reps, tag)
         print_times(out, n, tag)
     return out
 
 
+def time_pore_advance(wl, state, meas, u, reps: int, tag: str) -> float:
+    """K8's time a call in place: the wrapper by CUDA events on copies
+    reset before each call (``net_ms``, the median of three), and its
+    device time and launches a call (torch.profiler).  Returns the ms."""
+    ks, km = own(state), own(meas)
+
+    def reset():
+        for f in K8_WRITES:
+            getattr(ks, f).copy_(getattr(state, f))
+        km.pending_vals.copy_(meas.pending_vals)
+        km.pending_mask.copy_(meas.pending_mask)
+
+    def call():
+        wl.advance(ks, km, u)
+
+    ms, reset_ms, spread = net_ms(call, reset, reps)
+    device_us, launches = device_per_call(call, reset)
+    print(f"K8 pore_advance at N={state.num_particles}: {ms!r} ms a call in "
+          f"place (median of {spread!r}, net of a {reset_ms!r} ms reset), "
+          f"device {device_us!r} us in {launches!r} launches a call {tag}")
+    return ms
+
+
+def time_pore_advance_at(tag: str, particles: int, reps: int = 20) -> None:
+    """K8 in place at ``particles`` (the 10M cell's size): the pairs run's
+    state after 8 steps, its bound from one plain step's wall cases."""
+    cfg = config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    state, meas, _ = sim.run(8, state=state, measure=meas, generator=gen)
+    del sim
+    n = state.num_particles
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    masks = {}
+    wl.advance_plain(state, meas, u, masks)
+    hits = sum(int(m.sum()) for m in masks.values())
+    energized = sum(int(m.sum()) for k, m in masks.items() if k[0] in "3456")
+    del masks
+    torch.cuda.empty_cache()
+    ms = time_pore_advance(wl, state, meas, u, reps, tag)
+    bound_ms, _ = k8.bound_ms(n, hits, energized)
+    print(f"K8 pore_advance at N={n}: bound in place {bound_ms!r} ms "
+          f"(counts/k8.py; {hits} wall-case lanes): {100 * bound_ms / ms!r}% "
+          f"of it by the wrapper's time {tag}")
+
+
+def check_pore_advance_in_place(tag: str, particles: int = PARTICLES,
+                                audit: bool = False,
+                                extra_rows: int = 0) -> None:
+    """K8 in place against its plain twin run on copies, on the pairs
+    slice's state after 24 steps, with the audit on or off and
+    ``extra_rows`` more staging rows than particles (a slab's ghost rows,
+    filled with draws): state, staging, masks, counts and the audit's
+    counts bitwise, the ledger within LEDGER_REL of sum|term|; K8 returns
+    and updates the tensors it was given and leaves the extra rows as they
+    were."""
+    cfg = config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    state, meas, _ = sim.run(24, state=state, measure=meas, generator=gen)
+    n = state.num_particles
+    if extra_rows:
+        ghost = torch.rand((extra_rows, 4), generator=gen, device="cuda")
+        meas = dataclasses.replace(
+            meas, pending_vals=torch.cat([meas.pending_vals, ghost]),
+            pending_mask=torch.cat([meas.pending_mask, ghost[:, 0] > 0.5]))
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    missed = [torch.zeros(10, dtype=torch.int32, device="cuda")
+              if audit else None for _ in range(2)]
+    masks = {}
+    want = wl.advance_plain(own(state), own(meas), u, masks,
+                            missed=missed[0])
+    ks, km = own(state), own(meas)
+    given = {**{f: getattr(ks, f) for f in K8_WRITES},
+             "pending_vals": km.pending_vals, "pending_mask": km.pending_mask}
+    got = wl.advance(ks, km, u, missed=missed[1])
+    require(got[0] is ks and got[1] is km,
+            "K8: not the state and measurements given")
+    for name, t in given.items():
+        require(k8_outputs(got)[name].data_ptr() == t.data_ptr(),
+                f"K8 {name}: not the tensor given")
+    g, w = k8_outputs(got), k8_outputs(want)
+    for name in g:
+        if name in ("momentum_z", "energy_hot", "energy_cold"):
+            continue
+        require(bits_equal(g[name], w[name].to(g[name].dtype)),
+                f"K8 {name}: in place != the plain version on copies")
+    scale, _ = energized_scale(state.vel, want[0].vel, masks,
+                               cfg.physics.mass)
+    rel = ledger_rel(got[2], want[2], scale, "K8 in place")
+    if audit:
+        exact("K8 audit counts in place", missed[1], missed[0])
+    if extra_rows:
+        require(bits_equal(km.pending_vals[n:], meas.pending_vals[n:])
+                and torch.equal(km.pending_mask[n:], meas.pending_mask[n:]),
+                "K8: a staging row past the particles changed")
+    changed = int((state.vel != ks.vel).any(1).sum())
+    print(f"K8 pore_advance in place at N={n}, audit "
+          f"{'on' if audit else 'off'}, {extra_rows} staging rows past the "
+          f"particles: every output bitwise the plain version's on copies, "
+          f"ledger within {rel!r} of sum|term|; {changed} rows of vel "
+          f"rewritten; the tensors given returned, the rows past n as they "
+          f"were {tag}")
+
+
 def check_pore_advance_graph(tag: str, particles: int = PARTICLES) -> None:
     """K8 recorded in a CUDA graph and replayed three times on the pairs
-    slice's state after 24, 25 and 26 steps with fresh uniforms: every
-    replay's outputs bitwise those of a launch outside the graph on the
+    slice's state after 24, 25 and 26 steps with fresh uniforms, refilled
+    into the captured inputs (which it updates in place): every replay's
+    outputs bitwise those of a launch outside the graph on copies of the
     same inputs (K8 keeps no scratch; its constants are made at its first
     call, before the capture)."""
     cfg = config(particles, **PAIRS)
@@ -2201,14 +2329,8 @@ def check_pore_advance_graph(tag: str, particles: int = PARTICLES) -> None:
         out = wl.advance(ss, sm, su)
     require(kernels.launch_counts["pore_advance"] == before + 1,
             "K8: the capture recorded other than one launch")
-    names = ("pos", "vel", "paths", "has_collided", "pending_vals",
-             "pending_mask", "momentum_z", "energy_hot", "energy_cold",
-             "wall_hits", "errs", "recaptured", "recap_w", "speed_pre")
-
-    def flat(o):
-        return (o[0].pos, o[0].vel, o[0].paths, o[0].has_collided,
-                o[1].pending_vals, o[1].pending_mask, *o[2], *o[3:])
-
+    require(out[0] is ss and out[1] is sm,
+            "K8: the capture returned other than the state and staging given")
     hits = []
     for k in range(1, 4):
         state, meas, _ = sim.run(1, state=state, measure=meas,
@@ -2220,8 +2342,9 @@ def check_pore_advance_graph(tag: str, particles: int = PARTICLES) -> None:
         graph.replay()
         want = wl.advance(own(state), own(meas), u)
         torch.cuda.synchronize()
-        for name, a, b in zip(names, flat(out), flat(want)):
-            require(torch.equal(a, b),
+        w = k8_outputs(want)
+        for name, t in k8_outputs(out).items():
+            require(torch.equal(t, w[name]),
                     f"K8 {name} (graph replay {k}): differs from a launch")
         hits.append(int(want[2].wall_hits))
     print(f"K8 pore_advance: one captured launch replayed 3 times on the "
@@ -3842,22 +3965,15 @@ def check_pore_advance_audit(tag: str, particles: int = PARTICLES,
     totals = torch.zeros(10, dtype=torch.int64)
     for i in range(steps):
         u = torch.rand((n, 2), generator=gen, device="cuda")
-        off = wl.advance(state, meas, u)
+        off = wl.advance(own(state), own(meas), u)
         got = torch.zeros(10, dtype=torch.int32, device="cuda")
-        on = wl.advance(state, meas, u, missed=got)
+        on = wl.advance(own(state), own(meas), u, missed=got)
         want = torch.zeros(10, dtype=torch.int32, device="cuda")
         wl.advance_plain(state, meas, u, missed=want)
         exact(f"K8 audit counts (step {i})", got, want)
-        for name, a, b in zip(
-                ("pos", "vel", "paths", "has_collided", "pending_vals",
-                 "pending_mask", "momentum_z", "energy_hot", "energy_cold",
-                 "wall_hits", "errs", "recaptured", "recap_w", "speed_pre"),
-                (on[0].pos, on[0].vel, on[0].paths, on[0].has_collided,
-                 on[1].pending_vals, on[1].pending_mask, *on[2], *on[3:]),
-                (off[0].pos, off[0].vel, off[0].paths, off[0].has_collided,
-                 off[1].pending_vals, off[1].pending_mask, *off[2],
-                 *off[3:])):
-            require(torch.equal(a, b),
+        a, b = k8_outputs(on), k8_outputs(off)
+        for name in a:
+            require(torch.equal(a[name], b[name]),
                     f"K8 {name} with the audit != without (step {i})")
         totals += got.cpu().long()
         state, meas, _ = sim.run(1, state=state, measure=meas,
@@ -3871,10 +3987,16 @@ def check_pore_advance_audit(tag: str, particles: int = PARTICLES,
         return
     u = torch.rand((n, 2), generator=gen, device="cuda")
     missed = torch.zeros(10, dtype=torch.int32, device="cuda")
-    off_us, off_l = device_per_call(lambda: wl.advance(state, meas, u),
-                                    lambda: None)
+    ks, km = own(state), own(meas)
+
+    def reset():
+        refill(ks, state)
+        refill(km, meas)
+        missed.zero_()
+
+    off_us, off_l = device_per_call(lambda: wl.advance(ks, km, u), reset)
     on_us, on_l = device_per_call(
-        lambda: wl.advance(state, meas, u, missed=missed), missed.zero_)
+        lambda: wl.advance(ks, km, u, missed=missed), reset)
     print(f"breakdown K8: pore_advance {off_us!r} us of device time a call "
           f"in {off_l!r} launches without the audit, {on_us!r} us in "
           f"{on_l!r} with it, at N={n} {tag}")
@@ -4460,8 +4582,11 @@ def main(argv) -> int:
     results = check_kernels(tag)
     results.update(check_pairs_kernels(tag))
     results.update(check_pore_advance(tag))
+    for audit, extra_rows in ((False, 0), (True, 4099)):
+        check_pore_advance_in_place(tag, audit=audit, extra_rows=extra_rows)
     check_pore_advance_graph(tag)
     check_pore_advance_audit(tag)
+    time_pore_advance_at(tag, 10_000_000)
     results.update(check_post_pairs(tag))
     check_post_pairs_graph(tag)
     results.update(check_allpairs(tag))

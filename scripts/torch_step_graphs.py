@@ -8,8 +8,8 @@ epoch (set-up's share: the graphs' eager steps and captures), then
 ``EPOCHS`` epochs of ``run`` + ``io.metrics.epoch_to_host`` on the host's
 clock, and ``torch.cuda.max_memory_allocated``.  For the replay also: the
 bytes each capture leaves allocated, the tensors a step copies back into
-the graphs' inputs (their bytes, and the device time of the same copies
-by CUDA events), a window of replays by CUDA events, and a profiled
+the graphs' inputs (their bytes, the program's own mean a step where it
+counts them, and the device time of the same copies by CUDA events), a window of replays by CUDA events, and a profiled
 window of replays (device time a step, ops a step, the top kernels).
 
 Run from the repository root:
@@ -117,6 +117,10 @@ def run_path(n: int, epochs: int, replay: bool) -> dict:
         # step with the rebuild (the new list, then the step's state,
         # measurements and list), then a plain step (the same three).
         out["copy_back_bytes"] = copies
+        # The program's own counter of the same (a program without it:
+        # None).
+        out["copy_back_bytes_per_step"] = getattr(
+            sim, "copy_back_bytes_per_step", None)
         out.update(graph_window(sim, gen, copies))
     return out
 

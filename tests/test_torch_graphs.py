@@ -216,3 +216,62 @@ def test_graph_steps_pct_on_a_cpu_run():
     state, measure, gen = sim.init(SEED)
     sim.run(num_steps=3, state=state, measure=measure, generator=gen)
     assert read_metric(sim) == 0.0
+
+
+def test_copy_back_counter_counts_what_the_body_copies(monkeypatch):
+    """``StepGraphs.copy_back_bytes`` is the bytes of the fields each body
+    copied back (those the step made anew), and
+    ``Simulation.copy_back_bytes_per_step`` their mean over a window; K8
+    and the other in-place stages leave vel, paths, has_collided and the
+    staging for no copy; ``copy_back_mib_per_step`` reads the mean."""
+    copy_into = engine.copy_into
+    copied = {True: [], False: []}
+    body = engine.StepGraphs.run_body
+    kind = []
+
+    def spy(static, obj):
+        names = [f.name for f in dataclasses.fields(obj)
+                 if getattr(static, f.name).data_ptr()
+                 != getattr(obj, f.name).data_ptr()]
+        sizes = [getattr(static, f).numel() * getattr(static, f).element_size()
+                 for f in names]
+        out = copy_into(static, obj)
+        if kind:
+            copied[kind[-1]].append((type(obj).__name__, names))
+            assert out == sum(sizes)
+        return out
+
+    def flagged(self, rebuilt):
+        copied[rebuilt].clear()
+        kind.append(rebuilt)
+        try:
+            body(self, rebuilt)
+        finally:
+            kind.pop()
+
+    eager_replays(monkeypatch)
+    monkeypatch.setattr(engine, "copy_into", spy)
+    monkeypatch.setattr(engine.StepGraphs, "run_body", flagged)
+    sim = simulation()
+    assert sim.copy_back_bytes_per_step is None
+    state, measure, gen = sim.init(SEED)
+    sim.run(num_steps=K + 2, state=state, measure=measure, generator=gen)
+    g = sim._graphs
+    for rebuilt in (True, False):
+        fields = {f"{cls}.{name}" for cls, names in copied[rebuilt]
+                  for name in names}
+        assert not fields & {"ParticleState.vel", "ParticleState.paths",
+                             "ParticleState.has_collided",
+                             "Measurements.pending_vals",
+                             "Measurements.pending_mask"}, fields
+        assert g.copy_back_bytes[rebuilt] > 0
+    # The rebuilding body copies the new list in, the plain one does not.
+    assert g.copy_back_bytes[True] > g.copy_back_bytes[False]
+    assert sim.copy_back_bytes_per_step == (
+        g.copy_back_bytes[False] * (K - 1) + g.copy_back_bytes[True]) / K
+    metric = (METRIC.parent / "copy_back_mib_per_step.py")
+    spec = importlib.util.spec_from_file_location("copy_back", metric)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.read(types.SimpleNamespace(sim=sim)) == (
+        sim.copy_back_bytes_per_step / 2**20)

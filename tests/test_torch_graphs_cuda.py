@@ -191,3 +191,18 @@ def test_caller_owns_its_tensors(device):
         sim._graphs.state, sim._graphs.measure).values()}
     assert not graph_inputs & {
         t.data_ptr() for t in tensors(*out[:2]).values()}
+
+
+def test_plain_step_copies_back_only_0d_fields(device, loop_250):
+    """The replayed plain step copies back nothing but 0-d fields (K8, K3,
+    K13, K4 and K7c update the step's state, staging and list in place):
+    at most 64 bytes; the rebuilding step also copies the new list in.
+    The replay stays bitwise the loop."""
+    sim = simulation(device)
+    out = run(sim, [STEPS])
+    assert_runs_equal((out, sim), loop_250)
+    copied = sim._graphs.copy_back_bytes
+    assert 0 < copied[False] <= 64
+    assert copied[True] > 1000 * copied[False]
+    assert sim.copy_back_bytes_per_step == (
+        copied[False] * (K - 1) + copied[True]) / K

@@ -1,8 +1,9 @@
-"""The steps update their own tensors in place: the pairs step through K3,
-K4 and K7's compacted entry, the sweep, the cube and the z-slab engine
-through K10 and K7's dense entry.  What that leans on and what it must
-not touch, on the CPU with the plain twins, in both pores' pairs mode and
-in the temperature pore's sweep, the cube and a 2-slab sharded sweep:
+"""The steps update their own tensors in place: both pores' steps through
+K8, the pairs step through K3, K4 and K7's compacted entry, the sweep, the
+cube and the z-slab engine through K10 and K7's dense entry.  What that
+leans on and what it must not touch, on the CPU with the plain twins, in
+both pores' pairs mode and in the temperature pore's sweep, the cube and
+2-slab sharded runs:
 
 - ``Simulation.run`` and ``ShardedSimulation.run`` copy what their caller
   hands them, so the caller's state and measurements stay bitwise as they
@@ -12,7 +13,9 @@ in the temperature pore's sweep, the cube and a 2-slab sharded sweep:
   staging is empty after each flush; the events the compacted flush is
   given ascend;
 - K10 writes the tensors it is given, in every caller, and on a slab no
-  ghost lane.
+  ghost lane;
+- K8 returns and updates the state and staging it is given, in every
+  caller, and leaves a slab's staging rows past its lanes alone.
 """
 
 import dataclasses
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 import argon_monte_carlo_tpu_torch as amt
+from argon_monte_carlo_tpu_torch.engine import copy_tensors
 from argon_monte_carlo_tpu_torch.ops import measure as tmeasure
+from argon_monte_carlo_tpu_torch.ops import pore_pass
 
 TARGET = 3000
 K = 4
@@ -264,3 +269,109 @@ def test_resolve_pairs_writes_the_steps_own_tensors(kind, monkeypatch):
     assert_all_as_snapshot(state, meas, given)
     slabs = 2 if kind == "sharded" else 1
     assert len(applied) == steps * slabs and sum(applied) > 0
+
+
+# K8's callers: the temperature pore's pairs step and sweep, and both cut
+# in two z-slabs.
+K8_KINDS = ("pairs", "sweep", "sharded pairs", "sharded sweep")
+K8_FIELDS = ("pos", "vel", "paths", "has_collided")
+
+
+def k8_sim(kind):
+    engine = (amt.EngineConfig(narrowphase="pairs", rebuild_interval=K,
+                               steps_per_epoch=3)
+              if kind.endswith("pairs") else
+              amt.EngineConfig(steps_per_epoch=3))
+    cfg = amt.temperature_pore_config(engine=engine).scaled_to(TARGET)
+    if kind.startswith("sharded"):
+        return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
+                                     devices=["cpu"])
+    return amt.Simulation(amt.make_workload(cfg), device="cpu")
+
+
+@pytest.mark.parametrize("kind", K8_KINDS)
+def test_pore_advance_writes_the_steps_own_tensors(kind, monkeypatch):
+    """K8's wrapper in every caller returns the state and measurements it
+    was given, with their pos, vel, paths, has_collided and the first n
+    staging rows updated to what the plain version computes on copies, a
+    slab's staging rows past its lanes as they were; no tensor of the
+    run's caller is written."""
+    advance = pore_pass.pore_advance
+    rows_past = []
+
+    def spy(state, measure, uniforms, params, plain, missed=None):
+        want = plain(copy_tensors(state), copy_tensors(measure), uniforms)
+        n = state.pos.shape[0]
+        given = {f: getattr(state, f) for f in K8_FIELDS}
+        staging = (measure.pending_vals, measure.pending_mask)
+        past = [t[n:].clone() for t in staging]
+        out = advance(state, measure, uniforms, params, plain, missed=missed)
+        assert out[0] is state and out[1] is measure
+        for f, t in given.items():
+            assert getattr(state, f) is t
+            assert torch.equal(t, getattr(want[0], f)), f
+        assert (measure.pending_vals, measure.pending_mask) == staging
+        for t, w, kept in zip(staging, (want[1].pending_vals,
+                                        want[1].pending_mask), past):
+            assert torch.equal(t[:n], w[:n]) and torch.equal(t[n:], kept)
+        for a, b in zip(out[2:], want[2:]):
+            assert all(torch.equal(x, y) for x, y in zip(
+                *(v if isinstance(v, tuple) else (v,) for v in (a, b))))
+        rows_past.append(measure.pending_vals.shape[0] - n)
+        return out
+
+    monkeypatch.setattr(pore_pass, "pore_advance", spy)
+    sim = k8_sim(kind)
+    state, meas, gens = dense_start(sim)
+    given = snapshot_all(state, meas)
+    steps = 5
+    sim.run(num_steps=steps, state=state, measure=meas, **gens)
+    assert_all_as_snapshot(state, meas, given)
+    slabs = 2 if kind.startswith("sharded") else 1
+    assert len(rows_past) == steps * slabs
+    assert (min(rows_past) > 0) if slabs == 2 else (set(rows_past) == {0})
+
+
+
+def test_pore_advance_leaves_staging_rows_past_the_particles():
+    """A staging longer than the state (a slab's ghost rows), its rows
+    past the particles planted with values: the wrapper updates the first
+    n rows as the plain version does and leaves the rest bitwise."""
+    sim = k8_sim("pairs")
+    state, meas, gen = start(sim)
+    n = state.num_particles
+    ghost = torch.rand((257, 4), generator=gen, dtype=state.pos.dtype)
+    meas = dataclasses.replace(
+        meas, pending_vals=torch.cat([meas.pending_vals, ghost]),
+        pending_mask=torch.cat([meas.pending_mask, ghost[:, 0] > 0.5]))
+    u = torch.rand((n, 2), generator=gen, dtype=state.pos.dtype)
+    wl = sim.workload
+    want = wl.advance_plain(copy_tensors(state), copy_tensors(meas), u)
+    before = snapshot(meas)
+    out = wl.advance(state, meas, u)
+    assert out[1] is meas and int(meas.pending_mask[:n].sum()) > 0
+    for f in ("pending_vals", "pending_mask"):
+        t = getattr(meas, f)
+        assert torch.equal(t[:n], getattr(want[1], f)[:n])
+        assert torch.equal(t[n:], before[f][n:])
+        assert not torch.equal(t[:n], before[f][:n])
+
+
+def test_sharded_pairs_runs_leave_callers_tensors_untouched():
+    """Two runs of the sharded pairs mode, the second on what the first
+    returned: neither writes a tensor it was handed (K8 and K3 update the
+    slabs' own copies), and the carried run equals one run of all the
+    steps."""
+    sim = k8_sim("sharded pairs")
+    state, meas, gens = dense_start(sim)
+    given = snapshot_all(state, meas)
+    s1, m1, _ = sim.run(num_steps=3, state=state, measure=meas, **gens)
+    assert_all_as_snapshot(state, meas, given)
+    first = snapshot_all(s1, m1)
+    s2, m2, _ = sim.run(num_steps=3, state=s1, measure=m1, start_step=3,
+                        **gens)
+    assert_all_as_snapshot(s1, m1, first)
+    _, _, gens = dense_start(sim)
+    whole, whole_meas, _ = sim.run(num_steps=6, state=state, measure=meas,
+                                   **gens)
+    assert_all_as_snapshot(s2, m2, snapshot_all(whole, whole_meas))

@@ -13,7 +13,8 @@ and a ghost lane, and replayed in a CUDA graph; K5 one launch, also
 replayed in a CUDA graph over a longer old tail; K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
-why); K11 exact, also with every particle in one z-slab, at the window's
+why), in place bitwise its twin on copies, also with the audit and with
+staging rows past the particles; K11 exact, also with every particle in one z-slab, at the window's
 edges and replayed in a CUDA graph; K7 in place, also over two calls and
 replayed in a CUDA graph; K12's buffers bitwise, its flags and counts exact; K2
 exact, also on its long-segment path and when replayed in a CUDA graph.  The
@@ -335,6 +336,17 @@ def test_pore_advance_kernel(device):
     before = kernels.launch_counts["pore_advance"]
     chip_smoke.check_pore_advance("", particles=TARGET, steps=4, reps=0)
     assert kernels.launch_counts["pore_advance"] > before
+
+
+@pytest.mark.parametrize("audit", [False, True])
+@pytest.mark.parametrize("extra_rows", [0, 4099])
+def test_pore_advance_in_place_equals_its_twin_on_copies(device, audit,
+                                                         extra_rows):
+    """K8 in place against its plain twin run on copies: every output
+    bitwise (the ledger within 1e-5 of sum|term|), the tensors given
+    returned and updated, staging rows past the particles untouched."""
+    chip_smoke.check_pore_advance_in_place("", particles=TARGET, audit=audit,
+                                           extra_rows=extra_rows)
 
 
 def test_pore_advance_kernel_with_the_audit(device):
