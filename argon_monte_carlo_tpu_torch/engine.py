@@ -107,23 +107,26 @@ def advance_plain(wall_pass: Callable, post_wall: Callable, dt: float,
     bump mask reads it), drift and path accrual (Open_Air_Cube_MC.py:
     179-187), the wall pass, the missed-case audit where ``missed`` is
     given (engine.py:162-165), the post-wall recapture and which particles
-    it moved.  ``cases``, if a dict, receives each wall case's mask."""
+    it moved.  ``cases``, if a dict, receives each wall case's mask.
+    Everything after the speed is the span ``amc/step/walls``: the job K8
+    does in one pass for the temperature pore."""
 
     def advance(state, measure, uniforms, cases=None, missed=None):
         speed_pre = measure_ops.speed(state.vel)
-        prior = state.pos
-        state = dataclasses.replace(
-            state,
-            paths=measure_ops.accumulate_drift(state, dt),
-            pos=state.pos + dt * state.vel,
-        )
-        state, measure, ledger = wall_pass(state, prior, measure, uniforms,
-                                           cases)
-        if missed is not None and audit_fn is not None:
-            missed.add_(audit_fn(state, prior))
-        pos_pre = state.pos
-        state, recaptured = post_wall(state)
-        recap_w = torch.any(state.pos != pos_pre, dim=-1)
+        with span("amc/step/walls"):
+            prior = state.pos
+            state = dataclasses.replace(
+                state,
+                paths=measure_ops.accumulate_drift(state, dt),
+                pos=state.pos + dt * state.vel,
+            )
+            state, measure, ledger = wall_pass(state, prior, measure,
+                                               uniforms, cases)
+            if missed is not None and audit_fn is not None:
+                missed.add_(audit_fn(state, prior))
+            pos_pre = state.pos
+            state, recaptured = post_wall(state)
+            recap_w = torch.any(state.pos != pos_pre, dim=-1)
         return state, measure, ledger, recaptured, recap_w, speed_pre
 
     return advance

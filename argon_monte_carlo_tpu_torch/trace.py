@@ -20,7 +20,13 @@ Every name starts with ``amc/``:
   the stacking of its ``StepMetrics``);
 - ``amc/rebuild``: ``Simulation.rebuild`` (K2, K1, K5);
 - ``amc/step``: the body of a step function, and in it its stages
-  ``amc/step/advance``, ``/search`` (the sweep's and the cube's), ``/resolve``,
+  ``amc/step/advance`` (and in it ``amc/step/walls``: the plain
+  per-particle pass of ``engine.advance_plain`` after the speed -- drift
+  and path accrual, the wall pass, the missed-case audit where it runs,
+  the post-wall fix -- which the specular pore and the cube run, and
+  which K8 replaces for the temperature pore on the card; on the CPU
+  K8's twin is this pass, so it records the span there too), ``/search``
+  (the sweep's and the cube's), ``/resolve``,
   ``/recapture``, ``/dirty``, ``/research`` (the pairs step's), ``/flush``
   and ``/counters`` (the pairs step's last four are
   ``engine.pairs_step_tail``'s, which the z-slab engine records too, a

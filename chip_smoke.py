@@ -87,7 +87,8 @@ exits non-zero without a result line):
    steps: kinetic energy within 1e-5, the mean free path within 5% of
    the one-card cube's) and the reference's mean-free-path check on 4
    slabs; the specular pore, one slab, 1M
-   particles for 100 steps, its kinetic energy constant; the cube on the
+   particles for 100 steps, its kinetic energy constant, on the sweep and
+   on the replayed pairs path (the replay bitwise the loop); the cube on the
    cell grid (K2, K9) against the cube on all pairs (K11), 100 steps,
    bitwise; the command line in this process (``cli.main``): the main
    path at 557,649 molecules for 200 steps with checkpoints, a resume from
@@ -3944,6 +3945,68 @@ def check_specular_pore(tag: str, steps: int = 100) -> None:
           f"{tag}")
 
 
+def check_specular_pore_pairs(tag: str, steps: int = 100) -> None:
+    """The specular pore at 1M particles on the main path, pairs K = 8,
+    replayed from CUDA graphs (the cell ``spore-1m.pairs``'s path): the
+    replay bitwise the loop (``engine.replays_steps`` made to say no) in
+    the state, the measurements, the ``StepMetrics`` and the carried pair
+    list and its window; its kinetic energy constant and no wall-solver
+    error, as ``check_specular_pore`` holds the sweep."""
+    from argon_monte_carlo_tpu_torch import engine
+    cfg = amt.PoreConfig(engine=amt.EngineConfig(
+        broadphase="cells", steps_per_epoch=steps, **PAIRS)).scaled_to(
+            PARTICLES)
+
+    def run(replay: bool):
+        sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+        state, meas, gen = sim.init(SEED)
+        e0 = kinetic(state)
+        real = engine.replays_steps
+        if not replay:
+            engine.replays_steps = lambda *args: False
+        try:
+            t0 = time.perf_counter()
+            state, meas, metrics = sim.run(steps, state=state, measure=meas,
+                                           generator=gen)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.replays_steps = real
+        plist, left = sim.pair_window()
+        tensors = {f"{type(o).__name__}.{f.name}": getattr(o, f.name)
+                   for o in (state, meas, metrics, plist)
+                   for f in dataclasses.fields(o)}
+        return sim, tensors, left, e0, seconds
+
+    sim, replayed, left, e0, seconds = run(True)
+    loop, looped, loop_left, _, loop_s = run(False)
+    require(sim.replayed_steps > 0 and loop.replayed_steps == 0,
+            f"specular pore pairs: {sim.replayed_steps} steps replayed, "
+            f"{loop.replayed_steps} in the loop")
+    differ = [k for k in replayed if not torch.equal(replayed[k], looped[k])]
+    require(not differ and left == loop_left,
+            f"specular pore pairs: replay and loop differ in {differ}")
+    e_rel = abs(float((replayed["ParticleState.vel"].double() ** 2).sum())
+                - e0) / e0
+    require(e_rel <= 1e-5,
+            f"specular pore pairs: kinetic energy moved by {e_rel}")
+    err = int(replayed["Measurements.err_count"])
+    require(err == 0, f"specular pore pairs: {err} wall-solver errors")
+    hits = int(replayed["StepMetrics.wall_hits"].sum())
+    pairs = int((replayed["StepMetrics.collisions"]
+                 - replayed["StepMetrics.wall_hits"]).sum())
+    require(hits > 0 and pairs > 0,
+            f"specular pore pairs: {hits} wall hits, {pairs} pairs")
+    print(f"specular pore pairs: N={cfg.num_molecules} steps={steps} K=8 "
+          f"replayed={sim.replayed_steps} looped={sim.looped_steps}: "
+          f"replay bitwise the loop in {len(replayed)} tensors and the "
+          f"window ({left} left); pairs={pairs} wall_hits={hits} err=0, "
+          f"kinetic energy rel change {e_rel!r} (bound 1e-5), "
+          f"{cfg.num_molecules * steps / seconds!r} particle-steps/s "
+          f"replayed, {cfg.num_molecules * steps / loop_s!r} looped (first "
+          f"runs: graphs captured, kernels' first calls) {tag}")
+
+
 AUDIT_STEPS = 8
 
 
@@ -4619,6 +4682,7 @@ def main(argv) -> int:
                  "pack_band_pair": "sharded sweep",
                  "pack_indices": "sharded pairs"}
     check_specular_pore(tag)
+    check_specular_pore_pairs(tag)
     compare_cube_cells_with_allpairs(tag)
     check_cli(tag)
     breakdowns(tag)

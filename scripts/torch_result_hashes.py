@@ -3,7 +3,8 @@
 the bit: the pore at 1M particles through the pairs step (K = 8, replayed
 from CUDA graphs) for 300 steps, the sweep and the cube for 200 each, and
 the sharded pairs mode (4 z-slabs, all on the one card) of the temperature
-pore and of the specular pore at 1M particles for 100 steps each.
+pore and of the specular pore at 1M particles for 100 steps each, and the
+specular pore at 1M through the replayed pairs step for 100 steps.
 
 Run it beside the package to hash (the package is imported from
 ``PYTHONPATH``, so one copy of the script reads any checkout):
@@ -87,6 +88,8 @@ def main() -> int:
         engine=pairs).scaled_to(1_000_000), 100)
     run_sharded("sharded pairs, specular pore", amt.PoreConfig(
         engine=pairs).scaled_to(1_000_000), 100)
+    run("pairs, specular pore", amt.PoreConfig(engine=pairs).scaled_to(
+        1_000_000), 100)
     return 0
 
 

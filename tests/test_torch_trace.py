@@ -15,10 +15,12 @@ import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch import kernels, trace
 
 STEPS, PER_EPOCH, K = 12, 6, 8
+# "walls": the plain per-particle pass inside "advance" (on the CPU, K8's
+# twin and the cube's planes both run it).
 STAGES = {
-    "pairs": {"advance", "resolve", "recapture", "dirty", "research",
-              "flush", "counters"},
-    "sweep": {"advance", "search", "resolve", "recapture", "flush",
+    "pairs": {"advance", "walls", "resolve", "recapture", "dirty",
+              "research", "flush", "counters"},
+    "sweep": {"advance", "walls", "search", "resolve", "recapture", "flush",
               "counters"},
 }
 STAGES["cube"] = STAGES["sweep"]
@@ -140,6 +142,7 @@ def test_spans_under_the_profiler(kind):
     assert inside("amc/step", "amc/epoch")
     for s in stages:
         assert inside(s, "amc/step"), s
+    assert inside("amc/step/walls", "amc/step/advance")
     if rebuilds:
         assert inside("amc/rebuild", "amc/epoch")
         assert not any(a <= s and t <= b for s, t in spans["amc/rebuild"]
