@@ -109,7 +109,8 @@ def advance_plain(wall_pass: Callable, post_wall: Callable, dt: float,
     given (engine.py:162-165), the post-wall recapture and which particles
     it moved.  ``cases``, if a dict, receives each wall case's mask.
     Everything after the speed is the span ``amc/step/walls``: the job K8
-    does in one pass for the temperature pore."""
+    does in one pass for the temperature pore, and K14, whose launch
+    records the same span, for the specular pore."""
 
     def advance(state, measure, uniforms, cases=None, missed=None):
         speed_pre = measure_ops.speed(state.vel)

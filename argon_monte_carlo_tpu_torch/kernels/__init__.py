@@ -60,6 +60,7 @@ _SIGNATURES = {
                          _F] + [_P] * 14,
     "pore_advance": [_P] * 9 + [_I, _I] + [_P] * 7,
     "post_pairs": [_P] * 9 + [_I] + [_P] * 5,
+    "specular_advance": [_P] * 7 + [_I] + [_P] * 5,
     "allpairs_partner": [_P, _I, _F, _I] + [_P] * 4 + [_I, _P, _P],
     "pack_band": [_P, _I, _I, _I] + [_P, _P, _I, _I, _I] * 5 + [_P] * 4,
     "pack_indices": [_P, _I, _I] + [_P] * 5,

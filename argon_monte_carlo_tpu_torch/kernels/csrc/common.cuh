@@ -79,4 +79,22 @@ __device__ __forceinline__ int assign_cell(float x, float y, float z,
   return layer_base[iz] + iy * m + ix;
 }
 
+// 1 where v is 0, else v: a divisor for the lanes a wall case does not take
+// (walls.py _safe).  Shared by K8 and K14.
+__device__ __forceinline__ float safe(float v) { return v == 0.0f ? 1.0f : v; }
+
+// Smaller root of |p_xy - v_xy t|^2 = rr, rr the host's float32 of the
+// radius squared in double (walls.py _cylinder_backtrace); *ok is false
+// where the backward ray misses the circle.  Shared by K8 and K14.
+__device__ __forceinline__ float backtrace(float x, float y, float vx,
+                                           float vy, float rr, bool* ok) {
+  float a = vx * vx + vy * vy;
+  float b = -2.0f * (x * vx + y * vy);
+  float c = x * x + y * y - rr;
+  float disc = b * b - 4.0f * a * c;
+  *ok = (disc >= 0.0f) && (a > 0.0f);
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  return (-b - sq) / (2.0f * safe(a));
+}
+
 }  // namespace amc

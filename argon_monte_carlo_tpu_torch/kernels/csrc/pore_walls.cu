@@ -66,6 +66,8 @@ namespace {
 
 // Host-rounded constants: enum Param of pore_recapture.cuh.
 using namespace amc::pore;
+using amc::backtrace;
+using amc::safe;
 
 constexpr int kTotalsThreads = 1024;
 constexpr int kMaxHorner = 32;
@@ -106,8 +108,6 @@ struct Ctx {
   int i;
 };
 
-__device__ __forceinline__ float safe(float v) { return v == 0.0f ? 1.0f : v; }
-
 __device__ __forceinline__ void cone_trig(const Ctx& k, Trig& tr) {
   if (tr.ready) return;
   float u1 = k.uniforms[2 * k.i];
@@ -119,19 +119,6 @@ __device__ __forceinline__ void cone_trig(const Ctx& k, Trig& tr) {
   tr.a = sin_t * cosf(phi);
   tr.b = sin_t * sinf(phi);
   tr.ready = true;
-}
-
-// Smaller root of |p_xy - v_xy t|^2 = R^2 (walls.py _cylinder_backtrace);
-// *ok is false where the backward ray misses the circle.
-__device__ __forceinline__ float backtrace(float x, float y, float vx,
-                                           float vy, float rr, bool* ok) {
-  float a = vx * vx + vy * vy;
-  float b = -2.0f * (x * vx + y * vy);
-  float c = x * x + y * y - rr;
-  float disc = b * b - 4.0f * a * c;
-  *ok = (disc >= 0.0f) && (a > 0.0f);
-  float sq = sqrtf(fmaxf(disc, 0.0f));
-  return (-b - sq) / (2.0f * safe(a));
 }
 
 // E' = E + (E_surf - E) alpha; returns the new speed, *d_energy = E' - E

@@ -10,8 +10,10 @@ prior position).
 
 The workload draws nothing after the initial state, so two engines started
 from one state must agree to the bit; the sharded engine's exact gates run
-on it.  Its ``advance`` is plain PyTorch on every device: it holds no
-kernel (K8 is the temperature pore's).
+on it.  Its ``advance`` -- drift, wall pass and nudge -- is K14
+(``ops/pore_pass.specular_advance``) for CUDA tensors and that plain
+sequence (``advance_plain``) for CPU tensors; the pairs step's post-pairs
+nudge is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..init import init_pore
 from ..models.base import apply_tracked, pore_missed_case_audit
 from ..ops import fp
 from ..ops import oob as oob_ops
+from ..ops import pore_pass
 from ..ops import walls as wall_ops
 
 
@@ -132,13 +135,27 @@ def make_pore_workload(cfg: PoreConfig) -> Workload:
         return pore_missed_case_audit(state, prior, geom, physics,
                                       energized=False)
 
-    advance = advance_plain(wall_pass, fix, cfg.dt, audit)
+    plain = advance_plain(wall_pass, fix, cfg.dt, audit)
+    params = pore_pass.SpecularParams(values=dict(
+        dt=cfg.dt, r_oa=r_oa, cr_oa=cr_oa, cr_oa_rr=cr_oa * cr_oa, h=h,
+        h_m_oah=h - oah, oah=oah, r_pore=r_pore,
+        gap_side_top=h - oah - geom.cold_coating_height, gap_lo=gap_lo,
+        gap_hi=gap_hi, r_gap=r_gap, cr_gap=cr_gap, cr_gap_rr=cr_gap * cr_gap,
+        cr_pore=cr_pore, cr_pore_rr=cr_pore * cr_pore,
+        nudge=10.0 * physics.argon_radius, r_oa_sq=r_oa**2,
+        gap_r_sq=r_gap**2, rc_sq=r_pore**2,
+    ))
+
+    def advance(state, measure, uniforms, missed=None):
+        return pore_pass.specular_advance(state, measure, uniforms, params,
+                                          plain, missed=missed)
+
     return Workload(
         cfg=cfg,
         init_fn=lambda gen, device: init_pore(cfg, gen, device),
         wall_pass=wall_pass,
         advance=advance,
-        advance_plain=advance,
+        advance_plain=plain,
         post_pairs=fix,
         fluid_volume=geom.volume,
         audit_fn=audit,

@@ -23,9 +23,11 @@ Every name starts with ``amc/``:
   ``amc/step/advance`` (and in it ``amc/step/walls``: the plain
   per-particle pass of ``engine.advance_plain`` after the speed -- drift
   and path accrual, the wall pass, the missed-case audit where it runs,
-  the post-wall fix -- which the specular pore and the cube run, and
-  which K8 replaces for the temperature pore on the card; on the CPU
-  K8's twin is this pass, so it records the span there too), ``/search``
+  the post-wall fix -- which the cube runs; the specular pore's pass,
+  which on the card is K14's launch, recorded as the same span; K8
+  replaces it for the temperature pore on the card and records none; on
+  the CPU both kernels' twin is this pass, so it records the span there
+  too), ``/search``
   (the sweep's and the cube's), ``/resolve``,
   ``/recapture``, ``/dirty``, ``/research`` (the pairs step's), ``/flush``
   and ``/counters`` (the pairs step's last four are

@@ -41,7 +41,11 @@ exits non-zero without a result line):
    graph and replayed three times (K1 and K4 too, on moved positions), and
    with the missed-case audit over 8 more: its ten counts against the
    plain audit, its state and ledger
-   bitwise those of K8 without it, its device time with and without); K13,
+   bitwise those of K8 without it, its device time with and without); K14,
+   the specular pore's drift/walls/nudge pass, over 16 steps of its pairs
+   slice at 1M, in place with a slab's ghost staging rows and the audit:
+   every output bitwise the plain version's, the audit's counts equal;
+   K13,
    the pairs step's post-pairs recapture and dirty masks, on the 1M pore
    with rows planted in every branch of the recapture and on its edges:
    every output and count bitwise the plain version's, in place, and as
@@ -88,7 +92,8 @@ exits non-zero without a result line):
    the one-card cube's) and the reference's mean-free-path check on 4
    slabs; the specular pore, one slab, 1M
    particles for 100 steps, its kinetic energy constant, on the sweep and
-   on the replayed pairs path (the replay bitwise the loop); the cube on the
+   on the replayed pairs path (the replay bitwise the loop, K14 once a
+   step); the cube on the
    cell grid (K2, K9) against the cube on all pairs (K11), 100 steps,
    bitwise; the command line in this process (``cli.main``): the main
    path at 557,649 molecules for 200 steps with checkpoints, a resume from
@@ -195,11 +200,18 @@ PAIRS_KERNELS = {
         source="argon_monte_carlo_tpu_torch/kernels/csrc/post_pairs.cu",
         replaces="argon_monte_carlo_tpu/engine.py:377"),
 }
-# Both pore engines run K8 once a step; the cube's broad phase is K11.
+# Both engines of the temperature pore run K8 once a step; the cube's
+# broad phase is K11.
 WALL_KERNELS = {
     "pore_advance": dict(
         source="argon_monte_carlo_tpu_torch/kernels/csrc/pore_walls.cu",
         replaces="argon_monte_carlo_tpu/models/temperature_pore.py:65"),
+}
+# Both engines of the specular pore run K14 once a step.
+SPECULAR_KERNELS = {
+    "specular_advance": dict(
+        source="argon_monte_carlo_tpu_torch/kernels/csrc/specular_walls.cu",
+        replaces="argon_monte_carlo_tpu/models/pore.py:55"),
 }
 CUBE_KERNELS = {
     "allpairs_partner": dict(
@@ -3908,13 +3920,26 @@ def run_sharded_cube(tag: str, one_card_mfp: float) -> dict:
     return counts
 
 
+def specular_config(particles=PARTICLES, **engine):
+    return amt.PoreConfig(engine=amt.EngineConfig(
+        broadphase="cells", **engine)).scaled_to(particles)
+
+
+def with_ghost_rows(meas, gen, rows: int):
+    """A copy of ``meas`` whose staging has ``rows`` more rows than
+    particles, filled with draws (a slab's ghost rows)."""
+    ghost = torch.rand((rows, 4), generator=gen, device="cuda")
+    return dataclasses.replace(
+        own(meas), pending_vals=torch.cat([meas.pending_vals, ghost]),
+        pending_mask=torch.cat([meas.pending_mask, ghost[:, 0] > 0.5]))
+
+
 def check_specular_pore(tag: str, steps: int = 100) -> None:
     """The specular pore on the card, one slab, 1M particles: a closed
     system without random draws, so its kinetic energy is constant;
     every wall hit and every pair collision ends a path (it stages a
     completed path or ends the particle's first, partial one)."""
-    cfg = amt.PoreConfig(engine=amt.EngineConfig(
-        broadphase="cells", steps_per_epoch=steps)).scaled_to(PARTICLES)
+    cfg = specular_config(steps_per_epoch=steps)
     sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
     state, meas, gen = sim.init(SEED)
     e0 = kinetic(state)
@@ -3945,17 +3970,16 @@ def check_specular_pore(tag: str, steps: int = 100) -> None:
           f"{tag}")
 
 
-def check_specular_pore_pairs(tag: str, steps: int = 100) -> None:
+def check_specular_pore_pairs(tag: str, steps: int = 100) -> dict:
     """The specular pore at 1M particles on the main path, pairs K = 8,
     replayed from CUDA graphs (the cell ``spore-1m.pairs``'s path): the
     replay bitwise the loop (``engine.replays_steps`` made to say no) in
     the state, the measurements, the ``StepMetrics`` and the carried pair
     list and its window; its kinetic energy constant and no wall-solver
-    error, as ``check_specular_pore`` holds the sweep."""
+    error, as ``check_specular_pore`` holds the sweep; K14 launched once a
+    step.  Returns the replayed run's launches by kernel."""
     from argon_monte_carlo_tpu_torch import engine
-    cfg = amt.PoreConfig(engine=amt.EngineConfig(
-        broadphase="cells", steps_per_epoch=steps, **PAIRS)).scaled_to(
-            PARTICLES)
+    cfg = specular_config(steps_per_epoch=steps, **PAIRS)
 
     def run(replay: bool):
         sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
@@ -3964,6 +3988,7 @@ def check_specular_pore_pairs(tag: str, steps: int = 100) -> None:
         real = engine.replays_steps
         if not replay:
             engine.replays_steps = lambda *args: False
+        kernels.launch_counts.clear()
         try:
             t0 = time.perf_counter()
             state, meas, metrics = sim.run(steps, state=state, measure=meas,
@@ -3972,17 +3997,21 @@ def check_specular_pore_pairs(tag: str, steps: int = 100) -> None:
             seconds = time.perf_counter() - t0
         finally:
             engine.replays_steps = real
+        launches = dict(kernels.launch_counts)
         plist, left = sim.pair_window()
         tensors = {f"{type(o).__name__}.{f.name}": getattr(o, f.name)
                    for o in (state, meas, metrics, plist)
                    for f in dataclasses.fields(o)}
-        return sim, tensors, left, e0, seconds
+        return sim, tensors, left, e0, seconds, launches
 
-    sim, replayed, left, e0, seconds = run(True)
-    loop, looped, loop_left, _, loop_s = run(False)
+    sim, replayed, left, e0, seconds, launches = run(True)
+    loop, looped, loop_left, _, loop_s, _ = run(False)
     require(sim.replayed_steps > 0 and loop.replayed_steps == 0,
             f"specular pore pairs: {sim.replayed_steps} steps replayed, "
             f"{loop.replayed_steps} in the loop")
+    require(launches.get("specular_advance") == steps
+            and "pore_advance" not in launches,
+            f"specular pore pairs: launches {launches}")
     differ = [k for k in replayed if not torch.equal(replayed[k], looped[k])]
     require(not differ and left == loop_left,
             f"specular pore pairs: replay and loop differ in {differ}")
@@ -4004,7 +4033,115 @@ def check_specular_pore_pairs(tag: str, steps: int = 100) -> None:
           f"kinetic energy rel change {e_rel!r} (bound 1e-5), "
           f"{cfg.num_molecules * steps / seconds!r} particle-steps/s "
           f"replayed, {cfg.num_molecules * steps / loop_s!r} looped (first "
-          f"runs: graphs captured, kernels' first calls) {tag}")
+          f"runs: graphs captured, kernels' first calls); specular_advance "
+          f"launched {launches['specular_advance']} times {tag}")
+    return launches
+
+
+SPECULAR_GHOST_ROWS = 4099
+
+
+def check_specular_advance(tag: str, particles: int = PARTICLES,
+                           steps: int = 16, reps: int = 20,
+                           require_cases: bool = True) -> dict:
+    """K14 against its plain twin on the card, over ``steps`` steps of the
+    specular pore's pairs slice after its first 24: each step's state goes
+    through both, K14 on copies with SPECULAR_GHOST_ROWS staging rows past
+    the particles and the audit on, and once more on plain copies without
+    it; every output bitwise the twin's (the ledger's zeros included), the
+    audit's counts equal to the plain audit's, the launch without the
+    audit bitwise the one with it, the tensors given returned and the rows
+    past the particles as they were; every wall case takes lanes (with
+    ``require_cases``).  Then
+    its time a call in place, its device time, and its bound
+    (``bench_torch/counts/walls.py``: K8's in-place count with no
+    energized lane)."""
+    cfg = specular_config(particles, **PAIRS)
+    sim = amt.Simulation(amt.make_workload(cfg), device="cuda")
+    wl = sim.workload
+    state, meas, gen = sim.init(SEED)
+    start = 24
+    state, meas, _ = sim.run(start, state=state, measure=meas, generator=gen)
+    n = state.num_particles
+    cases = Counter()
+    audit = torch.zeros(10, dtype=torch.int64)
+    for i in range(steps):
+        u = torch.rand((n, 2), generator=gen, device="cuda")
+        masks = {}
+        want_missed = torch.zeros(10, dtype=torch.int32, device="cuda")
+        want = wl.advance_plain(state, meas, u, masks, missed=want_missed)
+        ks, km = own(state), with_ghost_rows(meas, gen, SPECULAR_GHOST_ROWS)
+        ghost = [t[n:].clone() for t in (km.pending_vals, km.pending_mask)]
+        missed = torch.zeros(10, dtype=torch.int32, device="cuda")
+        got = wl.advance(ks, km, u, missed=missed)
+        require(got[0] is ks and got[1] is km,
+                "K14: not the state and measurements given")
+        same_tensors(got[0], ks, "K14")
+        same_tensors(got[1], km, "K14")
+        again = wl.advance(own(state), own(meas), u)
+        g, w, a = (k8_outputs(o) for o in (got, want, again))
+        for name in g:
+            gt, wt, at = (o[name][:n] if name.startswith("pending")
+                          else o[name] for o in (g, w, a))
+            require(bits_equal(gt, wt.to(gt.dtype)),
+                    f"K14 {name} (step {i}): != plain")
+            require(bits_equal(gt, at), f"K14 {name} (step {i}): the launch "
+                    f"with the audit != the launch without it")
+        exact(f"K14 audit counts (step {i})", missed, want_missed)
+        require(all(bits_equal(t[n:], kept) for t, kept in zip(
+            (km.pending_vals, km.pending_mask), ghost)),
+            f"K14 (step {i}): a staging row past the particles changed")
+        for name, m in masks.items():
+            cases[name] += int(m.sum())
+        audit += missed.cpu().long()
+        state, meas, _ = sim.run(1, state=state, measure=meas,
+                                 start_step=start + i, draw=lambda _: u)
+    groups = Counter()
+    for name, count in cases.items():
+        groups[name[0]] += count
+    if require_cases:
+        for grp in "123456":
+            require(groups[grp] > 0, f"K14: case {grp} took no particle")
+    print(f"K14 specular_advance: {steps} steps at N={n}; particles per case "
+          f"(plain masks) {dict(sorted(cases.items()))}; audit counts "
+          f"{dict(zip(amt.models.base.AUDIT_CASES, audit.tolist()))} {tag}")
+    print(f"K14 specular_advance: state, staging, masks, speed_pre, recap_w, "
+          f"hits, errs, nudged and the ledger's zeros bitwise the plain "
+          f"version's; the audit's counts equal; with the audit bitwise "
+          f"without it; in place (the state and staging given, returned), "
+          f"{SPECULAR_GHOST_ROWS} staging rows past the particles as they "
+          f"were {tag}")
+    hits = sum(cases.values()) // steps
+    nbytes = k8.bytes_in_place(n, hits, 0)
+    u = torch.rand((n, 2), generator=gen, device="cuda")
+    out = {"specular_advance": result(
+        0.0, None, maybe_timed(lambda: wl.advance_plain(state, meas, u),
+                               min(reps, 3)),
+        nbytes, k8.OPS_PER_PARTICLE * n)}
+    if reps > 0:
+        ks, km = own(state), own(meas)
+
+        def reset():
+            refill(ks, state)
+            refill(km, meas)
+
+        def call():
+            wl.advance(ks, km, u)
+
+        ms, reset_ms, spread = net_ms(call, reset, reps)
+        device_us, launches = device_per_call(call, reset)
+        out["specular_advance"]["ms"] = ms
+        print(f"K14 specular_advance at N={n}: {ms!r} ms a call in place "
+              f"(median of {spread!r}, net of a {reset_ms!r} ms reset), "
+              f"device {device_us!r} us in {launches!r} launches a call; "
+              f"bound {out['specular_advance']['bound_ms']!r} ms (bytes "
+              f"{nbytes}, {hits} wall-case lanes a step, counts/walls.py): "
+              f"{100 * out['specular_advance']['bound_ms'] / ms!r}% of it by "
+              f"the wrapper's time, "
+              f"{100e3 * out['specular_advance']['bound_ms'] / device_us!r}%"
+              f" by the device's {tag}")
+        print_times(out, n, tag)
+    return out
 
 
 AUDIT_STEPS = 8
@@ -4650,6 +4787,7 @@ def main(argv) -> int:
     check_pore_advance_graph(tag)
     check_pore_advance_audit(tag)
     time_pore_advance_at(tag, 10_000_000)
+    results.update(check_specular_advance(tag))
     results.update(check_post_pairs(tag))
     check_post_pairs_graph(tag)
     results.update(check_allpairs(tag))
@@ -4680,15 +4818,16 @@ def main(argv) -> int:
                  **{k: "pairs" for k in [*PAIRS_KERNELS, *WALL_KERNELS]},
                  **{k: "cube" for k in CUBE_KERNELS},
                  "pack_band_pair": "sharded sweep",
-                 "pack_indices": "sharded pairs"}
+                 "pack_indices": "sharded pairs",
+                 "specular_advance": "specular pairs"}
     check_specular_pore(tag)
-    check_specular_pore_pairs(tag)
+    paths["specular pairs"] = check_specular_pore_pairs(tag)
     compare_cube_cells_with_allpairs(tag)
     check_cli(tag)
     breakdowns(tag)
 
     sources = {**KERNELS, **PAIRS_KERNELS, **WALL_KERNELS, **CUBE_KERNELS,
-               **SHARD_KERNELS}
+               **SHARD_KERNELS, **SPECULAR_KERNELS}
     require(set(results) == set(sources), "kernels line: entries missing")
     require(set(main_path) == set(sources), "kernels line: paths missing")
     print(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 """K8's plain version -- the temperature pore's per-particle stage of a
 step: drift, the six wall cases, the post-wall recapture -- against the JAX
-package's drift + ``wall_pass`` + ``pore_recapture``, and the kernel's
-interface against its C declaration.
+package's drift + ``wall_pass`` + ``pore_recapture``, and K8's and K14's
+(the specular pore's pass) interfaces against their C declarations.
 
 The state is made with numpy: the reference's initial pore with its
 velocities scaled up so that one drift crosses the walls, plus strays
@@ -241,31 +241,79 @@ def test_advance_equals_unfused_sequence(dtype):
                 assert torch.equal(getattr(a, f.name), getattr(b, f.name))
 
 
-def test_kernel_interface_matches_source():
-    """amc_pore_advance's ctypes table equals its C declaration (stream
-    last), and the constants' names equal ``enum Param``'s, in order (in
-    the header K8 shares with K13)."""
-    src = (kernels.CSRC / "pore_walls.cu").read_text()
-    header = (kernels.CSRC / "pore_recapture.cuh").read_text()
+# Each per-particle kernel: its source, the file of its ``enum Param`` and
+# the names of its constants in the wrapper's order.
+PASSES = {
+    "pore_advance": ("pore_walls.cu", "pore_recapture.cuh",
+                     pore_pass.PARAM_NAMES),
+    "specular_advance": ("specular_walls.cu", "specular_walls.cu",
+                         pore_pass.SPECULAR_PARAM_NAMES),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(PASSES))
+def test_kernel_interface_matches_source(kernel):
+    """amc_pore_advance's (K8's) and amc_specular_advance's (K14's) ctypes
+    tables equal their C declarations (stream last), and the constants'
+    names equal ``enum Param``'s, in order (K8's in the header it shares
+    with K13; both kernels include it, for the recapture's radial
+    checks)."""
+    source, enum_file, param_names = PASSES[kernel]
+    src = (kernels.CSRC / source).read_text()
+    header = (kernels.CSRC / enum_file).read_text()
     assert '#include "pore_recapture.cuh"' in src
-    (params,) = re.findall(r"AMC_EXPORT int amc_pore_advance\((.*?)\)\s*\{",
+    (params,) = re.findall(rf"AMC_EXPORT int amc_{kernel}\((.*?)\)\s*\{{",
                            src, re.S)
     types = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
     kinds = ["P" if "*" in p or "cudaStream_t" in p
              else "F" if p.split()[0] == "float" else "I"
              for p in params.split(",")]
-    assert [types[k] for k in kinds] == kernels._SIGNATURES["pore_advance"]
+    assert [types[k] for k in kinds] == kernels._SIGNATURES[kernel]
     (enum,) = re.findall(r"enum Param \{(.*?)\};", header, re.S)
     names = [e.strip() for e in enum.split(",")]
     want = ["k" + "".join(w.capitalize() for w in p.split("_"))
-            for p in pore_pass.PARAM_NAMES] + ["kNumParams"]
+            for p in param_names] + ["kNumParams"]
     assert names == want
 
 
-def test_wrapper_passes_declared_arguments(monkeypatch):
-    """The wrapper, forced down its kernel side with the launch
-    intercepted, passes the declared argument kinds and the constants in
-    PARAM_NAMES order, each a float32 of the plain version's double."""
+def wrapper_case(kernel):
+    """(workload, state, staging, constants the plain version computes by
+    name) of K8's or K14's pore in float32."""
+    if kernel == "pore_advance":
+        jc, tc = configs("float32")
+        n, arrays, staging = make_state(jc, np.float32)
+        state, meas = port_inputs(arrays, staging, torch.float32)
+        g, phys = tc.geometry, tc.physics
+        return amt.make_workload(tc), state, meas, {
+            "dt": tc.dt, "h": g.total_height,
+            "plane_cold": (g.total_height - g.open_air_height
+                           + phys.argon_radius),
+            "half_mass": 0.5 * phys.mass,
+            "cr_pore_sq": g.pore_collision_radius(phys)**2,
+            "h_m_z_inset": g.total_height - 0.5 * g.open_air_height}
+    tc = amt.PoreConfig(engine=amt.EngineConfig(dtype="float32")).scaled_to(
+        TARGET)
+    wl = amt.make_workload(tc)
+    state = wl.init_fn(torch.Generator().manual_seed(11), "cpu")
+    meas = TMeasurements.zeros(200, torch.float32,
+                               num_particles=state.num_particles)
+    g, phys = tc.geometry, tc.physics
+    cr_oa = g.open_air_collision_radius(phys)
+    return wl, state, meas, {
+        "dt": tc.dt, "cr_oa_rr": cr_oa * cr_oa,
+        "h_m_oah": g.total_height - g.open_air_height,
+        "gap_side_top": (g.total_height - g.open_air_height
+                         - g.cold_coating_height),
+        "nudge": 10.0 * phys.argon_radius,
+        "rc_sq": g.pore_coated_radius**2}
+
+
+@pytest.mark.parametrize("kernel", sorted(PASSES))
+def test_wrapper_passes_declared_arguments(kernel, monkeypatch):
+    """The wrapper (K8's, K14's), forced down its kernel side with the
+    launch intercepted, passes the declared argument kinds and the
+    constants in the order of their names, each a float32 of the plain
+    version's double."""
     calls = []
 
     def fake_launch(name, device, *args):
@@ -277,30 +325,26 @@ def test_wrapper_passes_declared_arguments(monkeypatch):
             assert isinstance(arg, want), (arg, kind)
         calls.append(name)
 
-    jc, tc = configs("float32")
-    n, arrays, staging = make_state(jc, np.float32)
-    state, meas = port_inputs(arrays, staging, torch.float32)
-    wl = amt.make_workload(tc)
+    wl, state, meas, expect = wrapper_case(kernel)
+    n = state.num_particles
     monkeypatch.setattr(kernels, "use_plain", lambda t: False)
     monkeypatch.setattr(kernels, "launch", fake_launch)
     out = wl.advance(state, meas, torch.zeros((n, 2)))
-    assert calls == ["pore_advance"] and len(out) == 6
+    assert calls == [kernel] and len(out) == 6
+    assert out[0] is state and out[1] is meas
     with pytest.raises(TypeError):
         wl.advance(dataclasses.replace(state, pos=state.pos.double()), meas,
                    torch.zeros((n, 2)))
 
-    g, phys = tc.geometry, tc.physics
-    params = wl.advance.__closure__
-    prm = next(c.cell_contents for c in params
-               if isinstance(c.cell_contents, pore_pass.PoreParams))
-    values, horner = prm.on(torch.device("cpu"))
-    ar = phys.argon_radius
-    expect = {"dt": tc.dt, "h": g.total_height,
-              "plane_cold": g.total_height - g.open_air_height + ar,
-              "half_mass": 0.5 * phys.mass,
-              "cr_pore_sq": g.pore_collision_radius(phys)**2,
-              "h_m_z_inset": g.total_height - 0.5 * g.open_air_height}
+    prm = next(c.cell_contents for c in wl.advance.__closure__
+               if isinstance(c.cell_contents, (pore_pass.PoreParams,
+                                               pore_pass.SpecularParams)))
+    values = prm.on(torch.device("cpu"))
+    if kernel == "pore_advance":
+        values, horner = values
+        assert horner.dtype == torch.float32 and horner.numel() == 13
+    names = PASSES[kernel][2]
+    assert values.dtype == torch.float32 and values.numel() == len(names)
     for name, value in expect.items():
-        got = values[pore_pass.PARAM_NAMES.index(name)]
+        got = values[names.index(name)]
         assert got == torch.tensor(value, dtype=torch.float32), name
-    assert horner.dtype == torch.float32 and horner.numel() == 13

@@ -1,9 +1,9 @@
-"""The steps update their own tensors in place: both pores' steps through
-K8, the pairs step through K3, K4 and K7's compacted entry, the sweep, the
-cube and the z-slab engine through K10 and K7's dense entry.  What that
-leans on and what it must not touch, on the CPU with the plain twins, in
-both pores' pairs mode and in the temperature pore's sweep, the cube and
-2-slab sharded runs:
+"""The steps update their own tensors in place: the temperature pore's
+steps through K8, the specular pore's through K14, the pairs step through
+K3, K4 and K7's compacted entry, the sweep, the cube and the z-slab engine
+through K10 and K7's dense entry.  What that leans on and what it must
+not touch, on the CPU with the plain twins, in both pores' pairs mode and
+in the temperature pore's sweep, the cube and 2-slab sharded runs:
 
 - ``Simulation.run`` and ``ShardedSimulation.run`` copy what their caller
   hands them, so the caller's state and measurements stay bitwise as they
@@ -14,8 +14,9 @@ both pores' pairs mode and in the temperature pore's sweep, the cube and
   given ascend;
 - K10 writes the tensors it is given, in every caller, and on a slab no
   ghost lane;
-- K8 returns and updates the state and staging it is given, in every
-  caller, and leaves a slab's staging rows past its lanes alone.
+- K8 (and K14, the specular pore's) returns and updates the state and
+  staging it is given, in every caller, and leaves a slab's staging rows
+  past its lanes alone.
 """
 
 import dataclasses
@@ -272,8 +273,10 @@ def test_resolve_pairs_writes_the_steps_own_tensors(kind, monkeypatch):
 
 
 # K8's callers: the temperature pore's pairs step and sweep, and both cut
-# in two z-slabs.
-K8_KINDS = ("pairs", "sweep", "sharded pairs", "sharded sweep")
+# in two z-slabs; K14's (the specular pore's wrapper): its pairs step, and
+# cut in two z-slabs.
+K8_KINDS = ("pairs", "sweep", "sharded pairs", "sharded sweep",
+            "specular pairs", "specular sharded pairs")
 K8_FIELDS = ("pos", "vel", "paths", "has_collided")
 
 
@@ -282,7 +285,10 @@ def k8_sim(kind):
                                steps_per_epoch=3)
               if kind.endswith("pairs") else
               amt.EngineConfig(steps_per_epoch=3))
-    cfg = amt.temperature_pore_config(engine=engine).scaled_to(TARGET)
+    pore = (amt.PoreConfig if kind.startswith("specular")
+            else amt.temperature_pore_config)
+    kind = kind.removeprefix("specular ")
+    cfg = pore(engine=engine).scaled_to(TARGET)
     if kind.startswith("sharded"):
         return amt.ShardedSimulation(amt.make_workload(cfg), n_shards=2,
                                      devices=["cpu"])
@@ -291,12 +297,14 @@ def k8_sim(kind):
 
 @pytest.mark.parametrize("kind", K8_KINDS)
 def test_pore_advance_writes_the_steps_own_tensors(kind, monkeypatch):
-    """K8's wrapper in every caller returns the state and measurements it
-    was given, with their pos, vel, paths, has_collided and the first n
-    staging rows updated to what the plain version computes on copies, a
-    slab's staging rows past its lanes as they were; no tensor of the
-    run's caller is written."""
-    advance = pore_pass.pore_advance
+    """K8's wrapper (K14's for the specular pore) in every caller returns
+    the state and measurements it was given, with their pos, vel, paths,
+    has_collided and the first n staging rows updated to what the plain
+    version computes on copies, a slab's staging rows past its lanes as
+    they were; no tensor of the run's caller is written."""
+    wrapper = ("specular_advance" if kind.startswith("specular")
+               else "pore_advance")
+    advance = getattr(pore_pass, wrapper)
     rows_past = []
 
     def spy(state, measure, uniforms, params, plain, missed=None):
@@ -320,14 +328,14 @@ def test_pore_advance_writes_the_steps_own_tensors(kind, monkeypatch):
         rows_past.append(measure.pending_vals.shape[0] - n)
         return out
 
-    monkeypatch.setattr(pore_pass, "pore_advance", spy)
+    monkeypatch.setattr(pore_pass, wrapper, spy)
     sim = k8_sim(kind)
     state, meas, gens = dense_start(sim)
     given = snapshot_all(state, meas)
     steps = 5
     sim.run(num_steps=steps, state=state, measure=meas, **gens)
     assert_all_as_snapshot(state, meas, given)
-    slabs = 2 if kind.startswith("sharded") else 1
+    slabs = 2 if "sharded" in kind else 1
     assert len(rows_past) == steps * slabs
     assert (min(rows_past) > 0) if slabs == 2 else (set(rows_past) == {0})
 

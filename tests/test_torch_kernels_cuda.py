@@ -14,7 +14,8 @@ replayed in a CUDA graph over a longer old tail; K7's
 path_sum within 1e-6 relative (block sums in another order); K8's state
 within 2 ulp and its ledger within 1e-5 of sum|term| (chip_smoke.py states
 why), in place bitwise its twin on copies, also with the audit and with
-staging rows past the particles; K11 exact, also with every particle in one z-slab, at the window's
+staging rows past the particles; K14 every output bitwise its twin's, in
+place with staging rows past the particles and the audit; K11 exact, also with every particle in one z-slab, at the window's
 edges and replayed in a CUDA graph; K7 in place, also over two calls and
 replayed in a CUDA graph; K12's buffers bitwise, its flags and counts exact; K2
 exact, also on its long-segment path and when replayed in a CUDA graph.  The
@@ -354,6 +355,16 @@ def test_pore_advance_kernel_with_the_audit(device):
     post-wall state, and K8 with the audit bitwise K8 without it."""
     chip_smoke.check_pore_advance_audit("", particles=TARGET, steps=3,
                                         timed=False)
+
+
+def test_specular_advance_kernel(device):
+    """K14 against its plain twin on the specular pore's pairs slice: every
+    output bitwise, the audit's counts equal, in place with staging rows
+    past the particles untouched, with the audit bitwise without it."""
+    before = kernels.launch_counts["specular_advance"]
+    chip_smoke.check_specular_advance("", particles=TARGET, steps=4, reps=0,
+                                      require_cases=False)
+    assert kernels.launch_counts["specular_advance"] > before
 
 
 def test_post_pairs_kernel(device):

@@ -25,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import argon_monte_carlo_tpu_torch as amt
 from argon_monte_carlo_tpu_torch.models import pore as pore_model
+from argon_monte_carlo_tpu_torch.ops import pore_pass
 from argon_monte_carlo_tpu_torch.ops import walls as wall_ops
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -79,7 +80,9 @@ def test_the_program_runs_what_the_file_states(harness):
     assert pcfg.num_molecules == setup.n == cfg["num_particles"] == 999_999
     assert pcfg.dt == setup.dt == pytest.approx(1.848e-13, rel=1e-3)
     wl = amt.make_workload(pcfg)
-    assert wl.post_pairs_stage is None and wl.advance is wl.advance_plain
+    assert wl.post_pairs_stage is None and wl.advance is not wl.advance_plain
+    assert any(isinstance(c.cell_contents, pore_pass.SpecularParams)
+               for c in wl.advance.__closure__)
 
 
 @pytest.fixture
